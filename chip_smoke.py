@@ -1,0 +1,290 @@
+"""Smoke test of the PyTorch/CUDA port (petsctpu_torch) on one NVIDIA card.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+It needs CUDA and nvcc (it builds the kernels from petsctpu_torch/csrc
+into petsctpu_torch/_build on first use) and imports nothing of JAX or
+petsctpu. Phases, each of which raises on failure:
+
+1. device: the card's name and power limit;
+2. build: every kernel, one nvcc per source, all started together;
+3. kernel against plain, on the card: K2 (SELL SpMV) on the 128³ ex45
+   operator (diag mode) and on a rectangular chunk-mode operator must
+   equal its plain PyTorch version bit for bit and scipy's fp64 product
+   within 1e-5 relative;
+4. the main path at full size: mat_from_options(-mat_type sell) and a
+   KSP solve, CG+Jacobi to rtol 1e-5 (true residual ≤ 1e-4) and then
+   GMRES(30)+Jacobi for 300 iterations, with the launch counts reset
+   just before and read just after; plus the same CG solve at 16³ on
+   the card against the port's CPU path;
+5. times (CUDA events, median of 50 runs after warm-up): the kernel,
+   its plain version, a torch.sparse CSR product as the yardstick, the
+   kernel's bound and a STREAM triad; and the ms per CG iteration of
+   the main path's solve and of a repeat of it.
+
+It ends with the nvidia-smi line, a JSON line of kernels and, last,
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from petsctpu_torch.convert import sell_from_arrays
+from petsctpu_torch.core.options import Options
+from petsctpu_torch.ksp import KSP
+from petsctpu_torch.mat import mat_from_options
+from petsctpu_torch.mat.sell import sell_pack
+from petsctpu_torch.models import ex45_system
+from petsctpu_torch.ops import _build
+from petsctpu_torch.ops.sell_spmv import sell_spmv, sell_spmv_plain
+
+GRID = 128                 # ex45 at 128³: n = 2,097,152
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside tensor cores
+KSP_OPTS = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-5",
+            "ksp_max_it": "2000"}
+GMRES_OPTS = {"ksp_type": "gmres", "pc_type": "jacobi",
+              "ksp_gmres_restart": "30", "ksp_max_it": "300"}
+
+
+def device_info():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {name} (count {torch.cuda.device_count()})")
+    print(f"nvidia-smi: {smi}")
+    print("torch", torch.__version__, "cuda", torch.version.cuda,
+          "python", sys.version.split()[0])
+    return name, smi
+
+
+def build_kernels():
+    t = time.perf_counter()
+    reports = _build.build_all()
+    print(f"build: {sorted(reports)} in {time.perf_counter() - t:.1f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}]: {line.strip()}")
+
+
+def check_kernel(A, G, mode, dev, rng):
+    """K2 against its plain version (bit for bit) and against scipy."""
+    arrays, statics = sell_pack(A, G=G, mode=mode)
+    M = sell_from_arrays(arrays, statics, device=dev)
+    x = rng.standard_normal(A.shape[1]).astype(np.float32)
+    xp = M.pad_operand(torch.from_numpy(x).to(dev))
+    args = (M.vals, M.idx, M.qs, M.winstart, xp)
+    kw = dict(G=M.G, S=M.S, mode=M.mode)
+    y = sell_spmv(*args, **kw)
+    y_plain = sell_spmv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((y - y_plain).abs().max())
+    yv = y.reshape(-1)[:A.shape[0]].double().cpu().numpy()
+    ref = A @ x.astype(np.float64)
+    rel = float(np.abs(yv - ref).max() / np.abs(ref).max())
+    print(f"kernel {mode}: n={A.shape[0]} m={A.shape[1]} nnz={A.nnz} "
+          f"nt={M.nt} P={M.npass} G={M.G} S={M.S} Lp={M.Lp} "
+          f"max|kernel-plain|={err} rel err vs scipy fp64={rel:.3e}")
+    if not torch.equal(y, y_plain):
+        raise AssertionError(f"K2 {mode}: kernel differs from its plain "
+                             f"version (max abs {err})")
+    if not rel <= 1e-5:
+        raise AssertionError(f"K2 {mode}: relative error {rel} vs scipy")
+    return M, xp, err
+
+
+def solve(M, b, opts):
+    ksp = KSP(Options(dict(opts)))
+    ksp.set_operators(M)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = ksp.solve(b)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def check_gmres_history(hist, restart):
+    """Finite, and non-increasing: strictly inside each restart cycle
+    (Givens estimates), and across a restart within 1e-3 relative (the
+    new cycle starts from a recomputed fp32 residual, not the estimate)."""
+    if not np.isfinite(hist).all():
+        raise AssertionError("GMRES history has non-finite entries")
+    rises = [(k, hist[k - 1], hist[k]) for k in range(1, len(hist))
+             if hist[k] > hist[k - 1]]
+    for k, prev, cur in rises:
+        if (k - 1) % restart != 0 or k == 1 or cur > prev * (1 + 1e-3):
+            raise AssertionError(f"GMRES history rises at {k}: {prev} -> {cur}")
+    return len(rises)
+
+
+def drive_main_path(A, b_np):
+    """The options-driven solve at full size, counting kernel launches."""
+    opts = Options({"mat_type": "sell", "mat_ordering_type": "natural"})
+    sell_spmv.launches = 0
+    t = time.perf_counter()
+    M, perm = mat_from_options(A, opts, dtype=torch.float32)
+    setup_s = time.perf_counter() - t
+    b = torch.from_numpy(b_np[perm].astype(np.float32)).cuda()
+    res, cg_s = solve(M, b, KSP_OPTS)
+    its, reason = int(res.its), int(res.reason)
+    cg_launches = sell_spmv.launches
+    x = np.empty(A.shape[0])
+    x[perm] = res.x.double().cpu().numpy()
+    relres = float(np.linalg.norm(b_np - A @ x) / np.linalg.norm(b_np))
+    print(f"main path: setup {setup_s:.2f} s; CG+jacobi its={its} "
+          f"reason={reason} {cg_s:.3f} s = {1e3 * cg_s / its:.4f} ms/it; "
+          f"true rel residual {relres:.3e}; K2 launches {cg_launches}")
+    if reason <= 0 or not relres <= 1e-4:
+        raise AssertionError(f"CG failed: reason {reason}, residual {relres}")
+    if cg_launches < its:
+        raise AssertionError(f"K2 launched {cg_launches} times in {its} its")
+    gres, gm_s = solve(M, b, GMRES_OPTS)
+    git = int(gres.its)
+    rises = check_gmres_history(gres.history[:git + 1].numpy(), 30)
+    launches = sell_spmv.launches
+    print(f"main path: GMRES(30)+jacobi its={git} reason={int(gres.reason)} "
+          f"{gm_s:.3f} s = {1e3 * gm_s / git:.4f} ms/it; history "
+          f"{float(gres.history[0]):.6e} -> {float(gres.history[git]):.6e}, "
+          f"{rises} rises at restarts; K2 launches in the main path {launches}")
+    return M, b, launches, 1e3 * cg_s / its
+
+
+def check_small_against_cpu():
+    """CG+jacobi at 16³ on the card against the port's CPU path."""
+    A, b, _ = ex45_system(16, 16, 16)
+    opts = Options({"mat_type": "sell", "mat_ordering_type": "natural"})
+    out = {}
+    for dev in ("cuda", "cpu"):
+        M, _ = mat_from_options(A, opts, device=dev)
+        res = KSP(Options(dict(KSP_OPTS))).set_operators(M).solve(
+            torch.from_numpy(b.astype(np.float32)).to(dev))
+        out[dev] = (int(res.its), int(res.reason), res.history.numpy(),
+                    res.x.cpu().numpy())
+    (gi, gr, gh, gx), (ci, cr, ch, cx) = out["cuda"], out["cpu"]
+    k = min(gi, ci) + 1
+    hdiff = float(np.abs(gh[:k] / ch[:k] - 1).max())
+    print(f"16^3 card vs cpu: its {gi}/{ci} reason {gr}/{cr} history rel "
+          f"diff {hdiff:.2e} max|x diff| {np.abs(gx - cx).max():.2e}")
+    if gr != cr or gr <= 0 or abs(gi - ci) > 1 or not hdiff <= 1e-4:
+        raise AssertionError("16^3 solve on the card disagrees with the CPU")
+    if gx.shape != (A.shape[0],) or not np.isfinite(gx).all():
+        raise AssertionError("16^3 solution has the wrong shape or NaNs")
+
+
+def time_ms(fn, runs=50, inner=10, warmup=3):
+    """Median over `runs` of the CUDA-event time of `inner` back-to-back
+    calls, per call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def stream_triad_gbs(n=1 << 27):
+    b = torch.rand(n, device="cuda")
+    c = torch.rand(n, device="cuda")
+    a = torch.empty_like(b)
+    ms = time_ms(lambda: torch.add(b, c, alpha=3.0, out=a), runs=20, inner=5)
+    return 3 * n * 4 / (ms * 1e-3) / 1e9
+
+
+def warm_cg_ms_per_it(M, b):
+    """ms per CG iteration of a repeat of the main path's solve (the
+    main path's own solve also pays the first-call set-up of cuBLAS)."""
+    res, secs = solve(M, b, KSP_OPTS)
+    return 1e3 * secs / int(res.its)
+
+
+def measure(A, M, xp):
+    """Times of K2, its plain version and the CSR yardstick at 128³."""
+    args = (M.vals, M.idx, M.qs, M.winstart, xp)
+    kw = dict(G=M.G, S=M.S, mode=M.mode)
+    ms = time_ms(lambda: sell_spmv(*args, **kw))
+    plain_ms = time_ms(lambda: sell_spmv_plain(*args, **kw), inner=1)
+    Ac = sp.csr_matrix(A, dtype=np.float32)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(Ac.indptr.astype(np.int64)),
+        torch.from_numpy(Ac.indices.astype(np.int64)),
+        torch.from_numpy(Ac.data), size=Ac.shape,
+        check_invariants=True).cuda()
+    x = xp.reshape(-1)[M.G * 128:M.G * 128 + A.shape[1]].contiguous()
+    y_lib = torch.mv(csr, x)
+    y = sell_spmv(*args, **kw).reshape(-1)[:A.shape[0]]
+    lib_rel = float((y_lib - y).abs().max() / y.abs().max())
+    library_ms = time_ms(lambda: torch.mv(csr, x))
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + M.nt * M.G * 128 * 4
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 2.0 * A.nnz / FP32_FLOPS_PER_S * 1e3
+    triad = stream_triad_gbs()
+    print(f"K2 at {GRID}^3: {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+          f"of {nbytes} compulsory bytes); plain {plain_ms:.4f} ms; "
+          f"torch.sparse CSR mv {library_ms:.4f} ms (rel diff {lib_rel:.1e}); "
+          f"bound {bound_bytes_ms:.4f} ms by bytes at 3.35 TB/s "
+          f"({bound_ops_ms:.5f} ms by fp32 ops); STREAM triad {triad:.1f} GB/s")
+    if not lib_rel <= 1e-5:
+        raise AssertionError(f"CSR yardstick disagrees with K2: {lib_rel}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                else "operations")
+
+
+def main():
+    name, smi = device_info()
+    build_kernels()
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    A, b, _ = ex45_system(GRID, GRID, GRID)
+    print(f"ex45 {GRID}^3: n={A.shape[0]} nnz={A.nnz} "
+          f"({time.perf_counter() - t:.1f} s)")
+    M, xp, err = check_kernel(A, 16, "diag", "cuda", rng)
+    rows = 3 * 16 * 128 + 500
+    R = sp.random(rows, 2500, density=4 / 2500, random_state=1,
+                  format="csr", dtype=np.float32)
+    R = (R + sp.eye(rows, 2500, dtype=np.float32)).tocsr()
+    _, _, err_chunk = check_kernel(R, 16, "chunk", "cuda", rng)
+    Mp, bp, launches, cg_ms_per_it = drive_main_path(A, b)
+    check_small_against_cpu()
+    times = measure(A, M, xp)
+    print(f"CG+jacobi ms per iteration at {GRID}^3: {cg_ms_per_it:.4f} in "
+          f"the main path, {warm_cg_ms_per_it(Mp, bp):.4f} repeated")
+    kernels = [dict(name="sell_spmv", route="cuda",
+                    source="petsctpu_torch/csrc/sell_spmv.cu",
+                    replaces="petsctpu/mat/sell.py:136", launches=launches,
+                    max_abs_err=max(err, err_chunk), **times)]
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels and load them with ctypes.
+
+Each `petsctpu_torch/csrc/<name>.cu` is compiled by nvcc on its own
+into `petsctpu_torch/_build/lib<name>.so`, a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). A
+library is rebuilt when any source under `csrc/` is newer than it.
+Nothing is built at import: `load` builds at first use, and
+`build_all` starts one nvcc per source, all together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def kernel_names() -> list:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def lib_path(name: str) -> Path:
+    return BUILD / f"lib{name}.so"
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return nvcc
+
+
+def _stale(name: str) -> bool:
+    so = lib_path(name)
+    if not so.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir()
+                 if p.suffix in (".cu", ".cuh"))
+    return newest > so.stat().st_mtime
+
+
+def build_all(names=None) -> dict:
+    """Compile the stale kernels, one nvcc per source, all started
+    together. Returns {name: nvcc's stderr} (ptxas's register and
+    shared-memory report) for the kernels it built."""
+    names = kernel_names() if names is None else list(names)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = BUILD / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, tmp, proc))
+    reports, failed = {}, []
+    for name, tmp, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}{err}")
+            continue
+        os.replace(tmp, lib_path(name))
+        reports[name] = err
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if stale."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if _stale(name):
+                build_all([name])
+            lib = ctypes.CDLL(str(lib_path(name)))
+            _LIBS[name] = lib
+        return lib
