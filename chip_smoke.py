@@ -10,19 +10,37 @@ petsctpu. Phases, each of which raises on failure:
 
 1. device: the card's name and power limit;
 2. build: every kernel, one nvcc per source, all started together;
-3. kernel against plain, on the card: K2 (SELL SpMV) on the 128³ ex45
+3. K2 against plain, on the card: K2 (SELL SpMV) on the 128³ ex45
    operator (diag mode) and on a rectangular chunk-mode operator must
    equal its plain PyTorch version bit for bit and scipy's fp64 product
    within 1e-5 relative;
-4. the main path at full size: mat_from_options(-mat_type sell) and a
+4. slice 1's path at full size: mat_from_options(-mat_type sell) and a
    KSP solve, CG+Jacobi to rtol 1e-5 (true residual ≤ 1e-4) and then
    GMRES(30)+Jacobi for 300 iterations, with the launch counts reset
    just before and read just after; plus the same CG solve at 16³ on
    the card against the port's CPU path;
-5. times (CUDA events, median of 50 runs after warm-up): the kernel,
-   its plain version, a torch.sparse CSR product as the yardstick, the
-   kernel's bound and a STREAM triad; and the ms per CG iteration of
-   the main path's solve and of a repeat of it.
+5. K2's times (CUDA events, median of 50 runs after warm-up): the
+   kernel, its plain version, a torch.sparse CSR product as the
+   yardstick, the kernel's bound and a STREAM triad; and the ms per CG
+   iteration of that path's solve and of a repeat of it;
+6. slice 2's path at full size, KSP ex45 with -pc_type mg: the 129³
+   7-point operator as a StencilMat (stencil_from_scipy, fp64) and a
+   KSP solve, CG preconditioned by geometric MG on DA((129,129,129))
+   with the device setup (Galerkin coarsening by probing, Chebyshev+
+   Jacobi smoothing, a 27-row LU coarse solve) to rtol 1e-5: true
+   residual ≤ 1e-4 and K1 launched at least once per iteration, with
+   the counts reset just before and read just after; plus the same
+   solve at 17³ on the card against the port's CPU path (equal its and
+   reason, history within 1e-10 relative);
+7. K1 against plain, on the card: K1 (stencil SpMV) must equal its
+   plain version bit for bit, and the scipy fp64 product of the
+   assembled operator within 1e-5 relative in fp32 and 1e-12 in fp64,
+   on bench.py's 4096² 5-point layout with random coefficients (fp32),
+   the 129³ ex45 operator, the 65³ 27-point Galerkin operator of the
+   MG hierarchy (fp64), and small 2-D periodic and mirror stencils;
+8. K1's times at those three large shapes: kernel, plain version,
+   torch.sparse CSR `mv` and the byte bound; and the ms per CG+MG
+   iteration of a repeat of the solve.
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -42,16 +60,24 @@ import torch
 
 from petsctpu_torch.convert import sell_from_arrays
 from petsctpu_torch.core.options import Options
+from petsctpu_torch.dm import DA
 from petsctpu_torch.ksp import KSP
-from petsctpu_torch.mat import mat_from_options
+from petsctpu_torch.mat import (StencilMat, mat_from_options,
+                                stencil_from_scipy, stencil_to_scipy)
 from petsctpu_torch.mat.sell import sell_pack
 from petsctpu_torch.models import ex45_system
 from petsctpu_torch.ops import _build
 from petsctpu_torch.ops.sell_spmv import sell_spmv, sell_spmv_plain
+from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 
 GRID = 128                 # ex45 at 128³: n = 2,097,152
+MG_GRID = 129              # ex45 -pc_type mg at 129³: n = 2,146,689
+BENCH_M = 4096             # bench.py's stencil: 4096², n = 16,777,216
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside tensor cores
+FP64_FLOPS_PER_S = 34e12   # H100 SXM data sheet, fp64 outside tensor cores
+MG_OPTS = {"ksp_type": "cg", "pc_type": "mg", "ksp_rtol": "1e-5"}
+STAR5 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 KSP_OPTS = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-5",
             "ksp_max_it": "2000"}
 GMRES_OPTS = {"ksp_type": "gmres", "pc_type": "jacobi",
@@ -133,10 +159,15 @@ def check_gmres_history(hist, restart):
     return len(rises)
 
 
+def reset_counts():
+    sell_spmv.launches = 0
+    stencil_mult.launches = 0
+
+
 def drive_main_path(A, b_np):
     """The options-driven solve at full size, counting kernel launches."""
     opts = Options({"mat_type": "sell", "mat_ordering_type": "natural"})
-    sell_spmv.launches = 0
+    reset_counts()
     t = time.perf_counter()
     M, perm = mat_from_options(A, opts, dtype=torch.float32)
     setup_s = time.perf_counter() - t
@@ -256,6 +287,221 @@ def measure(A, M, xp):
                 else "operations")
 
 
+def drive_mg_path():
+    """KSP ex45 -pc_type mg at 129³ on a StencilMat, counting launches."""
+    g = MG_GRID
+    t = time.perf_counter()
+    A, b, _ = ex45_system(g, g, g)
+    print(f"ex45 {g}^3: n={A.shape[0]} nnz={A.nnz} "
+          f"({time.perf_counter() - t:.1f} s)")
+    reset_counts()
+    t = time.perf_counter()
+    S = stencil_from_scipy(A, (g, g, g))
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t
+    bt = torch.from_numpy(b).cuda()
+    ksp = KSP(Options({**MG_OPTS, "pc_mg_da": DA((g, g, g))}))
+    ksp.set_operators(S)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    mg_s = time.perf_counter() - t
+    setup_launches = stencil_mult.launches
+    t = time.perf_counter()
+    res = ksp.solve(bt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {"stencil_mult": stencil_mult.launches,
+                "sell_spmv": sell_spmv.launches}
+    its, reason = int(res.its), int(res.reason)
+    solve_launches = launches["stencil_mult"] - setup_launches
+    x = res.x.cpu().numpy()
+    if x.shape != (A.shape[0],) or not np.isfinite(x).all():
+        raise AssertionError("MG solution has the wrong shape or NaNs")
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    pc = ksp.pc
+    levels = " ".join(f"{lv.A.grid[0]}^3x{len(lv.A.offsets)}pt"
+                      for lv in pc.levels)
+    print(f"mg path: stencil_from_scipy {op_s:.2f} s; MG setup {mg_s:.2f} s "
+          f"(levels {levels}, coarse {pc.coarse_A.shape[0]}-row LU with "
+          f"{pc.coarse.Lplan.nlev}+{pc.coarse.Uplan.nlev} triangular "
+          f"levels; {setup_launches} K1 launches)")
+    print(f"mg path: CG+MG its={its} reason={reason} {secs:.3f} s = "
+          f"{1e3 * secs / its:.4f} ms/it; true rel residual {relres:.3e}; "
+          f"history {float(res.history[0]):.6e} -> "
+          f"{float(res.history[its]):.6e}; K1 launches {solve_launches} in "
+          f"the solve, {launches['stencil_mult']} in the path")
+    if reason <= 0 or not relres <= 1e-4:
+        raise AssertionError(f"CG+MG failed: reason {reason}, residual "
+                             f"{relres}")
+    if solve_launches < its:
+        raise AssertionError(f"K1 launched {solve_launches} times in {its} "
+                             "its")
+    return dict(S=S, ksp=ksp, b=bt, launches=launches["stencil_mult"],
+                ms_per_it=1e3 * secs / its)
+
+
+def check_mg_small_against_cpu():
+    """CG+MG at 17³ on the card against the port's CPU path (fp64)."""
+    g = 17
+    A, b, _ = ex45_system(g, g, g)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        S = stencil_from_scipy(A, (g, g, g), device=dev)
+        res = KSP(Options({**MG_OPTS, "pc_mg_da": DA((g, g, g))})) \
+            .set_operators(S).solve(torch.from_numpy(b).to(dev))
+        out[dev] = (int(res.its), int(res.reason), res.history.numpy(),
+                    res.x.cpu().numpy())
+    (gi, gr, gh, gx), (ci, cr, ch, cx) = out["cuda"], out["cpu"]
+    k = min(gi, ci) + 1
+    hdiff = float(np.abs(gh[:k] / ch[:k] - 1).max())
+    print(f"17^3 CG+MG card vs cpu: its {gi}/{ci} reason {gr}/{cr} history "
+          f"rel diff {hdiff:.2e} max|x diff| {np.abs(gx - cx).max():.2e}")
+    if gr != cr or gr <= 0 or gi != ci or not hdiff <= 1e-10:
+        raise AssertionError("17^3 MG solve on the card disagrees with the "
+                             "CPU")
+    if gx.shape != (A.shape[0],) or not np.isfinite(gx).all():
+        raise AssertionError("17^3 MG solution has the wrong shape or NaNs")
+
+
+def bench_stencil(rng, m):
+    """bench.py's 4096² 5-point layout (bench.py:42-55) in fp32, each
+    coefficient scaled by a random factor in [1, 1.1)."""
+    C = np.zeros((5, m, m), np.float32)
+    C[0] = 4.0
+    C[1, 1:, :] = -1.0
+    C[2, :-1, :] = -1.0
+    C[3, :, 1:] = -1.0
+    C[4, :, :-1] = -1.0
+    C *= 1.0 + 0.1 * rng.random((5, m, m), dtype=np.float32)
+    return StencilMat(torch.from_numpy(C).cuda(), STAR5, (m, m))
+
+
+def numpy_stencil(S, x):
+    """fp64 numpy product with every boundary type (np.roll for
+    periodic, np.pad reflect for mirror, zero pad for none)."""
+    C = S.coeffs.double().cpu().numpy()
+    xg = x.reshape(S.grid)
+    y = np.zeros(S.grid)
+    for d, off in enumerate(S.offsets):
+        s = xg
+        for ax, (o, b) in enumerate(zip(off, S.boundary
+                                        or ("none",) * len(S.grid))):
+            if o == 0:
+                continue
+            if b == "periodic":
+                s = np.roll(s, -o, axis=ax)
+                continue
+            pad = [(0, 0)] * s.ndim
+            pad[ax] = (0, o) if o > 0 else (-o, 0)
+            s = np.pad(s, pad, mode="reflect" if b == "mirror"
+                       else "constant")
+            idx = [slice(None)] * s.ndim
+            m = s.shape[ax] - abs(o)
+            idx[ax] = slice(o, o + m) if o > 0 else slice(0, m)
+            s = s[tuple(idx)]
+        y += C[d] * s
+    return y.reshape(-1)
+
+
+def check_k1(label, S, rng, A_host=None):
+    """K1 against its plain version (bit for bit) and an fp64 product:
+    scipy's on the assembled operator, or numpy's for mirror axes."""
+    x64 = rng.standard_normal(S.shape[0])
+    x = torch.from_numpy(x64).to("cuda", S.dtype)
+    args = (S.coeffs, x, S.offsets, S.grid, S.boundary)
+    y = stencil_mult(*args)
+    y_plain = stencil_mult_plain(*args)
+    torch.cuda.synchronize()
+    err = float((y - y_plain).abs().max())
+    xs = x.double().cpu().numpy()
+    ref = A_host @ xs if A_host is not None else numpy_stencil(S, xs)
+    rel = float(np.abs(y.double().cpu().numpy() - ref).max()
+                / np.abs(ref).max())
+    tol = 1e-5 if S.dtype == torch.float32 else 1e-12
+    print(f"K1 {label}: grid {S.grid} D={len(S.offsets)} "
+          f"boundary {S.boundary or 'none'} {S.dtype}: "
+          f"max|kernel-plain|={err} rel err vs fp64 {rel:.3e}")
+    if not torch.equal(y, y_plain):
+        raise AssertionError(f"K1 {label}: kernel differs from its plain "
+                             f"version (max abs {err})")
+    if not rel <= tol:
+        raise AssertionError(f"K1 {label}: relative error {rel} > {tol}")
+    return err, x
+
+
+def measure_k1(label, S, x, A_host):
+    """Times of K1, its plain version and the CSR yardstick."""
+    args = (S.coeffs, x, S.offsets, S.grid, S.boundary)
+    ms = time_ms(lambda: stencil_mult(*args))
+    plain_ms = time_ms(lambda: stencil_mult_plain(*args), runs=20, inner=1)
+    Ac = A_host.astype(np.float32 if S.dtype == torch.float32
+                       else np.float64)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(Ac.indptr.astype(np.int64)),
+        torch.from_numpy(Ac.indices.astype(np.int64)),
+        torch.from_numpy(Ac.data), size=Ac.shape,
+        check_invariants=True).cuda()
+    y_lib = torch.mv(csr, x)
+    y = stencil_mult(*args)
+    lib_rel = float((y_lib - y).abs().max() / y.abs().max())
+    library_ms = time_ms(lambda: torch.mv(csr, x))
+    n, D = S.shape[0], len(S.offsets)
+    nbytes = (D + 2) * S.coeffs.element_size() * n
+    peak = FP32_FLOPS_PER_S if S.dtype == torch.float32 else FP64_FLOPS_PER_S
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 2.0 * D * n / peak * 1e3
+    print(f"K1 at {label}: {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+          f"of {nbytes} compulsory bytes); plain {plain_ms:.4f} ms; "
+          f"torch.sparse CSR mv {library_ms:.4f} ms (rel diff {lib_rel:.1e}); "
+          f"bound {bound_bytes_ms:.4f} ms by bytes at 3.35 TB/s "
+          f"({bound_ops_ms:.5f} ms by ops)")
+    tol = 1e-5 if S.dtype == torch.float32 else 1e-12
+    if not lib_rel <= tol:
+        raise AssertionError(f"CSR yardstick disagrees with K1: {lib_rel}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                else "operations")
+
+
+def k1_phases(mg, rng):
+    """K1 against plain on every case, and its times at the three large
+    shapes; returns (max |kernel - plain|, times at 129³)."""
+    errs, times = [], {}
+    S = bench_stencil(rng, BENCH_M)
+    A_host = stencil_to_scipy(S)
+    err, x = check_k1(f"{BENCH_M}^2 5-point", S, rng, A_host)
+    errs.append(err)
+    measure_k1(f"{BENCH_M}^2 5-point fp32", S, x, A_host)
+    del S, A_host, x
+    for label, S in ((f"{MG_GRID}^3 7-point", mg["S"]),
+                     ("65^3 27-point Galerkin", mg["ksp"].pc.levels[1].A)):
+        A_host = stencil_to_scipy(S)
+        err, x = check_k1(label, S, rng, A_host)
+        errs.append(err)
+        times[label] = measure_k1(label + " fp64", S, x, A_host)
+    small = (((67, 130), STAR5 + ((2, -1), (-3, 2)), ("periodic", "none"),
+              np.float64),
+             ((61, 140), STAR5 + ((2, 0), (0, -2)), ("mirror", "mirror"),
+              np.float32),
+             ((9, 10, 33), ((0, 0, 0), (1, 0, 0), (0, -1, 0), (0, 0, 2),
+                            (-2, 1, -1)), ("mirror", "periodic", "none"),
+              np.float64))
+    for grid, offs, bnd, dt in small:
+        C = rng.standard_normal((len(offs),) + grid).astype(dt)
+        S = StencilMat(torch.from_numpy(C).cuda(), offs, grid, bnd)
+        errs.append(check_k1(f"small {'/'.join(bnd)}", S, rng)[0])
+    return max(errs), times[f"{MG_GRID}^3 7-point"]
+
+
+def warm_mg_ms_per_it(mg):
+    t = time.perf_counter()
+    res = mg["ksp"].solve(mg["b"])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / int(res.its)
+
+
 def main():
     name, smi = device_info()
     build_kernels()
@@ -275,10 +521,20 @@ def main():
     times = measure(A, M, xp)
     print(f"CG+jacobi ms per iteration at {GRID}^3: {cg_ms_per_it:.4f} in "
           f"the main path, {warm_cg_ms_per_it(Mp, bp):.4f} repeated")
+    del A, b, M, xp, Mp, bp, R
+    mg = drive_mg_path()
+    check_mg_small_against_cpu()
+    k1_err, k1_times = k1_phases(mg, rng)
+    print(f"CG+MG ms per iteration at {MG_GRID}^3: {mg['ms_per_it']:.4f} in "
+          f"the main path, {warm_mg_ms_per_it(mg):.4f} repeated")
     kernels = [dict(name="sell_spmv", route="cuda",
                     source="petsctpu_torch/csrc/sell_spmv.cu",
                     replaces="petsctpu/mat/sell.py:136", launches=launches,
-                    max_abs_err=max(err, err_chunk), **times)]
+                    max_abs_err=max(err, err_chunk), **times),
+               dict(name="stencil_mult", route="cuda",
+                    source="petsctpu_torch/csrc/stencil_mult.cu",
+                    replaces="petsctpu/ops/stencil_pallas.py:50",
+                    launches=mg["launches"], max_abs_err=k1_err, **k1_times)]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ import torch
 from petsctpu_torch.device import resolve_device
 from petsctpu_torch.mat.ell import AIJ
 from petsctpu_torch.mat.sell import SellMat
+from petsctpu_torch.mat.stencil import StencilMat
 from petsctpu_torch.pc.simple import JacobiPC
 
 
@@ -47,3 +48,44 @@ def aij_from_arrays(cols, vals, shape, nnz, device=None) -> AIJ:
 def jacobi_from_arrays(dinv, device=None) -> JacobiPC:
     """A JacobiPC from its inverse diagonal."""
     return JacobiPC(_tensor(dinv, resolve_device(device)))
+
+
+def stencil_from_arrays(coeffs, offsets, grid, boundary=(),
+                        device=None) -> StencilMat:
+    """A StencilMat from its coefficient planes [D, *grid] and statics."""
+    return StencilMat(_tensor(coeffs, resolve_device(device)), offsets,
+                      grid, boundary)
+
+
+def mg_from_arrays(levels, coarse, cycles: int = 1,
+                   mg_type: str = "multiplicative", device=None):
+    """An MGPC from each level's state, fine first.
+
+    levels: one dict a level with the operator's `coeffs`, `offsets`,
+    `grid` and `boundary`, the smoother's `dinv`, `emin`, `emax` and
+    `its`, and the next coarser `coarse_grid` (the Q1 prolongation).
+    coarse: the coarsest operator's `coeffs`, `offsets`, `grid` and
+    `boundary`, and its SuperLU factors `L`, `U` (scipy), `perm_r` and
+    `perm_c`."""
+    from petsctpu_torch.dm.da import Q1Interp
+    from petsctpu_torch.pc.factor import lupc_from_factors
+    from petsctpu_torch.pc.mg import ChebySmoother, MGLevel, MGPC
+
+    dev = resolve_device(device)
+
+    def op(s):
+        return stencil_from_arrays(s["coeffs"], s["offsets"], s["grid"],
+                                   s.get("boundary", ()), dev)
+
+    mg_levels = []
+    for lv in levels:
+        A = op(lv)
+        mg_levels.append(MGLevel(
+            A, Q1Interp(A.grid, lv["coarse_grid"]),
+            ChebySmoother(_tensor(lv["dinv"], dev), float(lv["emin"]),
+                          float(lv["emax"]), int(lv["its"]))))
+    coarse_A = op(coarse)
+    lu = lupc_from_factors(coarse["L"], coarse["U"], coarse["perm_r"],
+                           coarse["perm_c"], dtype=coarse_A.dtype,
+                           device=dev)
+    return MGPC(tuple(mg_levels), lu, coarse_A, cycles, mg_type)

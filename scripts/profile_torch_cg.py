@@ -1,12 +1,19 @@
-"""Where the time of one CG+Jacobi iteration goes, on one NVIDIA card.
+"""Where the time of one CG iteration goes, on one NVIDIA card.
 
-Runs the port's options-driven solve (ex45 at GRID³, -mat_type sell,
-natural order, CG+Jacobi) for a fixed number of iterations under
-torch.profiler and prints: the wall time per iteration, the device time
-per iteration by kernel, and the device's busy and idle shares of the
-wall time. Needs CUDA; run from the repository root:
+Runs the port's options-driven ex45 solve at GRID³ for a fixed number
+of iterations under torch.profiler and prints: the wall time per
+iteration, the device time per iteration by kernel, and the device's
+busy and idle shares of the wall time. PC picks the path:
 
-    python3 scripts/profile_torch_cg.py [GRID] [ITERATIONS]
+  jacobi  -mat_type sell, natural order, CG+Jacobi in fp32 (slice 1);
+  mg      a StencilMat in fp64, CG with -pc_type mg on DA((GRID,)*3),
+          device setup (slice 2); it also prints the host-clock time of
+          one MG apply, of the coarse LU solve alone and of K1 per level.
+
+Setup runs once, before the timed solves. Needs CUDA; run from the
+repository root:
+
+    python3 scripts/profile_torch_cg.py [GRID] [ITERATIONS] [PC]
 """
 
 from __future__ import annotations
@@ -23,28 +30,74 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from petsctpu_torch.core.options import Options  # noqa: E402
+from petsctpu_torch.dm import DA  # noqa: E402
 from petsctpu_torch.ksp import KSP  # noqa: E402
-from petsctpu_torch.mat import mat_from_options  # noqa: E402
+from petsctpu_torch.mat import mat_from_options, stencil_from_scipy  # noqa: E402
 from petsctpu_torch.models import ex45_system  # noqa: E402
 
 
-def main(grid=128, its=100):
+def _fixed_its(its):
+    return {"ksp_type": "cg", "ksp_rtol": "1e-30", "ksp_atol": "0",
+            "ksp_max_it": str(its)}
+
+
+def _jacobi_path(grid, its):
+    A, b, _ = ex45_system(grid, grid, grid)
+    M, _ = mat_from_options(A, Options({"mat_type": "sell",
+                                        "mat_ordering_type": "natural"}))
+    ksp = KSP(Options({**_fixed_its(its), "pc_type": "jacobi"}))
+    ksp.set_operators(M).set_from_options().setup()
+    return ksp, torch.from_numpy(b.astype(np.float32)).cuda()
+
+
+def _mg_path(grid, its):
+    A, b, _ = ex45_system(grid, grid, grid)
+    S = stencil_from_scipy(A, (grid, grid, grid))
+    ksp = KSP(Options({**_fixed_its(its), "pc_type": "mg",
+                       "pc_mg_da": DA((grid, grid, grid))}))
+    ksp.set_operators(S).set_from_options().setup()
+    return ksp, torch.from_numpy(b).cuda()
+
+
+def _wall_ms(fn, runs=20):
+    """Median host-clock ms of fn() followed by a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(times))
+
+
+def _mg_parts(pc, b):
+    """Host-clock ms of one MG apply, of its coarse LU solve and of K1
+    on each level."""
+    rc = torch.ones(pc.coarse_A.shape[0], dtype=b.dtype, device=b.device)
+    print(f"MG apply {_wall_ms(lambda: pc.apply(b)):.4f} ms; coarse LU "
+          f"solve ({pc.coarse_A.shape[0]} rows, {pc.coarse.Lplan.nlev}+"
+          f"{pc.coarse.Uplan.nlev} levels) "
+          f"{_wall_ms(lambda: pc.coarse.apply(rc)):.4f} ms")
+    for lev in pc.levels:
+        x = torch.ones(lev.A.shape[0], dtype=b.dtype, device=b.device)
+        print(f"  level {lev.A.grid} {len(lev.A.offsets)}-point: K1 "
+              f"{_wall_ms(lambda: lev.A.mult(x)):.4f} ms, smooth "
+              f"{_wall_ms(lambda: lev.smoother.smooth(lev.A, x, x)):.4f} "
+              f"ms, restrict {_wall_ms(lambda: lev.restrict(x)):.4f} ms")
+
+
+def main(grid=128, its=100, pc="jacobi"):
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_cg: CUDA is not available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    A, b, _ = ex45_system(grid, grid, grid)
-    M, _ = mat_from_options(A, Options({"mat_type": "sell",
-                                        "mat_ordering_type": "natural"}))
-    bt = torch.from_numpy(b.astype(np.float32)).cuda()
-    opts = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-30",
-            "ksp_atol": "0", "ksp_max_it": str(its)}
+    ksp, bt = (_mg_path if pc == "mg" else _jacobi_path)(grid, its)
 
     def run():
-        ksp = KSP(Options(dict(opts)))
-        ksp.set_operators(M)
         res = ksp.solve(bt)
         torch.cuda.synchronize()
         return res
@@ -54,8 +107,10 @@ def main(grid=128, its=100):
     res = run()
     wall = time.perf_counter() - t
     n = int(res.its)
-    print(f"ex45 {grid}^3 CG+jacobi: {n} its, wall {1e3 * wall / n:.4f} "
+    print(f"ex45 {grid}^3 CG+{pc}: {n} its, wall {1e3 * wall / n:.4f} "
           "ms/it (no profiler)")
+    if pc == "mg":
+        _mg_parts(ksp.pc, bt)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         res = run()
@@ -73,7 +128,7 @@ def main(grid=128, its=100):
           f"of wall; idle share {1 - busy_us / (pwall * 1e6):.3f}")
     print("device time by kernel (per iteration):")
     for name, (count, us) in sorted(per_kernel.items(),
-                                    key=lambda kv: -kv[1][1])[:15]:
+                                    key=lambda kv: -kv[1][1])[:20]:
         print(f"  {us / n / 1e3:9.5f} ms  {count / n:5.1f}/it  {name[:90]}")
 
 
@@ -90,4 +145,4 @@ def _union_us(ranges):
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:3]))
+    main(*(int(a) for a in sys.argv[1:3]), *sys.argv[3:4])

@@ -1,5 +1,6 @@
-"""petsctpu_torch stands alone: it imports neither jax nor petsctpu, and
-its entry points build on CUDA unless the caller asks for the CPU."""
+"""petsctpu_torch and chip_smoke.py stand alone: they import neither jax
+nor petsctpu, and the port's entry points build on CUDA unless the
+caller asks for the CPU."""
 
 import ast
 import pathlib
@@ -27,6 +28,8 @@ def _modules():
 def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
     mods = list(_modules())
     assert "petsctpu_torch.ops.sell_spmv" in mods
+    assert "petsctpu_torch.ops.stencil_mult" in mods
+    mods.append("chip_smoke")
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -44,7 +47,7 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
 
 def test_no_source_imports_jax_or_petsctpu():
     offenders = []
-    for path in PKG.rglob("*.py"):
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -60,7 +63,9 @@ def test_no_source_imports_jax_or_petsctpu():
 
 
 def _entry_points():
-    from petsctpu_torch.mat import aij_from_scipy, mat_from_options
+    from petsctpu_torch.dm import DA
+    from petsctpu_torch.mat import (aij_from_scipy, mat_from_options,
+                                    stencil_from_scipy)
     from petsctpu_torch.mat.sell import sell_from_scipy
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
@@ -69,11 +74,15 @@ def _entry_points():
         "mat_from_options": lambda **kw: mat_from_options(
             A, mat_type="sell", **kw),
         "sell_from_scipy": lambda **kw: sell_from_scipy(A, G=8, **kw),
+        "DA.create_matrix": lambda **kw: DA((40, 40)).create_matrix(**kw),
+        "stencil_from_scipy": lambda **kw: stencil_from_scipy(
+            A, (40, 40), **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["aij_from_scipy", "mat_from_options",
-                                  "sell_from_scipy"])
+                                  "sell_from_scipy", "DA.create_matrix",
+                                  "stencil_from_scipy"])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

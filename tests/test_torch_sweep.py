@@ -1,8 +1,9 @@
-"""The oracle sweep's serial cases that slice 1 covers, through the port.
+"""The oracle sweep's serial cases that the port covers, through the port.
 
 Replays, on the CPU in fp64, each case of tests/sweep_cases.py whose
-ksp type (cg, gmres, fgmres by mapping), pc type (none, jacobi) and
-matrix type (aij) the port has, and holds it to its oracle stream in
+ksp type (cg, gmres, fgmres by mapping), pc type (none, jacobi; lu and
+redundant since slice 2) and matrix type (aij) the port has, and holds
+it to its oracle stream in
 tests/data/oracle_sweep/ exactly as tests/test_sweep.py::run_serial
 does: the exact iteration count, and the stream within the case's own
 rtol (atol 1e-11·max for entries at fp noise).
@@ -29,6 +30,7 @@ SLICE1 = ("sw_ex2_cg_none", "sw_ex2_gmres_restart10", "sw_ex2_gmres_mgs",
           "sw_ex2_cg_natural", "sw_ex2_gmres_jacobi_rowmax",
           "sw_ex23b_gmres_jacobi", "sw2_ex2_cg_natural",
           "sw6_ex2_gmres_restart45", "sw10_ex2_cg_sr_natural")
+SLICE2 = ("sw_ex2_cg_lu", "sw7_ex2_cg_redundant")
 BY_TAG = {c.tag: c for c in CASES}
 
 
@@ -48,10 +50,11 @@ def build_system(spec):
 
 
 def test_slice1_cases_exist():
-    assert all(tag in BY_TAG and BY_TAG[tag].np == 1 for tag in SLICE1)
+    assert all(tag in BY_TAG and BY_TAG[tag].np == 1
+               for tag in SLICE1 + SLICE2)
 
 
-@pytest.mark.parametrize("tag", SLICE1)
+@pytest.mark.parametrize("tag", SLICE1 + SLICE2)
 def test_sweep_case_through_port(tag):
     case = BY_TAG[tag]
     flags = parse_args(case.args)
