@@ -40,7 +40,25 @@ petsctpu. Phases, each of which raises on failure:
    MG hierarchy (fp64), and small 2-D periodic and mirror stencils;
 8. K1's times at those three large shapes: kernel, plain version,
    torch.sparse CSR `mv` and the byte bound; and the ms per CG+MG
-   iteration of a repeat of the solve.
+   iteration of a repeat of the solve;
+9. slice 3's path at full size, KSP ex45 with -pc_type gamg on SELL: the
+   128³ operator through mat_from_options(-mat_type sell) and a KSP with
+   set_operators(M, A_host), CG preconditioned by smoothed-aggregation
+   GAMG to rtol 1e-5: true residual ≤ 1e-4, the setup seconds split into
+   hierarchy, packing and transfer, the formats of every level, and K3
+   launched at least (levels restricting through it) × its times in the
+   solve, with the counts reset just before the path and read just after;
+10. K3 against plain, on the card: K3 (SELL transpose product) must equal
+   its plain version bit for bit, give the same bits over 10 launches,
+   and match scipy's fp64 Pᵀr within 1e-5 relative, on the 128³ level-0
+   prolongator of that hierarchy, on tests/test_sell.py:234's
+   prolongator-like case at G 8 and 16, and on a case whose window does
+   not fit in shared memory;
+11. the same GAMG solve on the 2-D 128² Laplacian on the card against the
+   port's CPU path (equal its and reason, history within 1e-4 relative);
+12. K3's times on the 128³ level-0 prolongator: kernel (windows and
+   combine), plain version, torch.sparse CSR `mv` of Pᵀ and the byte
+   bound; and the ms per CG+GAMG iteration of a repeat of the solve.
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -59,19 +77,24 @@ import scipy.sparse as sp
 import torch
 
 from petsctpu_torch.convert import sell_from_arrays
+from petsctpu_torch.core.logging import log_begin, log_events
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.dm import DA
 from petsctpu_torch.ksp import KSP
 from petsctpu_torch.mat import (StencilMat, mat_from_options,
                                 stencil_from_scipy, stencil_to_scipy)
-from petsctpu_torch.mat.sell import sell_pack
-from petsctpu_torch.models import ex45_system
+from petsctpu_torch.mat.sell import sell_from_scipy, sell_pack, sell_to_scipy
+from petsctpu_torch.models import ex45_system, laplacian_2d
 from petsctpu_torch.ops import _build
 from petsctpu_torch.ops.sell_spmv import sell_spmv, sell_spmv_plain
+from petsctpu_torch.ops.sell_spmvT import (sell_spmvT, sell_spmvT_plain,
+                                           window_in_shared_memory)
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 
 GRID = 128                 # ex45 at 128³: n = 2,097,152
 MG_GRID = 129              # ex45 -pc_type mg at 129³: n = 2,146,689
+GAMG_GRID = 128            # ex45 -pc_type gamg at 128³: n = 2,097,152
+K3_LEVELS = (0, 1)         # the levels that restrict through K3 at 128³
 BENCH_M = 4096             # bench.py's stencil: 4096², n = 16,777,216
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside tensor cores
@@ -82,6 +105,7 @@ KSP_OPTS = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-5",
             "ksp_max_it": "2000"}
 GMRES_OPTS = {"ksp_type": "gmres", "pc_type": "jacobi",
               "ksp_gmres_restart": "30", "ksp_max_it": "300"}
+GAMG_OPTS = {"ksp_type": "cg", "pc_type": "gamg", "ksp_rtol": "1e-5"}
 
 
 def device_info():
@@ -162,6 +186,7 @@ def check_gmres_history(hist, restart):
 def reset_counts():
     sell_spmv.launches = 0
     stencil_mult.launches = 0
+    sell_spmvT.launches = 0
 
 
 def drive_main_path(A, b_np):
@@ -502,6 +527,219 @@ def warm_mg_ms_per_it(mg):
     return 1e3 * (time.perf_counter() - t) / int(res.its)
 
 
+def drive_gamg_path():
+    """KSP ex45 -pc_type gamg at 128³ on the fp32 SELL operator,
+    counting launches."""
+    g = GAMG_GRID
+    A, b, _ = ex45_system(g, g, g)
+    reset_counts()
+    log_begin()
+    t = time.perf_counter()
+    M, perm = mat_from_options(A, Options({"mat_type": "sell",
+                                           "mat_ordering_type": "natural"}),
+                               dtype=torch.float32)
+    op_s = time.perf_counter() - t
+    if not np.array_equal(perm, np.arange(A.shape[0])):
+        raise AssertionError("natural ordering gave a permutation")
+    ksp = KSP(Options(dict(GAMG_OPTS))).set_operators(M, A)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    ev = log_events()
+    split = {k: ev[k].time for k in ("PCGAMGHierarchy", "PCMGPack",
+                                     "PCMGTransfer")}
+    k3_setup, k2_setup = sell_spmvT.launches, sell_spmv.launches
+    bt = torch.from_numpy(b.astype(np.float32)).cuda()
+    t = time.perf_counter()
+    res = ksp.solve(bt)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = sell_spmvT.launches
+    its, reason = int(res.its), int(res.reason)
+    k3_solve = launches - k3_setup
+    k2_solve = sell_spmv.launches - k2_setup
+    x = res.x.double().cpu().numpy()
+    if x.shape != (A.shape[0],) or not np.isfinite(x).all():
+        raise AssertionError("GAMG solution has the wrong shape or NaNs")
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    pc = ksp.pc
+    print(f"gamg path: mat_from_options {op_s:.2f} s; GAMG setup {setup_s:.2f}"
+          f" s = hierarchy {split['PCGAMGHierarchy']:.2f} + packing "
+          f"{split['PCMGPack']:.2f} + transfer {split['PCMGTransfer']:.2f} s")
+    for l, (lev, fmt) in enumerate(zip(pc.levels, pc.formats)):
+        print(f"  level {l}: A {lev.A.shape} {fmt[0]}, P {lev.P.shape} "
+              f"{fmt[1]}, R {fmt[2] or 'P.multT (K3)'}")
+    print(f"  coarse: {pc.coarse_A.shape[0]} rows, dense LU")
+    via_k3 = [l for l, f in enumerate(pc.formats) if f[2] is None]
+    print(f"gamg path: CG+GAMG its={its} reason={reason} {secs:.3f} s = "
+          f"{1e3 * secs / its:.4f} ms/it; true rel residual {relres:.3e}; "
+          f"history {float(res.history[0]):.6e} -> "
+          f"{float(res.history[its]):.6e}; K3 launches {k3_solve} in the "
+          f"solve ({len(via_k3)} levels x {its} its needed), {launches} in "
+          f"the path; K2 launches {k2_solve} in the solve")
+    if reason <= 0 or not relres <= 1e-4:
+        raise AssertionError(f"CG+GAMG failed: reason {reason}, residual "
+                             f"{relres}")
+    if tuple(via_k3[:len(K3_LEVELS)]) != K3_LEVELS:
+        raise AssertionError(f"levels restricting through K3: {via_k3}")
+    if k3_solve < len(via_k3) * its:
+        raise AssertionError(f"K3 launched {k3_solve} times in {its} its")
+    return dict(ksp=ksp, b=bt, launches=launches, ms_per_it=1e3 * secs / its)
+
+
+def padded_r(M, rng):
+    """A random r for M's rows, as K3's zero-padded [nt,G,128] operand."""
+    r = rng.standard_normal(M.shape[0]).astype(np.float32)
+    rp = torch.zeros(M.nt * M.G * 128, device="cuda")
+    rp[:M.shape[0]] = torch.from_numpy(r).cuda()
+    return r, rp.view(M.nt, M.G, 128)
+
+
+def check_k3(label, M, P_host, rng):
+    """K3 against its plain version (bit for bit, and the same bits over
+    10 launches) and against scipy's fp64 Pᵀr."""
+    r, rt = padded_r(M, rng)
+    args = (M.vals, M.idx, M.qs, M.winstart, rt)
+    kw = dict(S=M.S, Lp=M.Lp)
+    y = sell_spmvT(*args, **kw)
+    y_plain = sell_spmvT_plain(*args, **kw)
+    repeat = all(torch.equal(sell_spmvT(*args, **kw), y) for _ in range(10))
+    torch.cuda.synchronize()
+    err = float((y - y_plain).abs().max())
+    off = M.G * 128
+    yv = y.reshape(-1)[off:off + M.shape[1]].double().cpu().numpy()
+    ref = P_host.T @ r.astype(np.float64)
+    rel = float(np.abs(yv - ref).max() / np.abs(ref).max())
+    smem = window_in_shared_memory(M.S)
+    print(f"K3 {label}: m={M.shape[0]} n={M.shape[1]} nt={M.nt} P={M.npass} "
+          f"G={M.G} S={M.S} Lp={M.Lp} window in "
+          f"{'shared' if smem else 'global'} memory; max|kernel-plain|={err}"
+          f" same bits over 10 launches {repeat}; rel err vs scipy fp64 "
+          f"{rel:.3e}")
+    if not torch.equal(y, y_plain):
+        raise AssertionError(f"K3 {label}: kernel differs from its plain "
+                             f"version (max abs {err})")
+    if not repeat:
+        raise AssertionError(f"K3 {label}: launches disagree")
+    if not rel <= 1e-5:
+        raise AssertionError(f"K3 {label}: relative error {rel} vs scipy")
+    return err, smem
+
+
+def prolongator_like(G, rng, wide=False):
+    """tests/test_sell.py:234's case: 3 nonzeros a row, columns clustered
+    by row blocks of 1400 columns; wide=True spreads them over 80,000
+    columns, so every window spans about 640 rows."""
+    m = G * 128 * 3 + 77
+    rows = np.repeat(np.arange(m), 3)
+    if wide:
+        n = 80000
+        cols = rng.integers(0, n, rows.size)
+    else:
+        n = 1400
+        cols = np.clip((rows // (m // n + 1))
+                       + rng.integers(-40, 40, rows.size), 0, n - 1)
+    A = sp.coo_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                       (rows, cols)), shape=(m, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+def k3_phases(gamg, rng):
+    """K3 against plain on every case; returns (max |kernel - plain|,
+    the finest prolongator that restricts through K3 and its scipy
+    matrix)."""
+    pc = gamg["ksp"].pc
+    l = [f[2] for f in pc.formats].index(None)
+    P0 = pc.levels[l].P
+    P0_host = sell_to_scipy(P0)
+    errs = [check_k3(f"{GAMG_GRID}^3 level-{l} prolongator", P0, P0_host,
+                     rng)[0]]
+    for G in (8, 16):
+        A = prolongator_like(G, rng)
+        M = sell_from_scipy(A, G=G, mode="chunk")
+        errs.append(check_k3(f"prolongator-like G={G}", M, A, rng)[0])
+    A = prolongator_like(8, rng, wide=True)
+    M = sell_from_scipy(A, G=8, mode="chunk")
+    err, smem = check_k3("wide windows G=8", M, A, rng)
+    if smem:
+        raise AssertionError(f"a window of S={M.S} rows was meant to exceed "
+                             "shared memory")
+    errs.append(err)
+    return max(errs), P0, P0_host
+
+
+def check_gamg_small_against_cpu():
+    """CG+GAMG on the 2-D 128² Laplacian on the card against the CPU."""
+    A = laplacian_2d(128, 128, dtype=np.float32).tocsr()
+    b = np.random.default_rng(1).standard_normal(A.shape[0]) \
+        .astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        M = sell_from_scipy(A, device=dev)
+        res = KSP(Options(dict(GAMG_OPTS))).set_operators(M, A).solve(
+            torch.from_numpy(b).to(dev))
+        out[dev] = (int(res.its), int(res.reason), res.history.numpy(),
+                    res.x.cpu().numpy())
+    (gi, gr, gh, gx), (ci, cr, ch, cx) = out["cuda"], out["cpu"]
+    k = min(gi, ci) + 1
+    hdiff = float(np.abs(gh[:k] / ch[:k] - 1).max())
+    print(f"128^2 CG+GAMG card vs cpu: its {gi}/{ci} reason {gr}/{cr} history"
+          f" rel diff {hdiff:.2e} max|x diff| {np.abs(gx - cx).max():.2e}")
+    if gr != cr or gr <= 0 or gi != ci or not hdiff <= 1e-4:
+        raise AssertionError("128^2 GAMG solve on the card disagrees with the"
+                             " CPU")
+    if gx.shape != (A.shape[0],) or not np.isfinite(gx).all():
+        raise AssertionError("128^2 GAMG solution has the wrong shape or NaNs")
+
+
+def measure_k3(M, P_host, rng):
+    """Times of K3, its plain version and the CSR yardstick on the
+    finest prolongator that restricts through it (level 0 at 128³)."""
+    _, rt = padded_r(M, rng)
+    args = (M.vals, M.idx, M.qs, M.winstart, rt)
+    kw = dict(S=M.S, Lp=M.Lp)
+    ms = time_ms(lambda: sell_spmvT(*args, **kw))
+    plain_ms = time_ms(lambda: sell_spmvT_plain(*args, **kw), runs=5,
+                       inner=1, warmup=1)
+    RT = sp.csr_matrix(P_host.T, dtype=np.float32)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(RT.indptr.astype(np.int64)),
+        torch.from_numpy(RT.indices.astype(np.int64)),
+        torch.from_numpy(RT.data), size=RT.shape,
+        check_invariants=True).cuda()
+    r = rt.reshape(-1)[:M.shape[0]].contiguous()
+    y_lib = torch.mv(csr, r)
+    off = M.G * 128
+    y = sell_spmvT(*args, **kw).reshape(-1)[off:off + M.shape[1]]
+    lib_rel = float((y_lib - y).abs().max() / y.abs().max())
+    library_ms = time_ms(lambda: torch.mv(csr, r))
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + M.Lp * 128 * 4
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 2.0 * P_host.nnz / FP32_FLOPS_PER_S * 1e3
+    print(f"K3 at {GAMG_GRID}^3 on P {M.shape}: {ms:.4f} ms "
+          f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes} compulsory "
+          f"bytes); plain {plain_ms:.4f} ms; torch.sparse CSR mv of P^T "
+          f"{library_ms:.4f} ms (rel diff {lib_rel:.1e}); bound "
+          f"{bound_bytes_ms:.4f} ms by bytes at 3.35 TB/s ({bound_ops_ms:.5f}"
+          f" ms by fp32 ops)")
+    if not lib_rel <= 1e-5:
+        raise AssertionError(f"CSR yardstick disagrees with K3: {lib_rel}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                else "operations")
+
+
+def warm_gamg_ms_per_it(gamg):
+    t = time.perf_counter()
+    res = gamg["ksp"].solve(gamg["b"])
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / int(res.its)
+
+
 def main():
     name, smi = device_info()
     build_kernels()
@@ -525,8 +763,17 @@ def main():
     mg = drive_mg_path()
     check_mg_small_against_cpu()
     k1_err, k1_times = k1_phases(mg, rng)
+    mg_launches = mg["launches"]
     print(f"CG+MG ms per iteration at {MG_GRID}^3: {mg['ms_per_it']:.4f} in "
           f"the main path, {warm_mg_ms_per_it(mg):.4f} repeated")
+    del mg
+    gamg = drive_gamg_path()
+    k3_err, P0, P0_host = k3_phases(gamg, rng)
+    check_gamg_small_against_cpu()
+    k3_times = measure_k3(P0, P0_host, rng)
+    print(f"CG+GAMG ms per iteration at {GAMG_GRID}^3: "
+          f"{gamg['ms_per_it']:.4f} in the main path, "
+          f"{warm_gamg_ms_per_it(gamg):.4f} repeated")
     kernels = [dict(name="sell_spmv", route="cuda",
                     source="petsctpu_torch/csrc/sell_spmv.cu",
                     replaces="petsctpu/mat/sell.py:136", launches=launches,
@@ -534,7 +781,12 @@ def main():
                dict(name="stencil_mult", route="cuda",
                     source="petsctpu_torch/csrc/stencil_mult.cu",
                     replaces="petsctpu/ops/stencil_pallas.py:50",
-                    launches=mg["launches"], max_abs_err=k1_err, **k1_times)]
+                    launches=mg_launches, max_abs_err=k1_err, **k1_times),
+               dict(name="sell_spmvT", route="cuda",
+                    source="petsctpu_torch/csrc/sell_spmvT.cu",
+                    replaces="petsctpu/mat/sell.py:214",
+                    launches=gamg["launches"], max_abs_err=k3_err,
+                    **k3_times)]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -89,3 +89,65 @@ def mg_from_arrays(levels, coarse, cycles: int = 1,
                            coarse["perm_c"], dtype=coarse_A.dtype,
                            device=dev)
     return MGPC(tuple(mg_levels), lu, coarse_A, cycles, mg_type)
+
+
+def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
+                   cycles: int = 1, mg_type: str = "multiplicative",
+                   device=None):
+    """An MGPC from a packed algebraic hierarchy: the two flat buffers
+    and the static metas of petsctpu's PackedMGPC (fbuf, ibuf as numpy,
+    metas, coarse_meta), or what pc.mg.pack_hierarchy returns.
+
+    Each buffer goes to the device in one copy; every operator is a
+    view of it, carved at the metas' offsets as PackedMGPC.unpack
+    carves them: "sell" (the int8 idx read from its int32 words),
+    "dense", "rectband" and "ell" operators, Chebyshev+Jacobi smoothers
+    with bounds 0.1·λ and 1.1·λ rounded in the buffer's dtype, an ELL
+    coarsest operator and its dense LU (DenseLUPC)."""
+    from petsctpu_torch.mat.dense import Dense
+    from petsctpu_torch.mat.rectband import RectBandMat
+    from petsctpu_torch.pc.gamg_device import DenseLUPC
+    from petsctpu_torch.pc.mg import ChebySmoother, MGLevel, MGPC
+
+    dev = resolve_device(device)
+    sdt = np.asarray(fbuf).dtype.type
+    fb = _tensor(fbuf, dev)
+    ib = _tensor(ibuf, dev, torch.int32)
+
+    def getf(off_shape):
+        off, shape = off_shape
+        return fb[off:off + int(np.prod(shape))].view(tuple(shape))
+
+    def geti(off_shape):
+        off, shape = off_shape
+        return ib[off:off + int(np.prod(shape))].view(tuple(shape))
+
+    def op(ref):
+        kind = ref[0]
+        if kind == "ell":
+            _, ci, vi, sha, nza = ref
+            return AIJ(geti(ci).long(), getf(vi), sha, nza)
+        if kind == "rectband":
+            _, bref, s_, off_, sha, nnz, bshape = ref
+            return RectBandMat(getf((bref[0], bshape)), s_, off_, sha, nnz)
+        if kind == "dense":
+            _, dref, sha, _ = ref
+            return Dense(getf((dref[0], sha)))
+        (_, vi, ii, qi, wi, di, sha, nnz, G, S, Lp, vshape, mode) = ref
+        words = int(np.prod(vshape)) // 4
+        idx = geti((ii[0], (words,))).view(torch.int8).view(tuple(vshape))
+        return SellMat(getf((vi[0], vshape)), idx, geti((qi[0], vshape[:2])),
+                       geti((wi[0], (vshape[0],))), getf((di[0], (sha[0],))),
+                       sha, nnz, G, S, Lp, mode)
+
+    levels = []
+    for amref, pref, rref, do, lam in metas:
+        A = op(amref)
+        dinv = getf((do, (A.shape[0],)))
+        levels.append(MGLevel(A, op(pref), ChebySmoother(
+            dinv, sdt(0.1 * lam), sdt(1.1 * lam), sm_its),
+            None if rref is None else op(rref)))
+    ci, vi, shc, nzc, lum, pivo = coarse_meta
+    coarse_A = AIJ(geti(ci).long(), getf(vi), shc, nzc)
+    coarse = DenseLUPC(getf(lum), geti((pivo, (shc[0],))))
+    return MGPC(tuple(levels), coarse, coarse_A, cycles, mg_type)

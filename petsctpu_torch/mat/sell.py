@@ -18,7 +18,10 @@ for all G row groups — the shape for rectangular operators (MG
 transfers).
 
 The product is kernel K2 (`petsctpu_torch/ops/sell_spmv.py`, CUDA
-source `petsctpu_torch/csrc/sell_spmv.cu`). The window start stays
+source `petsctpu_torch/csrc/sell_spmv.cu`); the chunk-mode transpose
+product (the MG restriction through a stored prolongator) is kernel K3
+(`petsctpu_torch/ops/sell_spmvT.py`, `petsctpu_torch/csrc/sell_spmvT.cu`).
+The window start stays
 1024-aligned as in the JAX package (only the TPU's DMA needs it) so the
 packs of the two packages match byte for byte.
 
@@ -33,6 +36,7 @@ import torch
 
 from petsctpu_torch.device import resolve_device
 from petsctpu_torch.ops.sell_spmv import sell_spmv
+from petsctpu_torch.ops.sell_spmvT import sell_spmvT
 
 
 class SellMat:
@@ -86,8 +90,20 @@ class SellMat:
         return y.reshape(-1)[:self.shape[0]]
 
     def multT(self, r: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(
-            "SellMat.multT is kernel K3, not ported yet (ROADMAP queue 2 K3)")
+        """y = Aᵀ r for chunk-mode operators (the MG restriction R = Pᵀ
+        run through P's own layout, MatMultTranspose on the stored
+        prolongator): r zero-padded to [nt,G,128], then K3, whose
+        window combine adds every tile's window into y at winstart."""
+        if self.mode != "chunk":
+            raise NotImplementedError("SellMat.multT: chunk mode only")
+        m, n = self.shape
+        rp = torch.zeros(self.nt * self.G * 128, dtype=self.dtype,
+                         device=self.device)
+        rp[:m] = r.reshape(-1).to(self.dtype)
+        y = sell_spmvT(self.vals, self.idx, self.qs, self.winstart,
+                       rp.view(self.nt, self.G, 128), S=self.S, Lp=self.Lp)
+        off = self.G * 128
+        return y.reshape(-1)[off:off + n]
 
     def diagonal(self) -> torch.Tensor:
         return self.diag
@@ -254,13 +270,27 @@ def sell_from_scipy(A, G: int = 16, max_span_rows: int = 8192,
     return sell_from_arrays(arrs, st, device=dev)
 
 
+def sell_to_scipy(M: SellMat) -> sp.csr_matrix:
+    """Back to scipy CSR, from the packed arrays (drops the padding
+    slots, whose value is 0, and any explicit zero)."""
+    vals = M.vals.cpu().numpy()
+    idx = M.idx.cpu().numpy()
+    qs = M.qs.cpu().numpy().astype(np.int64)
+    ws = M.winstart.cpu().numpy().astype(np.int64)
+    t, p, g, lane = np.nonzero(vals)
+    chunk = ws[t] + qs[t, p] - M.G + (g if M.mode == "diag" else 0)
+    cols = chunk * 128 + idx[t, p, g, lane]
+    rows = (t * M.G + g) * 128 + lane
+    return sp.csr_matrix((vals[t, p, g, lane], (rows, cols)), shape=M.shape)
+
+
 def sell_template(A, G: int = 16, max_span_rows: int = 8192, device=None):
     raise NotImplementedError(
-        "sell_template serves the GAMG device refresh, which needs kernel "
-        "K3 (ROADMAP queue 2 K3)")
+        "sell_template serves the GAMG device refresh (pc/gamg_device.py), "
+        "not ported yet (ROADMAP queue 1 item 8)")
 
 
 def sell_fill(tmpl, pos, diag_idx, data):
     raise NotImplementedError(
-        "sell_fill serves the GAMG device refresh, which needs kernel "
-        "K3 (ROADMAP queue 2 K3)")
+        "sell_fill serves the GAMG device refresh (pc/gamg_device.py), "
+        "not ported yet (ROADMAP queue 1 item 8)")

@@ -3,9 +3,9 @@
 Reference: PC interface src/ksp/pc/interface/precon.c (PCApply :369,
 PCSetUp :805) and registry pcregis.c:90-146. A PC is an object with
 `.apply(x)`; setup happens in the factory. Ported: none, jacobi,
-pbjacobi, lu/cholesky/redundant (exact LU) and geometric mg. Every
-other type of petsctpu raises NotImplementedError naming its ROADMAP
-item.
+pbjacobi, lu/cholesky/redundant (exact LU), geometric mg and gamg
+(smoothed aggregation, scalar route). Every other type of petsctpu
+raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ _Q = "ROADMAP queue 1 item"
 _LATER = {
     **dict.fromkeys(("ilu", "icc", "sor", "bjacobi", "asm", "gasm"),
                     f"{_Q} 5"),
-    "gamg": f"{_Q} 8",
     "fft": f"{_Q} 9",
     **dict.fromkeys(("fieldsplit", "ksp", "composite", "mat", "shell",
                      "hmpi", "nn", "bddc", "eisenstat", "galerkin",
@@ -31,7 +30,8 @@ _LATER = {
 }
 
 
-_PORTED = {"none", "jacobi", "pbjacobi", "lu", "cholesky", "redundant", "mg"}
+_PORTED = {"none", "jacobi", "pbjacobi", "lu", "cholesky", "redundant", "mg",
+           "gamg"}
 
 
 def register_pc(name: str, factory) -> None:
@@ -71,6 +71,10 @@ def make_pc(pc_type: str, A=None, A_host=None, options: Options = None,
         return make_lu(A_host, dtype=dt, device=dev)
     if pc_type == "mg":
         return _make_mg(A, A_host, opts, dt)
+    if pc_type == "gamg":
+        from petsctpu_torch.pc.gamg import make_gamg
+        _require_host(A_host, "gamg")
+        return make_gamg(A_host, dtype=dt, options=opts, device=dev)
     if pc_type in _LATER:
         raise NotImplementedError(
             f"pc_type={pc_type} is not ported yet ({_LATER[pc_type]})")

@@ -3,8 +3,9 @@
 Counterpart of the LU part of petsctpu/pc/factor.py (reference:
 src/ksp/pc/impls/factor/{lu,cholesky}). The numeric factorization
 happens on the host at setup, as in the reference; the apply is two
-level-scheduled triangular solves on the device (mat/factor.py). ILU
-and ICC are ROADMAP queue 1 item 5.
+level-scheduled triangular solves on the device (mat/factor.py).
+PermutedPC applies an inner PC in a symmetric permutation. ILU and ICC
+are ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -35,6 +36,21 @@ class LUPC:
         pb[self.perm_r] = b
         z = self.Uplan.solve(self.Lplan.solve(pb))
         return z[self.perm_c]
+
+
+class PermutedPC:
+    """Apply an inner PC in a symmetric permutation: M⁻¹ = Pᵀ M̃⁻¹ P
+    (-pc_factor_mat_ordering_type rcm analog). perm maps new → old."""
+
+    def __init__(self, inner, perm: torch.Tensor):
+        self.inner = inner
+        self.perm = perm
+
+    def apply(self, b):
+        z = self.inner.apply(b[self.perm])
+        out = torch.zeros_like(b)
+        out[self.perm] = z
+        return out
 
 
 def lupc_from_factors(L, U, perm_r, perm_c, dtype=None, transpose=False,

@@ -1,6 +1,6 @@
-"""PCMG — geometric multigrid on a DA hierarchy.
+"""PCMG — multigrid on a DA hierarchy or on an explicit algebraic one.
 
-Counterpart of the geometric part of petsctpu/pc/mg.py (reference:
+Counterpart of petsctpu/pc/mg.py (reference:
 src/ksp/pc/impls/mg/mg.c — PCMGMCycle_Private :10, PCSetUp_MG :529,
 PCApply_MG :296): a level hierarchy with Chebyshev+Jacobi smoothers,
 matrix-free Q1 transfers and an exact LU coarse solve; V and W cycles,
@@ -17,8 +17,13 @@ full, kaskade and additive MG.
     by comb probing (mat/stencil.galerkin_coarsen) and reads only λ (one
     number per level) and the coarsest operator back to the host.
 
-GAMG and the packed/stored-transfer variants (PackedMGPC, the SELL
-restriction of kernel K3) are ROADMAP queue 1 item 8.
+  * Algebraic hierarchies (make_algebraic_mg_from_hierarchy, which GAMG
+    calls): each level's operator and transfers take the format
+    petsctpu chooses (SELL through K2, dense, slant-band or ELL), and a
+    chunk-mode SELL prolongator restricts through P.multT, kernel K3.
+
+The SSOR smoother branch is ROADMAP queue 1 item 5, the MXU band format
+(pc_gamg_mat_type band) item 9.
 """
 
 from __future__ import annotations
@@ -29,9 +34,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from petsctpu_torch.core.logging import log_event
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.device import np_dtype
-from petsctpu_torch.pc.factor import LUPC, make_lu
+from petsctpu_torch.pc.factor import LUPC, PermutedPC, make_lu
 
 
 class ChebySmoother:
@@ -97,6 +103,14 @@ class MGPC:
         self.cycles = cycles         # 1 = V, 2 = W
         # PCMGType: multiplicative | additive | full | kaskade
         self.mg_type = mg_type
+
+    @property
+    def formats(self):
+        """Per level, the formats of (A, P, R) as op_format gives them;
+        R is None when the level restricts through P.multT."""
+        return [(op_format(lv.A), op_format(lv.P),
+                 None if lv.R is None else op_format(lv.R))
+                for lv in self.levels]
 
     def apply(self, b):
         if self.mg_type == "full":
@@ -292,3 +306,248 @@ def make_geometric_mg_device(Ad, da, dtype=None,
                         device=Ad.device)
     return MGPC(tuple(levels), coarse_pc, Acoarse, o["cycles"],
                 o["mg_type"])
+
+
+# ---------------------------------------------------------------------------
+# algebraic MG from an explicit hierarchy (GAMG)
+# ---------------------------------------------------------------------------
+DENSE_MAX_BYTES = 64 * 1024 * 1024
+
+
+def op_format(op) -> tuple:
+    """("sell", G, mode), ("rectband", s, off, W), ("dense",) or ("ell",)
+    for the algebraic formats; the class name for any other operator."""
+    from petsctpu_torch.mat.dense import Dense
+    from petsctpu_torch.mat.ell import AIJ
+    from petsctpu_torch.mat.rectband import RectBandMat
+    from petsctpu_torch.mat.sell import SellMat
+
+    if isinstance(op, SellMat):
+        return ("sell", op.G, op.mode)
+    if isinstance(op, RectBandMat):
+        return ("rectband", op.s, op.off, op.B.shape[1])
+    if isinstance(op, Dense):
+        return ("dense",)
+    if isinstance(op, AIJ):
+        return ("ell",)
+    return (type(op).__name__,)
+
+
+def _sell_choice(M, candidates):
+    """(G, mode) of the SELL pack of M with the fewest padded slots among
+    `candidates`, or None when none keeps its window within 8192 rows or
+    the cheapest pads more than 8 slots per average row — petsctpu's
+    cost test, shared by its packed and non-packed branches."""
+    from petsctpu_torch.mat.sell import sell_plan_stats
+
+    best = None
+    for G, mode in candidates:
+        if M.shape[0] < G * 128:
+            continue
+        npass, _, S, _ = sell_plan_stats(M, G=G, mode=mode)
+        cost = -(-M.shape[0] // (G * 128)) * npass * G * 128
+        if S <= 8192 and (best is None or cost < best[1]):
+            best = ((G, mode), cost)
+    avg = M.nnz / max(M.shape[0], 1)
+    if best is not None and best[1] <= 8 * max(avg, 1e-9) * M.shape[0]:
+        return best[0]
+    return None
+
+
+def pack_hierarchy(As, Ps, dtype, use_sell: bool):
+    """The packed branch's host side, a copy of petsctpu/pc/mg.py's:
+    every level's operator, prolongation and restriction in the format
+    petsctpu chooses, laid into one float buffer and one int32 buffer.
+
+    Returns (fbuf, ibuf, metas, coarse_meta), equal to the fields of
+    petsctpu's PackedMGPC for the same input; convert.mg_from_packed
+    builds the MGPC from them. Formats: an operator packs as SELL (K2)
+    when use_sell and the cost test pass, else dense when small, else
+    ELL; a restriction R = Pᵀ packs dense when small, else slant-band
+    when its fill is at most 8, else None when P packed as chunk-mode
+    SELL (the cycle then restricts through P.multT, K3), else like an
+    operator. The coarsest level is ELL with a dense LU."""
+    import scipy.linalg as sla
+
+    from petsctpu_torch.mat.ell import aij_pack
+    from petsctpu_torch.mat.rectband import rectband_pack
+    from petsctpu_torch.mat.sell import sell_pack
+
+    fbuf, ibuf, metas = [], [], []
+    fo = io = 0
+
+    def putf(a):
+        nonlocal fo
+        fbuf.append(np.asarray(a, dtype).ravel())
+        fo += fbuf[-1].size
+        return fo - fbuf[-1].size, a.shape
+
+    def puti(a):
+        nonlocal io
+        ibuf.append(np.asarray(a, np.int32).ravel())
+        io += ibuf[-1].size
+        return io - ibuf[-1].size, a.shape
+
+    def pack_dense_or_none(M):
+        m_, n_ = M.shape
+        if (m_ * n_ * np.dtype(dtype).itemsize <= DENSE_MAX_BYTES
+                and min(m_, n_) <= 4096):
+            D = np.asarray(sp.csr_matrix(M).toarray(), dtype)
+            return ("dense", putf(D), (m_, n_), int(sp.csr_matrix(M).nnz))
+        return None
+
+    def pack_op(M):
+        if use_sell:
+            Ml = sp.csr_matrix(M).astype(np.float32)
+            Ml.sum_duplicates()
+            choice = _sell_choice(Ml, ((16, "diag"), (16, "chunk"),
+                                       (8, "chunk")))
+            if choice is not None:
+                arrs, st = sell_pack(Ml, G=choice[0], mode=choice[1])
+                # the int8 idx rides the int32 buffer (4 entries a word)
+                return ("sell", putf(arrs["vals"]),
+                        puti(arrs["idx"].ravel().view(np.int32)),
+                        puti(arrs["qs"]), puti(arrs["winstart"]),
+                        putf(arrs["diag"]), st["shape"], st["nnz"],
+                        st["G"], st["S"], st["Lp"],
+                        tuple(arrs["vals"].shape), st["mode"])
+        dref = pack_dense_or_none(M)
+        if dref is not None:
+            return dref
+        ca, va, sha, nza = aij_pack(M, dtype=dtype)
+        return ("ell", puti(ca), putf(va), sha, nza)
+
+    def pack_restrict(RT, pref):
+        dref = pack_dense_or_none(RT)
+        if dref is not None:
+            return dref
+        band = rectband_pack(RT, dtype)
+        if band is not None:
+            B, s_, off_ = band
+            return ("rectband", putf(B), s_, off_, RT.shape, int(RT.nnz),
+                    B.shape)
+        if pref[0] == "sell" and pref[-1] == "chunk":
+            return None
+        return pack_op(RT)
+
+    for l in range(len(Ps)):
+        amref = pack_op(As[l])
+        Pl = sp.csr_matrix(Ps[l])
+        Pl.sum_duplicates()
+        Pl.sort_indices()
+        pref = pack_op(Pl)
+        rref = pack_restrict(Pl.T.tocsr(), pref)
+        d = As[l].diagonal()
+        d = np.where(d != 0, d, 1.0)
+        dinv = (1.0 / d).astype(dtype)
+        lam = _power_lambda_max(As[l], dinv)
+        metas.append((amref, pref, rref, putf(dinv)[0], float(lam)))
+    ca, va, shc, nzc = aij_pack(As[-1], dtype=dtype)
+    lu, piv = sla.lu_factor(As[-1].toarray().astype(dtype))
+    coarse_meta = (puti(ca), putf(va), shc, nzc, putf(lu), puti(piv)[0])
+    return (np.concatenate(fbuf), np.concatenate(ibuf), tuple(metas),
+            coarse_meta)
+
+
+def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
+                                     cycles: int = 1,
+                                     mg_type: str = "multiplicative",
+                                     sm_pc: str = "jacobi",
+                                     fmt: str = "auto", device=None):
+    """An MGPC from explicit (A_l, P_l) scipy hierarchies — GAMG's
+    (pc/gamg.py), or a rediscretized grid hierarchy.
+
+    fmt="auto" (default) and "ell" as in petsctpu; fmt="sell" adds the
+    RCM conjugation of every level and returns the MGPC inside a
+    PermutedPC that applies it in the caller's ordering. fmt="band" (the
+    TPU's MXU band format) raises.
+
+    The `auto` policy on the card: petsctpu takes SELL operators and
+    transfers only when its backend is the TPU, and ELL elsewhere. The
+    port takes the TPU's decisions for fp32 on every device: K2 is the
+    fast product on the H100 too (0.0525 ms against 0.0934 ms for
+    torch.sparse CSR at ex45 128³, PERF.md), and the CPU tests then
+    build the same structure that the card runs.
+
+    With Jacobi smoothing and a coarsest level of at most 192 rows the
+    hierarchy is packed on the host (pack_hierarchy) and moved to the
+    device in one float and one int32 buffer (convert.mg_from_packed),
+    under the log events PCMGPack and PCMGTransfer; otherwise each level
+    is built on its own, with an exact sparse LU coarse solve."""
+    from petsctpu_torch.convert import mg_from_packed
+    from petsctpu_torch.device import resolve_device
+    from petsctpu_torch.mat.dense import Dense
+    from petsctpu_torch.mat.ell import aij_from_scipy
+    from petsctpu_torch.mat.sell import sell_from_scipy, sell_viable
+
+    if fmt == "band":
+        raise NotImplementedError(
+            "pc_gamg_mat_type band (the MXU band format) is not ported yet "
+            "(ROADMAP queue 1 item 9)")
+    dev = resolve_device(device)
+    dtype = (np_dtype(dtype) or np.dtype(As[0].dtype)).type
+    fp32 = np.dtype(dtype) == np.float32
+    if fmt == "sell":
+        from petsctpu_torch.mat.order import get_ordering
+        perms = [get_ordering(sp.csr_matrix(A), "rcm") for A in As]
+        As = [sp.csr_matrix(A)[p][:, p].tocsr() for A, p in zip(As, perms)]
+        Ps = [sp.csr_matrix(P)[perms[l]][:, perms[l + 1]].tocsr()
+              for l, P in enumerate(Ps)]
+
+    def permuted(pc):
+        if fmt != "sell":
+            return pc
+        return PermutedPC(pc, torch.as_tensor(perms[0]).to(dev))
+
+    if fmt in ("ell", "auto", "sell") and sm_pc == "jacobi" \
+            and As[-1].shape[0] <= 192:
+        with log_event("PCMGPack"):
+            packed = pack_hierarchy(As, Ps, dtype,
+                                    use_sell=fp32 and fmt != "ell")
+        with log_event("PCMGTransfer"):
+            pc = mg_from_packed(*packed, sm_its, cycles, mg_type, device=dev)
+        return permuted(pc)
+
+    def level_op(Ah):
+        if fmt in ("sell", "auto") and fp32:
+            Ah2 = sp.csr_matrix(Ah).astype(np.float32)
+            Ah2.sum_duplicates()
+            if sell_viable(Ah2):
+                return sell_from_scipy(Ah2, device=dev)
+        n_ = sp.csr_matrix(Ah).shape[0]
+        if fmt == "auto" and fp32 and n_ <= 4096 \
+                and n_ * n_ * 4 <= DENSE_MAX_BYTES:
+            return Dense(torch.from_numpy(
+                sp.csr_matrix(Ah).toarray().astype(dtype)).to(dev))
+        return aij_from_scipy(Ah, dtype=dtype, device=dev)
+
+    def transfer_ops(Pl):
+        """(P, R or None): chunk-mode SELL P restricting through
+        P.multT, else dense P and Pᵀ when small, else ELL."""
+        Pl = sp.csr_matrix(Pl)
+        Pl.sum_duplicates()
+        Pl.sort_indices()
+        m_, n_ = Pl.shape
+        if fp32:
+            P32 = Pl.astype(np.float32)
+            choice = _sell_choice(P32, ((8, "chunk"), (16, "chunk")))
+            if choice is not None:
+                return sell_from_scipy(P32, G=choice[0], mode="chunk",
+                                       device=dev), None
+        if fp32 and m_ * n_ * 4 <= DENSE_MAX_BYTES and min(m_, n_) <= 4096:
+            D = np.asarray(Pl.toarray(), dtype)
+            return (Dense(torch.from_numpy(D).to(dev)),
+                    Dense(torch.from_numpy(np.ascontiguousarray(D.T))
+                          .to(dev)))
+        return aij_from_scipy(Pl, dtype=dtype, device=dev), None
+
+    levels = []
+    for l in range(len(Ps)):
+        Pd, Rd = transfer_ops(Ps[l])
+        levels.append(MGLevel(level_op(As[l]), Pd,
+                              _cheby_smoother(As[l], dtype, sm_its, sm_pc,
+                                              dev), Rd))
+    coarse_pc = make_lu(As[-1], dtype=dtype, device=dev)
+    coarse_A = aij_from_scipy(As[-1], dtype=dtype, device=dev)
+    return permuted(MGPC(tuple(levels), coarse_pc, coarse_A, cycles,
+                         mg_type))

@@ -7,8 +7,13 @@ busy and idle shares of the wall time. PC picks the path:
 
   jacobi  -mat_type sell, natural order, CG+Jacobi in fp32 (slice 1);
   mg      a StencilMat in fp64, CG with -pc_type mg on DA((GRID,)*3),
-          device setup (slice 2); it also prints the host-clock time of
-          one MG apply, of the coarse LU solve alone and of K1 per level.
+          device setup (slice 2);
+  gamg    -mat_type sell, natural order, CG with -pc_type gamg in fp32
+          (slice 3); it also prints the setup seconds split into
+          hierarchy, packing and transfer.
+For mg and gamg it also prints the host-clock time of one MG apply, of
+the coarse solve alone, and per level of the operator's product, a
+smooth, a restriction and a prolongation.
 
 Setup runs once, before the timed solves. Needs CUDA; run from the
 repository root:
@@ -29,11 +34,13 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from petsctpu_torch.core.logging import log_begin, log_events  # noqa: E402
 from petsctpu_torch.core.options import Options  # noqa: E402
 from petsctpu_torch.dm import DA  # noqa: E402
 from petsctpu_torch.ksp import KSP  # noqa: E402
 from petsctpu_torch.mat import mat_from_options, stencil_from_scipy  # noqa: E402
 from petsctpu_torch.models import ex45_system  # noqa: E402
+from petsctpu_torch.pc.mg import op_format  # noqa: E402
 
 
 def _fixed_its(its):
@@ -59,6 +66,23 @@ def _mg_path(grid, its):
     return ksp, torch.from_numpy(b).cuda()
 
 
+def _gamg_path(grid, its):
+    A, b, _ = ex45_system(grid, grid, grid)
+    M, _ = mat_from_options(A, Options({"mat_type": "sell",
+                                        "mat_ordering_type": "natural"}))
+    ksp = KSP(Options({**_fixed_its(its), "pc_type": "gamg"}))
+    log_begin()
+    t = time.perf_counter()
+    ksp.set_operators(M, A).set_from_options().setup()
+    torch.cuda.synchronize()
+    ev = log_events()
+    print(f"GAMG setup {time.perf_counter() - t:.2f} s = hierarchy "
+          f"{ev['PCGAMGHierarchy'].time:.2f} + packing "
+          f"{ev['PCMGPack'].time:.2f} + transfer "
+          f"{ev['PCMGTransfer'].time:.2f} s")
+    return ksp, torch.from_numpy(b.astype(np.float32)).cuda()
+
+
 def _wall_ms(fn, runs=20):
     """Median host-clock ms of fn() followed by a synchronise."""
     fn()
@@ -73,19 +97,21 @@ def _wall_ms(fn, runs=20):
 
 
 def _mg_parts(pc, b):
-    """Host-clock ms of one MG apply, of its coarse LU solve and of K1
-    on each level."""
+    """Host-clock ms of one MG apply, of its coarse solve, and per level
+    of the operator's product, a smooth, a restriction and a
+    prolongation."""
     rc = torch.ones(pc.coarse_A.shape[0], dtype=b.dtype, device=b.device)
-    print(f"MG apply {_wall_ms(lambda: pc.apply(b)):.4f} ms; coarse LU "
-          f"solve ({pc.coarse_A.shape[0]} rows, {pc.coarse.Lplan.nlev}+"
-          f"{pc.coarse.Uplan.nlev} levels) "
+    print(f"MG apply {_wall_ms(lambda: pc.apply(b)):.4f} ms; coarse solve "
+          f"({type(pc.coarse).__name__}, {pc.coarse_A.shape[0]} rows) "
           f"{_wall_ms(lambda: pc.coarse.apply(rc)):.4f} ms")
-    for lev in pc.levels:
+    for l, lev in enumerate(pc.levels):
         x = torch.ones(lev.A.shape[0], dtype=b.dtype, device=b.device)
-        print(f"  level {lev.A.grid} {len(lev.A.offsets)}-point: K1 "
+        xc = torch.ones(lev.P.shape[1], dtype=b.dtype, device=b.device)
+        print(f"  level {l} n={lev.A.shape[0]} {op_format(lev.A)}: mult "
               f"{_wall_ms(lambda: lev.A.mult(x)):.4f} ms, smooth "
-              f"{_wall_ms(lambda: lev.smoother.smooth(lev.A, x, x)):.4f} "
-              f"ms, restrict {_wall_ms(lambda: lev.restrict(x)):.4f} ms")
+              f"{_wall_ms(lambda: lev.smoother.smooth(lev.A, x, x)):.4f} ms,"
+              f" restrict {_wall_ms(lambda: lev.restrict(x)):.4f} ms, "
+              f"prolong {_wall_ms(lambda: lev.P.mult(xc)):.4f} ms")
 
 
 def main(grid=128, its=100, pc="jacobi"):
@@ -95,7 +121,8 @@ def main(grid=128, its=100, pc="jacobi"):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    ksp, bt = (_mg_path if pc == "mg" else _jacobi_path)(grid, its)
+    paths = {"jacobi": _jacobi_path, "mg": _mg_path, "gamg": _gamg_path}
+    ksp, bt = paths[pc](grid, its)
 
     def run():
         res = ksp.solve(bt)
@@ -109,7 +136,7 @@ def main(grid=128, its=100, pc="jacobi"):
     n = int(res.its)
     print(f"ex45 {grid}^3 CG+{pc}: {n} its, wall {1e3 * wall / n:.4f} "
           "ms/it (no profiler)")
-    if pc == "mg":
+    if pc in ("mg", "gamg"):
         _mg_parts(ksp.pc, bt)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()

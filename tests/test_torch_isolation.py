@@ -29,6 +29,7 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
     mods = list(_modules())
     assert "petsctpu_torch.ops.sell_spmv" in mods
     assert "petsctpu_torch.ops.stencil_mult" in mods
+    assert "petsctpu_torch.ops.sell_spmvT" in mods
     mods.append("chip_smoke")
     code = (
         "import importlib, sys\n"

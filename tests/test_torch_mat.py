@@ -114,6 +114,17 @@ def test_sell_pack_equals_jax(case, mode):
         np.testing.assert_array_equal(ta[key], ja[key], err_msg=key)
 
 
+@pytest.mark.parametrize("mode", ["diag", "chunk"])
+@pytest.mark.parametrize("case", SELL_CASES, ids=SELL_IDS)
+def test_sell_to_scipy_inverts_the_pack(case, mode):
+    _, build, G = case
+    A = sp.csr_matrix(build(), dtype=np.float32)
+    B = tsell.sell_to_scipy(tsell.sell_from_scipy(A, G=G, mode=mode,
+                                                  device=CPU))
+    assert B.shape == A.shape and B.dtype == np.float32
+    assert (B != A).nnz == 0
+
+
 def test_sell_poisson_pack_matches_jax_builder():
     """Both packages' poisson_3d builders give the same matrix."""
     A, B = poisson_3d(16, 16, 16), jpoisson_3d(16, 16, 16)
@@ -179,14 +190,103 @@ def test_aij_and_jacobi_from_arrays():
 
 
 def test_sell_multT_is_k3():
+    """multT runs K3 in chunk mode only; the GAMG device refresh's
+    templates are not ported yet."""
     T = tsell.sell_from_scipy(banded_random(4 * 4 * 128, 60, 5), G=4,
-                              mode="chunk", device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 2 K3"):
+                              mode="diag", device=CPU)
+    with pytest.raises(NotImplementedError, match="chunk mode only"):
         T.multT(torch.ones(T.shape[0]))
     for fn in (lambda: tsell.sell_template(None), lambda: tsell.sell_fill(
             None, None, None, None)):
-        with pytest.raises(NotImplementedError, match="queue 2 K3"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
             fn()
+
+
+def _prolongator_like(G, seed=5):
+    """tests/test_sell.py:234's case: few nonzeros a row, columns
+    clustered by row blocks."""
+    rng = np.random.default_rng(seed)
+    m, n = G * 128 * 3 + 77, 1400
+    rows = np.repeat(np.arange(m), 3)
+    cols = np.clip((rows // (m // n + 1)) + rng.integers(-40, 40, rows.size),
+                   0, n - 1)
+    A = sp.coo_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                       (rows, cols)), shape=(m, n)).tocsr()
+    A.sum_duplicates()
+    return A, rng.standard_normal(m).astype(np.float32)
+
+
+@pytest.mark.parametrize("G", [8, 16])
+def test_sell_multT_matches_jax_and_scipy(G):
+    A, r = _prolongator_like(G)
+    J = jsell.sell_from_scipy(A, G=G, mode="chunk", interpret=True)
+    T = tsell.sell_from_scipy(A, G=G, mode="chunk", device=CPU)
+    got = T.multT(torch.from_numpy(r)).numpy()
+    assert got.dtype == np.float32 and got.shape == (A.shape[1],)
+    np.testing.assert_allclose(got, np.asarray(J.multT(jnp.asarray(r))),
+                               rtol=2e-5, atol=2e-4)
+    np.testing.assert_allclose(got, A.T @ r, rtol=2e-5, atol=2e-4)
+
+
+def test_sell_spmvT_plain_matches_sequential_loop():
+    """The plain version sums each pass's row in (g, l) order, each window
+    row over its passes in order and each y row over the tiles in order:
+    bit-equal to a direct loop."""
+    from petsctpu_torch.ops.sell_spmvT import sell_spmvT
+
+    A, r = _prolongator_like(4, seed=8)
+    T = tsell.sell_from_scipy(A, G=4, mode="chunk", device=CPU)
+    vals, idx, qs, ws = (t.numpy() for t in (T.vals, T.idx, T.qs,
+                                             T.winstart))
+    nt, P, G = vals.shape[:3]
+    rt = np.zeros(nt * G * 128, np.float32)
+    rt[:A.shape[0]] = r
+    rt = rt.reshape(nt, G, 128)
+    part = np.zeros((nt, P, 128), np.float32)
+    for t, p, g, l in zip(*np.nonzero(vals)):
+        c = idx[t, p, g, l]
+        part[t, p, c] = part[t, p, c] + vals[t, p, g, l] * rt[t, g, l]
+    wins = np.zeros((nt, T.S, 128), np.float32)
+    for t in range(nt):
+        for p in range(P):
+            wins[t, qs[t, p]] = wins[t, qs[t, p]] + part[t, p]
+    ref = np.zeros((T.Lp, 128), np.float32)
+    for t in range(nt):
+        ref[ws[t]:ws[t] + T.S] = ref[ws[t]:ws[t] + T.S] + wins[t]
+    y = sell_spmvT(T.vals, T.idx, T.qs, T.winstart, torch.from_numpy(rt),
+                   S=T.S, Lp=T.Lp).numpy()
+    np.testing.assert_array_equal(y, ref)
+
+
+def test_sell_spmvT_rejects_what_the_kernel_does_not_take():
+    from petsctpu_torch.ops.sell_spmvT import sell_spmvT
+
+    nt, P, G, S, Lp = 2, 3, 4, 8, 16
+
+    def args(device="cpu", **over):
+        a = dict(vals=torch.zeros((nt, P, G, 128), dtype=torch.float32),
+                 idx=torch.zeros((nt, P, G, 128), dtype=torch.int8),
+                 qs=torch.zeros((nt, P), dtype=torch.int32),
+                 winstart=torch.zeros((nt,), dtype=torch.int32),
+                 rt=torch.zeros((nt, G, 128), dtype=torch.float32))
+        a = {k: v.to(device) for k, v in a.items()}
+        a.update(over)
+        return a
+
+    assert sell_spmvT(**args(), S=S, Lp=Lp).shape == (Lp, 128)
+    with pytest.raises(ValueError, match="not supported"):
+        sell_spmvT(**args("meta"), S=S, Lp=Lp)
+    bad = [dict(vals=torch.zeros((nt, P, G, 128), dtype=torch.float64)),
+           dict(idx=torch.zeros((nt, P, G, 128), dtype=torch.int32)),
+           dict(qs=torch.zeros((nt, P + 1), dtype=torch.int32)),
+           dict(rt=torch.zeros((nt, G + 1, 128), dtype=torch.float32)),
+           dict(vals=torch.zeros((nt, P, G, 256), dtype=torch.float32)
+                [..., ::2])]
+    for over in bad:
+        with pytest.raises(ValueError):
+            sell_spmvT(**args(**over), S=S, Lp=Lp)
+    with pytest.raises(ValueError, match="window rows"):
+        sell_spmvT(**args(), S=Lp + 1, Lp=Lp)
 
 
 def test_sell_plan_stats_and_viability_match_jax():
