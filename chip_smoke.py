@@ -58,7 +58,18 @@ petsctpu. Phases, each of which raises on failure:
    port's CPU path (equal its and reason, history within 1e-4 relative);
 12. K3's times on the 128³ level-0 prolongator: kernel (windows and
    combine), plain version, torch.sparse CSR `mv` of Pᵀ and the byte
-   bound; and the ms per CG+GAMG iteration of a repeat of the solve.
+   bound; and the ms per CG+GAMG iteration of a repeat of the solve;
+13. slice 4's path, the TPU probe kernels as H1-H3: every case of
+   `python -m petsctpu_torch.probes` (petsctpu_torch.probes.check_cases)
+   at its script's seed and size, its kernel launched once, with the
+   launch counts reset just before and read just after. Each case's
+   kernel (H1 sell_pass, H2 window_spmv or H3 gather_forms) must equal
+   its plain version bit for bit and the script's numpy emulation
+   (exactly for a gather, within 1e-5 relative for a sum). Then every
+   case is timed: the kernel (back-to-back calls, and replayed from a
+   CUDA graph, which leaves out the host's cost of a call), the plain
+   version and the library call, beside the bound, and K2 on the padded
+   layout beside the tile-mode SELL cases at bench scale.
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -67,7 +78,6 @@ It ends with the nvidia-smi line, a JSON line of kernels and, last,
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -76,6 +86,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from petsctpu_torch import probes
 from petsctpu_torch.convert import sell_from_arrays
 from petsctpu_torch.core.logging import log_begin, log_events
 from petsctpu_torch.core.options import Options
@@ -86,19 +97,21 @@ from petsctpu_torch.mat import (StencilMat, mat_from_options,
 from petsctpu_torch.mat.sell import sell_from_scipy, sell_pack, sell_to_scipy
 from petsctpu_torch.models import ex45_system, laplacian_2d
 from petsctpu_torch.ops import _build
+from petsctpu_torch.ops.gather_forms import gather_forms
+from petsctpu_torch.ops.sell_pass import sell_pass
 from petsctpu_torch.ops.sell_spmv import sell_spmv, sell_spmv_plain
 from petsctpu_torch.ops.sell_spmvT import (sell_spmvT, sell_spmvT_plain,
                                            window_in_shared_memory)
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
+from petsctpu_torch.ops.window_spmv import window_spmv
+from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
+                                   HBM_BYTES_PER_S, time_ms)
 
 GRID = 128                 # ex45 at 128³: n = 2,097,152
 MG_GRID = 129              # ex45 -pc_type mg at 129³: n = 2,146,689
 GAMG_GRID = 128            # ex45 -pc_type gamg at 128³: n = 2,097,152
 K3_LEVELS = (0, 1)         # the levels that restrict through K3 at 128³
 BENCH_M = 4096             # bench.py's stencil: 4096², n = 16,777,216
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside tensor cores
-FP64_FLOPS_PER_S = 34e12   # H100 SXM data sheet, fp64 outside tensor cores
 MG_OPTS = {"ksp_type": "cg", "pc_type": "mg", "ksp_rtol": "1e-5"}
 STAR5 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 KSP_OPTS = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-5",
@@ -187,6 +200,9 @@ def reset_counts():
     sell_spmv.launches = 0
     stencil_mult.launches = 0
     sell_spmvT.launches = 0
+    sell_pass.launches = 0
+    window_spmv.launches = 0
+    gather_forms.launches = 0
 
 
 def drive_main_path(A, b_np):
@@ -241,25 +257,6 @@ def check_small_against_cpu():
         raise AssertionError("16^3 solve on the card disagrees with the CPU")
     if gx.shape != (A.shape[0],) or not np.isfinite(gx).all():
         raise AssertionError("16^3 solution has the wrong shape or NaNs")
-
-
-def time_ms(fn, runs=50, inner=10, warmup=3):
-    """Median over `runs` of the CUDA-event time of `inner` back-to-back
-    calls, per call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
 
 
 def stream_triad_gbs(n=1 << 27):
@@ -740,6 +737,46 @@ def warm_gamg_ms_per_it(gamg):
     return 1e3 * (time.perf_counter() - t) / int(res.its)
 
 
+PROBE_KERNELS = (sell_pass, window_spmv, gather_forms)
+
+
+def probes_phase():
+    """Slice 4's path: every probe case launched once through its kernel
+    and checked, with the counts reset just before and read just after;
+    then every case timed. Returns the kernels' entries of the JSON line,
+    each with the times of its largest case (by bound)."""
+    reset_counts()
+    t = time.perf_counter()
+    checked = probes.check_cases(device="cuda")
+    secs = time.perf_counter() - t
+    launches = {k.__name__: k.launches for k in PROBE_KERNELS}
+    print(f"probes path: {len(checked)} cases checked in {secs:.1f} s; "
+          f"launches {launches}")
+    t = time.perf_counter()
+    results = []
+    for case, res in checked:
+        res.update(probes.measure(case, res["out"]))
+        print(probes.line(res), flush=True)
+        results.append(res)
+    print(f"probes timed in {time.perf_counter() - t:.1f} s")
+    kernels = []
+    for name, n in launches.items():
+        rs = [r for r in results if r["kernel"] == name]
+        if n == 0 or not rs:
+            raise AssertionError(f"{name} was not launched on the probes "
+                                 "path")
+        top = max(rs, key=lambda r: r["bound_ms"])
+        print(f"{name}: {len(rs)} cases; the kernels line shows "
+              f"{top['name']}")
+        kernels.append(dict(
+            name=name, route="cuda", source=f"petsctpu_torch/csrc/{name}.cu",
+            replaces=", ".join(dict.fromkeys(r["replaces"] for r in rs)),
+            launches=n, max_abs_err=max(r["max_abs_err"] for r in rs),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}))
+    return kernels
+
+
 def main():
     name, smi = device_info()
     build_kernels()
@@ -787,6 +824,8 @@ def main():
                     replaces="petsctpu/mat/sell.py:214",
                     launches=gamg["launches"], max_abs_err=k3_err,
                     **k3_times)]
+    del gamg, P0, P0_host
+    kernels += probes_phase()
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -109,7 +109,8 @@ def sell_spmv(vals, idx, qs, winstart, xp, *, G: int, S: int,
     if rc != 0:
         raise RuntimeError(f"sell_spmv: kernel launch failed with CUDA "
                            f"error {rc}")
-    sell_spmv.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        sell_spmv.launches += 1  # a captured call launches nothing
     return y
 
 

@@ -30,6 +30,10 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
     assert "petsctpu_torch.ops.sell_spmv" in mods
     assert "petsctpu_torch.ops.stencil_mult" in mods
     assert "petsctpu_torch.ops.sell_spmvT" in mods
+    for m in ("ops.sell_pass", "ops.window_spmv", "ops.gather_forms",
+              "probes", "probes.common", "probes.gather", "probes.sell",
+              "probes.__main__", "timing"):
+        assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
         "import importlib, sys\n"
@@ -68,6 +72,7 @@ def _entry_points():
     from petsctpu_torch.mat import (aij_from_scipy, mat_from_options,
                                     stencil_from_scipy)
     from petsctpu_torch.mat.sell import sell_from_scipy
+    from petsctpu_torch.probes.__main__ import main as probes_main
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
     return {
@@ -78,12 +83,15 @@ def _entry_points():
         "DA.create_matrix": lambda **kw: DA((40, 40)).create_matrix(**kw),
         "stencil_from_scipy": lambda **kw: stencil_from_scipy(
             A, (40, 40), **kw),
+        "probes.__main__": lambda **kw: probes_main(
+            ["probe_gather6_C", *(("--device", kw["device"]) if kw
+                                  else ())])[0]["out"],
     }
 
 
 @pytest.mark.parametrize("name", ["aij_from_scipy", "mat_from_options",
                                   "sell_from_scipy", "DA.create_matrix",
-                                  "stencil_from_scipy"])
+                                  "stencil_from_scipy", "probes.__main__"])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")
