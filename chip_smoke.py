@@ -19,10 +19,15 @@ petsctpu. Phases, each of which raises on failure:
    GMRES(30)+Jacobi for 300 iterations, with the launch counts reset
    just before and read just after; plus the same CG solve at 16³ on
    the card against the port's CPU path;
-5. K2's times (CUDA events, median of 50 runs after warm-up): the
-   kernel, its plain version, a torch.sparse CSR product as the
-   yardstick, the kernel's bound and a STREAM triad; and the ms per CG
-   iteration of that path's solve and of a repeat of it;
+5. K2's times: the kernel's device time (20 calls replayed from a CUDA
+   graph, median of 20 replays) and a call's time back to back (CUDA
+   events, median of 50 runs of 10 after warm-up; the wrapper's host
+   cost included), its plain version, a torch.sparse CSR product as the
+   yardstick (one call, timed back to back too), the kernel's bound and
+   a STREAM triad; and the ms per CG iteration of that path's solve and
+   of a repeat of it. In the kernels line a kernel's "ms" is its call
+   back to back, as its "plain_ms" and "library_ms" are, and
+   "device_ms" its time in a CUDA graph;
 6. slice 2's path at full size, KSP ex45 with -pc_type mg: the 129³
    7-point operator as a StencilMat (stencil_from_scipy, fp64) and a
    KSP solve, CG preconditioned by geometric MG on DA((129,129,129))
@@ -45,20 +50,26 @@ petsctpu. Phases, each of which raises on failure:
    128³ operator through mat_from_options(-mat_type sell) and a KSP with
    set_operators(M, A_host), CG preconditioned by smoothed-aggregation
    GAMG to rtol 1e-5: true residual ≤ 1e-4, the setup seconds split into
-   hierarchy, packing and transfer, the formats of every level, and K3
-   launched at least (levels restricting through it) × its times in the
-   solve, with the counts reset just before the path and read just after;
-10. K3 against plain, on the card: K3 (SELL transpose product) must equal
-   its plain version bit for bit, give the same bits over 10 launches,
-   and match scipy's fp64 Pᵀr within 1e-5 relative, on the 128³ level-0
-   prolongator of that hierarchy, on tests/test_sell.py:234's
-   prolongator-like case at G 8 and 16, and on a case whose window does
-   not fit in shared memory;
+   hierarchy, packing and transfer (K3's transpose plans part of it), the
+   formats of every level, and K3 launched at least (levels restricting
+   through it) × its times in the solve, with the counts reset just
+   before the path and read just after;
+10. K3 against plain, on the card: K3 (SELL transpose product over a
+   transpose plan) must equal the plan's plain version and the
+   definition on the pack (sell_spmvT_plain) bit for bit, give the same
+   bits over 10 launches, and match scipy's fp64 Pᵀr within 1e-5
+   relative, on the 128³ prolongators of levels 0 and 1 of that
+   hierarchy (the thread and the warp shape), and in both launch shapes
+   on tests/test_sell.py:234's prolongator-like case at G 8 and 16 and
+   on a case whose windows span 640 rows;
 11. the same GAMG solve on the 2-D 128² Laplacian on the card against the
    port's CPU path (equal its and reason, history within 1e-4 relative);
-12. K3's times on the 128³ level-0 prolongator: kernel (windows and
-   combine), plain version, torch.sparse CSR `mv` of Pᵀ and the byte
-   bound; and the ms per CG+GAMG iteration of a repeat of the solve;
+12. K3's times on the 128³ level-0 and level-1 prolongators: kernel, the
+   plan's plain version, the definition on the pack, torch.sparse CSR
+   `mv` of Pᵀ, the plan's byte bound and the pack's, and the plan's build
+   time; K2 in chunk mode on the level-0 prolongator (P.mult) against its
+   plain version, its pack bound and CSR `mv` of P; and the ms per
+   CG+GAMG iteration of a repeat of the solve;
 13. slice 4's path, the TPU probe kernels as H1-H3: every case of
    `python -m petsctpu_torch.probes` (petsctpu_torch.probes.check_cases)
    at its script's seed and size, its kernel launched once, with the
@@ -101,11 +112,12 @@ from petsctpu_torch.ops.gather_forms import gather_forms
 from petsctpu_torch.ops.sell_pass import sell_pass
 from petsctpu_torch.ops.sell_spmv import sell_spmv, sell_spmv_plain
 from petsctpu_torch.ops.sell_spmvT import (sell_spmvT, sell_spmvT_plain,
-                                           window_in_shared_memory)
+                                           sell_spmvT_plan_plain,
+                                           transpose_plan)
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 from petsctpu_torch.ops.window_spmv import window_spmv
 from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
-                                   HBM_BYTES_PER_S, time_ms)
+                                   HBM_BYTES_PER_S, graph_ms, time_ms)
 
 GRID = 128                 # ex45 at 128³: n = 2,097,152
 MG_GRID = 129              # ex45 -pc_type mg at 129³: n = 2,146,689
@@ -278,7 +290,8 @@ def measure(A, M, xp):
     """Times of K2, its plain version and the CSR yardstick at 128³."""
     args = (M.vals, M.idx, M.qs, M.winstart, xp)
     kw = dict(G=M.G, S=M.S, mode=M.mode)
-    ms = time_ms(lambda: sell_spmv(*args, **kw))
+    call_ms = time_ms(lambda: sell_spmv(*args, **kw))
+    ms = graph_ms(lambda: sell_spmv(*args, **kw))
     plain_ms = time_ms(lambda: sell_spmv_plain(*args, **kw), inner=1)
     Ac = sp.csr_matrix(A, dtype=np.float32)
     csr = torch.sparse_csr_tensor(
@@ -296,14 +309,17 @@ def measure(A, M, xp):
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = 2.0 * A.nnz / FP32_FLOPS_PER_S * 1e3
     triad = stream_triad_gbs()
-    print(f"K2 at {GRID}^3: {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
-          f"of {nbytes} compulsory bytes); plain {plain_ms:.4f} ms; "
+    print(f"K2 at {GRID}^3: {ms:.4f} ms in a CUDA graph "
+          f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes} compulsory "
+          f"bytes, {100 * bound_bytes_ms / ms:.1f} % of the byte bound), "
+          f"{call_ms:.4f} ms a call back to back; plain {plain_ms:.4f} ms; "
           f"torch.sparse CSR mv {library_ms:.4f} ms (rel diff {lib_rel:.1e}); "
           f"bound {bound_bytes_ms:.4f} ms by bytes at 3.35 TB/s "
           f"({bound_ops_ms:.5f} ms by fp32 ops); STREAM triad {triad:.1f} GB/s")
     if not lib_rel <= 1e-5:
         raise AssertionError(f"CSR yardstick disagrees with K2: {lib_rel}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(ms=call_ms, device_ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 bound_ms=max(bound_bytes_ms, bound_ops_ms),
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                 else "operations")
@@ -455,7 +471,8 @@ def check_k1(label, S, rng, A_host=None):
 def measure_k1(label, S, x, A_host):
     """Times of K1, its plain version and the CSR yardstick."""
     args = (S.coeffs, x, S.offsets, S.grid, S.boundary)
-    ms = time_ms(lambda: stencil_mult(*args))
+    call_ms = time_ms(lambda: stencil_mult(*args))
+    ms = graph_ms(lambda: stencil_mult(*args))
     plain_ms = time_ms(lambda: stencil_mult_plain(*args), runs=20, inner=1)
     Ac = A_host.astype(np.float32 if S.dtype == torch.float32
                        else np.float64)
@@ -473,15 +490,18 @@ def measure_k1(label, S, x, A_host):
     peak = FP32_FLOPS_PER_S if S.dtype == torch.float32 else FP64_FLOPS_PER_S
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = 2.0 * D * n / peak * 1e3
-    print(f"K1 at {label}: {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
-          f"of {nbytes} compulsory bytes); plain {plain_ms:.4f} ms; "
+    print(f"K1 at {label}: {ms:.4f} ms in a CUDA graph "
+          f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes} compulsory "
+          f"bytes), {call_ms:.4f} ms a call back to back; plain "
+          f"{plain_ms:.4f} ms; "
           f"torch.sparse CSR mv {library_ms:.4f} ms (rel diff {lib_rel:.1e}); "
           f"bound {bound_bytes_ms:.4f} ms by bytes at 3.35 TB/s "
           f"({bound_ops_ms:.5f} ms by ops)")
     tol = 1e-5 if S.dtype == torch.float32 else 1e-12
     if not lib_rel <= tol:
         raise AssertionError(f"CSR yardstick disagrees with K1: {lib_rel}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(ms=call_ms, device_ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 bound_ms=max(bound_bytes_ms, bound_ops_ms),
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                 else "operations")
@@ -545,7 +565,7 @@ def drive_gamg_path():
     setup_s = time.perf_counter() - t
     ev = log_events()
     split = {k: ev[k].time for k in ("PCGAMGHierarchy", "PCMGPack",
-                                     "PCMGTransfer")}
+                                     "PCMGTransfer", "PCMGTransposePlan")}
     k3_setup, k2_setup = sell_spmvT.launches, sell_spmv.launches
     bt = torch.from_numpy(b.astype(np.float32)).cuda()
     t = time.perf_counter()
@@ -563,7 +583,8 @@ def drive_gamg_path():
     pc = ksp.pc
     print(f"gamg path: mat_from_options {op_s:.2f} s; GAMG setup {setup_s:.2f}"
           f" s = hierarchy {split['PCGAMGHierarchy']:.2f} + packing "
-          f"{split['PCMGPack']:.2f} + transfer {split['PCMGTransfer']:.2f} s")
+          f"{split['PCMGPack']:.2f} + transfer {split['PCMGTransfer']:.2f} s "
+          f"(K3's transpose plans {split['PCMGTransposePlan']:.3f} s of it)")
     for l, (lev, fmt) in enumerate(zip(pc.levels, pc.formats)):
         print(f"  level {l}: A {lev.A.shape} {fmt[0]}, P {lev.P.shape} "
               f"{fmt[1]}, R {fmt[2] or 'P.multT (K3)'}")
@@ -586,42 +607,54 @@ def drive_gamg_path():
 
 
 def padded_r(M, rng):
-    """A random r for M's rows, as K3's zero-padded [nt,G,128] operand."""
-    r = rng.standard_normal(M.shape[0]).astype(np.float32)
-    rp = torch.zeros(M.nt * M.G * 128, device="cuda")
-    rp[:M.shape[0]] = torch.from_numpy(r).cuda()
-    return r, rp.view(M.nt, M.G, 128)
+    """A random r for M's rows, and the same r zero-padded to the pack's
+    [nt,G,128] (the operand of the definition, sell_spmvT_plain)."""
+    r = torch.from_numpy(rng.standard_normal(M.shape[0])
+                         .astype(np.float32)).cuda()
+    rt = torch.zeros(M.nt * M.G * 128, device="cuda")
+    rt[:M.shape[0]] = r
+    return r, rt.view(M.nt, M.G, 128)
 
 
-def check_k3(label, M, P_host, rng):
-    """K3 against its plain version (bit for bit, and the same bits over
-    10 launches) and against scipy's fp64 Pᵀr."""
+def plan_name(plan):
+    return "warp" if plan.warp_shape else "thread"
+
+
+def check_k3(label, M, P_host, rng, plans=None):
+    """K3 against its plan's plain version and the definition on the pack
+    (bit for bit, and the same bits over 10 launches) and against scipy's
+    fp64 Pᵀr, on M's own plan or the given ones."""
     r, rt = padded_r(M, rng)
-    args = (M.vals, M.idx, M.qs, M.winstart, rt)
-    kw = dict(S=M.S, Lp=M.Lp)
-    y = sell_spmvT(*args, **kw)
-    y_plain = sell_spmvT_plain(*args, **kw)
-    repeat = all(torch.equal(sell_spmvT(*args, **kw), y) for _ in range(10))
-    torch.cuda.synchronize()
-    err = float((y - y_plain).abs().max())
-    off = M.G * 128
-    yv = y.reshape(-1)[off:off + M.shape[1]].double().cpu().numpy()
-    ref = P_host.T @ r.astype(np.float64)
-    rel = float(np.abs(yv - ref).max() / np.abs(ref).max())
-    smem = window_in_shared_memory(M.S)
-    print(f"K3 {label}: m={M.shape[0]} n={M.shape[1]} nt={M.nt} P={M.npass} "
-          f"G={M.G} S={M.S} Lp={M.Lp} window in "
-          f"{'shared' if smem else 'global'} memory; max|kernel-plain|={err}"
-          f" same bits over 10 launches {repeat}; rel err vs scipy fp64 "
-          f"{rel:.3e}")
-    if not torch.equal(y, y_plain):
-        raise AssertionError(f"K3 {label}: kernel differs from its plain "
-                             f"version (max abs {err})")
-    if not repeat:
-        raise AssertionError(f"K3 {label}: launches disagree")
-    if not rel <= 1e-5:
-        raise AssertionError(f"K3 {label}: relative error {rel} vs scipy")
-    return err, smem
+    y_def = sell_spmvT_plain(M.vals, M.idx, M.qs, M.winstart, rt, S=M.S,
+                             Lp=M.Lp)
+    errs = []
+    for plan in plans or (M.transpose_plan(),):
+        y = sell_spmvT(plan, r)
+        y_plain = sell_spmvT_plan_plain(plan, r)
+        repeat = all(torch.equal(sell_spmvT(plan, r), y) for _ in range(10))
+        torch.cuda.synchronize()
+        err = max(float((y - y_plain).abs().max()),
+                  float((y - y_def).abs().max()))
+        off = M.G * 128
+        yv = y.reshape(-1)[off:off + M.shape[1]].double().cpu().numpy()
+        ref = P_host.T @ r.double().cpu().numpy()
+        rel = float(np.abs(yv - ref).max() / np.abs(ref).max())
+        print(f"K3 {label}: m={M.shape[0]} n={M.shape[1]} nt={M.nt} "
+              f"P={M.npass} G={M.G} S={M.S} Lp={M.Lp}; plan {plan_name(plan)}"
+              f" shape, {int(plan.cnt.sum())} entries in {plan.val.numel()} "
+              f"slots, longest list {plan.longest}; max|kernel-plain|="
+              f"{err} (plan's plain version and definition) same bits over "
+              f"10 launches {repeat}; rel err vs scipy fp64 {rel:.3e}")
+        if not (torch.equal(y, y_plain) and torch.equal(y, y_def)):
+            raise AssertionError(f"K3 {label}: kernel differs from its plain "
+                                 f"versions (max abs {err})")
+        if not repeat:
+            raise AssertionError(f"K3 {label}: launches disagree")
+        if not rel <= 1e-5:
+            raise AssertionError(f"K3 {label}: relative error {rel} vs "
+                                 "scipy")
+        errs.append(err)
+    return max(errs)
 
 
 def prolongator_like(G, rng, wide=False):
@@ -645,26 +678,24 @@ def prolongator_like(G, rng, wide=False):
 
 def k3_phases(gamg, rng):
     """K3 against plain on every case; returns (max |kernel - plain|,
-    the finest prolongator that restricts through K3 and its scipy
-    matrix)."""
+    [(level, P, scipy P)] of the levels that restrict through K3). The
+    small cases run in both launch shapes."""
     pc = gamg["ksp"].pc
-    l = [f[2] for f in pc.formats].index(None)
-    P0 = pc.levels[l].P
-    P0_host = sell_to_scipy(P0)
-    errs = [check_k3(f"{GAMG_GRID}^3 level-{l} prolongator", P0, P0_host,
-                     rng)[0]]
-    for G in (8, 16):
-        A = prolongator_like(G, rng)
+    levels = []
+    for l, (lev, fmt) in enumerate(zip(pc.levels, pc.formats)):
+        if fmt[2] is None:
+            levels.append((l, lev.P, sell_to_scipy(lev.P)))
+    errs = [check_k3(f"{GAMG_GRID}^3 level-{l} prolongator", P, P_host, rng)
+            for l, P, P_host in levels]
+    for label, G, wide in (("prolongator-like G=8", 8, False),
+                           ("prolongator-like G=16", 16, False),
+                           ("wide windows G=8", 8, True)):
+        A = prolongator_like(G, rng, wide=wide)
         M = sell_from_scipy(A, G=G, mode="chunk")
-        errs.append(check_k3(f"prolongator-like G={G}", M, A, rng)[0])
-    A = prolongator_like(8, rng, wide=True)
-    M = sell_from_scipy(A, G=8, mode="chunk")
-    err, smem = check_k3("wide windows G=8", M, A, rng)
-    if smem:
-        raise AssertionError(f"a window of S={M.S} rows was meant to exceed "
-                             "shared memory")
-    errs.append(err)
-    return max(errs), P0, P0_host
+        plans = [transpose_plan(M.vals, M.idx, M.qs, M.winstart, S=M.S,
+                                Lp=M.Lp, warp_shape=w) for w in (False, True)]
+        errs.append(check_k3(label, M, A, rng, plans))
+    return max(errs), levels
 
 
 def check_gamg_small_against_cpu():
@@ -691,43 +722,103 @@ def check_gamg_small_against_cpu():
         raise AssertionError("128^2 GAMG solution has the wrong shape or NaNs")
 
 
-def measure_k3(M, P_host, rng):
-    """Times of K3, its plain version and the CSR yardstick on the
-    finest prolongator that restricts through it (level 0 at 128³)."""
-    _, rt = padded_r(M, rng)
-    args = (M.vals, M.idx, M.qs, M.winstart, rt)
-    kw = dict(S=M.S, Lp=M.Lp)
-    ms = time_ms(lambda: sell_spmvT(*args, **kw))
-    plain_ms = time_ms(lambda: sell_spmvT_plain(*args, **kw), runs=5,
+def csr_of(A):
+    A = sp.csr_matrix(A, dtype=np.float32)
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)),
+        torch.from_numpy(A.indices.astype(np.int64)),
+        torch.from_numpy(A.data), size=A.shape, check_invariants=True).cuda()
+
+
+def pack_bytes(M):
+    return sum(t.numel() * t.element_size()
+               for t in (M.vals, M.idx, M.qs, M.winstart))
+
+
+def measure_k3(l, M, P_host, rng):
+    """Times of K3, its plan's plain version, the definition on the pack
+    and the CSR yardstick on the level-l prolongator, the plan's byte
+    bound (its live entries, list offsets and counts, r and y, each
+    once) beside the pack's, the plan's build time, and K3 on a plan of
+    the launch shape the split rule did not pick."""
+    r, rt = padded_r(M, rng)
+    plan = M.transpose_plan()
+    call_ms = time_ms(lambda: sell_spmvT(plan, r))
+    ms = graph_ms(lambda: sell_spmvT(plan, r))
+    plain_ms = time_ms(lambda: sell_spmvT_plan_plain(plan, r), runs=5,
                        inner=1, warmup=1)
-    RT = sp.csr_matrix(P_host.T, dtype=np.float32)
-    csr = torch.sparse_csr_tensor(
-        torch.from_numpy(RT.indptr.astype(np.int64)),
-        torch.from_numpy(RT.indices.astype(np.int64)),
-        torch.from_numpy(RT.data), size=RT.shape,
-        check_invariants=True).cuda()
-    r = rt.reshape(-1)[:M.shape[0]].contiguous()
+    pk = (M.vals, M.idx, M.qs, M.winstart, rt)
+    def_ms = time_ms(lambda: sell_spmvT_plain(*pk, S=M.S, Lp=M.Lp), runs=5,
+                     inner=1, warmup=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    transpose_plan(M.vals, M.idx, M.qs, M.winstart, S=M.S, Lp=M.Lp)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    other = transpose_plan(M.vals, M.idx, M.qs, M.winstart, S=M.S, Lp=M.Lp,
+                           warp_shape=not plan.warp_shape)
+    other_ms = graph_ms(lambda: sell_spmvT(other, r))
+    del other
+    csr = csr_of(P_host.T)
     y_lib = torch.mv(csr, r)
     off = M.G * 128
-    y = sell_spmvT(*args, **kw).reshape(-1)[off:off + M.shape[1]]
+    y = sell_spmvT(plan, r).reshape(-1)[off:off + M.shape[1]]
     lib_rel = float((y_lib - y).abs().max() / y.abs().max())
     library_ms = time_ms(lambda: torch.mv(csr, r))
-    nbytes = sum(t.numel() * t.element_size() for t in args) \
-        + M.Lp * 128 * 4
+    entries = int(plan.cnt.sum())
+    lists = plan.cnt.numel()
+    nbytes = entries * 8 + lists * 8 + plan.ogroup.numel() * 4 \
+        + plan.rows * 4 + plan.nout * 4
+    pack_nbytes = pack_bytes(M) + rt.numel() * 4 + M.Lp * 128 * 4
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = 2.0 * P_host.nnz / FP32_FLOPS_PER_S * 1e3
-    print(f"K3 at {GAMG_GRID}^3 on P {M.shape}: {ms:.4f} ms "
-          f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes} compulsory "
-          f"bytes); plain {plain_ms:.4f} ms; torch.sparse CSR mv of P^T "
-          f"{library_ms:.4f} ms (rel diff {lib_rel:.1e}); bound "
-          f"{bound_bytes_ms:.4f} ms by bytes at 3.35 TB/s ({bound_ops_ms:.5f}"
-          f" ms by fp32 ops)")
+    pack_bound_ms = pack_nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 2.0 * entries / FP32_FLOPS_PER_S * 1e3
+    print(f"K3 at {GAMG_GRID}^3 level {l}, P {M.shape}, {plan_name(plan)} "
+          f"shape: {ms:.4f} ms in a CUDA graph ({nbytes / (ms * 1e-3) / 1e9:.1f}"
+          f" GB/s of {nbytes} plan bytes, {100 * bound_bytes_ms / ms:.1f} % "
+          f"of the plan bound), {call_ms:.4f} ms a call back to back; plan's "
+          f"plain version {plain_ms:.4f} ms; definition on the pack "
+          f"{def_ms:.4f} ms; torch.sparse CSR mv of P^T {library_ms:.4f} ms "
+          f"(rel diff {lib_rel:.1e}); plan bound {bound_bytes_ms:.4f} ms by "
+          f"bytes at 3.35 TB/s ({bound_ops_ms:.5f} ms by fp32 ops); pack "
+          f"bound {pack_bound_ms:.4f} ms ({pack_nbytes} B); plan build "
+          f"{build_s:.3f} s, {plan.val.numel() * 8 + lists * 8} B; the "
+          f"other shape {other_ms:.4f} ms in a CUDA graph")
     if not lib_rel <= 1e-5:
         raise AssertionError(f"CSR yardstick disagrees with K3: {lib_rel}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(ms=call_ms, device_ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
                 bound_ms=max(bound_bytes_ms, bound_ops_ms),
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                 else "operations")
+
+
+def measure_k2_prolongation(M, P_host, rng):
+    """K2 in chunk mode on a prolongator (P.mult, the prolongation):
+    bit for bit against its plain version, and its time beside the pack's
+    byte bound and torch.mv on CSR of P (the price of the pack's
+    padding)."""
+    x = torch.from_numpy(rng.standard_normal(M.shape[1])
+                         .astype(np.float32)).cuda()
+    xp = M.pad_operand(x)
+    args = (M.vals, M.idx, M.qs, M.winstart, xp)
+    kw = dict(G=M.G, S=M.S, mode=M.mode)
+    y = sell_spmv(*args, **kw)
+    if not torch.equal(y, sell_spmv_plain(*args, **kw)):
+        raise AssertionError("K2 on the prolongator differs from its plain "
+                             "version")
+    call_ms = time_ms(lambda: sell_spmv(*args, **kw))
+    ms = graph_ms(lambda: sell_spmv(*args, **kw))
+    csr = csr_of(P_host)
+    library_ms = time_ms(lambda: torch.mv(csr, x))
+    nbytes = pack_bytes(M) + xp.numel() * 4 + y.numel() * 4
+    live = int((M.vals != 0).sum())
+    print(f"K2 chunk mode on P {M.shape} (P.mult): {ms:.4f} ms in a CUDA "
+          f"graph, {call_ms:.4f} ms a call back to back; pack bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B, "
+          f"{100 * live / M.vals.numel():.1f} % of the slots live); "
+          f"torch.sparse CSR mv of P {library_ms:.4f} ms; max|kernel-plain|"
+          f"=0.0")
 
 
 def warm_gamg_ms_per_it(gamg):
@@ -744,7 +835,8 @@ def probes_phase():
     """Slice 4's path: every probe case launched once through its kernel
     and checked, with the counts reset just before and read just after;
     then every case timed. Returns the kernels' entries of the JSON line,
-    each with the times of its largest case (by bound)."""
+    each with the times of its largest case (by bound): "ms" a call back
+    to back, "device_ms" in a CUDA graph."""
     reset_counts()
     t = time.perf_counter()
     checked = probes.check_cases(device="cuda")
@@ -772,7 +864,8 @@ def probes_phase():
             name=name, route="cuda", source=f"petsctpu_torch/csrc/{name}.cu",
             replaces=", ".join(dict.fromkeys(r["replaces"] for r in rs)),
             launches=n, max_abs_err=max(r["max_abs_err"] for r in rs),
-            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+            ms=top["ms"], device_ms=top["graph_ms"],
+            **{k: top[k] for k in ("plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}))
     return kernels
 
@@ -805,9 +898,10 @@ def main():
           f"the main path, {warm_mg_ms_per_it(mg):.4f} repeated")
     del mg
     gamg = drive_gamg_path()
-    k3_err, P0, P0_host = k3_phases(gamg, rng)
+    k3_err, k3_levels = k3_phases(gamg, rng)
     check_gamg_small_against_cpu()
-    k3_times = measure_k3(P0, P0_host, rng)
+    k3_times = [measure_k3(l, P, P_host, rng) for l, P, P_host in k3_levels]
+    measure_k2_prolongation(*k3_levels[0][1:], rng)
     print(f"CG+GAMG ms per iteration at {GAMG_GRID}^3: "
           f"{gamg['ms_per_it']:.4f} in the main path, "
           f"{warm_gamg_ms_per_it(gamg):.4f} repeated")
@@ -823,8 +917,8 @@ def main():
                     source="petsctpu_torch/csrc/sell_spmvT.cu",
                     replaces="petsctpu/mat/sell.py:214",
                     launches=gamg["launches"], max_abs_err=k3_err,
-                    **k3_times)]
-    del gamg, P0, P0_host
+                    **k3_times[0])]
+    del gamg, k3_levels
     kernels += probes_phase()
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from petsctpu_torch.core.logging import log_event
 from petsctpu_torch.device import resolve_device
 from petsctpu_torch.mat.ell import AIJ
 from petsctpu_torch.mat.sell import SellMat
@@ -100,10 +101,13 @@ def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
 
     Each buffer goes to the device in one copy; every operator is a
     view of it, carved at the metas' offsets as PackedMGPC.unpack
-    carves them: "sell" (the int8 idx read from its int32 words),
+    carves them: "sell" (the int8 idx read from its int32 words; vals
+    copied out when its offset is not 16-byte aligned, as K2 needs),
     "dense", "rectband" and "ell" operators, Chebyshev+Jacobi smoothers
     with bounds 0.1·λ and 1.1·λ rounded in the buffer's dtype, an ELL
-    coarsest operator and its dense LU (DenseLUPC)."""
+    coarsest operator and its dense LU (DenseLUPC). A level that
+    restricts through P.multT (no restriction meta) builds P's transpose
+    plan here, under the log event PCMGTransposePlan."""
     from petsctpu_torch.mat.dense import Dense
     from petsctpu_torch.mat.rectband import RectBandMat
     from petsctpu_torch.pc.gamg_device import DenseLUPC
@@ -136,15 +140,21 @@ def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
         (_, vi, ii, qi, wi, di, sha, nnz, G, S, Lp, vshape, mode) = ref
         words = int(np.prod(vshape)) // 4
         idx = geti((ii[0], (words,))).view(torch.int8).view(tuple(vshape))
-        return SellMat(getf((vi[0], vshape)), idx, geti((qi[0], vshape[:2])),
+        vals = getf((vi[0], vshape))
+        if vals.data_ptr() % 16:          # K2 reads vals as float4
+            vals = vals.clone()
+        return SellMat(vals, idx, geti((qi[0], vshape[:2])),
                        geti((wi[0], (vshape[0],))), getf((di[0], (sha[0],))),
                        sha, nnz, G, S, Lp, mode)
 
     levels = []
     for amref, pref, rref, do, lam in metas:
-        A = op(amref)
+        A, P = op(amref), op(pref)
+        if rref is None:                  # restricts through P.multT (K3)
+            with log_event("PCMGTransposePlan"):
+                P.transpose_plan()
         dinv = getf((do, (A.shape[0],)))
-        levels.append(MGLevel(A, op(pref), ChebySmoother(
+        levels.append(MGLevel(A, P, ChebySmoother(
             dinv, sdt(0.1 * lam), sdt(1.1 * lam), sm_its),
             None if rref is None else op(rref)))
     ci, vi, shc, nzc, lum, pivo = coarse_meta

@@ -20,8 +20,9 @@ transfers).
 The product is kernel K2 (`petsctpu_torch/ops/sell_spmv.py`, CUDA
 source `petsctpu_torch/csrc/sell_spmv.cu`); the chunk-mode transpose
 product (the MG restriction through a stored prolongator) is kernel K3
-(`petsctpu_torch/ops/sell_spmvT.py`, `petsctpu_torch/csrc/sell_spmvT.cu`).
-The window start stays
+(`petsctpu_torch/ops/sell_spmvT.py`, `petsctpu_torch/csrc/sell_spmvT.cu`),
+a gather over a transpose plan that the matrix builds from its pack
+once and keeps. The window start stays
 1024-aligned as in the JAX package (only the TPU's DMA needs it) so the
 packs of the two packages match byte for byte.
 
@@ -36,7 +37,7 @@ import torch
 
 from petsctpu_torch.device import resolve_device
 from petsctpu_torch.ops.sell_spmv import sell_spmv
-from petsctpu_torch.ops.sell_spmvT import sell_spmvT
+from petsctpu_torch.ops.sell_spmvT import sell_spmvT, transpose_plan
 
 
 class SellMat:
@@ -58,6 +59,7 @@ class SellMat:
         self.S = S          # window rows
         self.Lp = Lp        # padded x rows
         self.mode = mode
+        self._tplan = None  # K3's transpose plan, built at first use
 
     @property
     def dtype(self):
@@ -89,21 +91,24 @@ class SellMat:
                       self.pad_operand(x), G=self.G, S=self.S, mode=self.mode)
         return y.reshape(-1)[:self.shape[0]]
 
+    def transpose_plan(self):
+        """K3's plan of Aᵀ (ops/sell_spmvT.py::transpose_plan), built on
+        the matrix's device at the first call and kept. Chunk mode only."""
+        if self.mode != "chunk":
+            raise NotImplementedError("SellMat.multT: chunk mode only")
+        if self._tplan is None:
+            self._tplan = transpose_plan(self.vals, self.idx, self.qs,
+                                         self.winstart, S=self.S, Lp=self.Lp)
+        return self._tplan
+
     def multT(self, r: torch.Tensor) -> torch.Tensor:
         """y = Aᵀ r for chunk-mode operators (the MG restriction R = Pᵀ
         run through P's own layout, MatMultTranspose on the stored
-        prolongator): r zero-padded to [nt,G,128], then K3, whose
-        window combine adds every tile's window into y at winstart."""
-        if self.mode != "chunk":
-            raise NotImplementedError("SellMat.multT: chunk mode only")
-        m, n = self.shape
-        rp = torch.zeros(self.nt * self.G * 128, dtype=self.dtype,
-                         device=self.device)
-        rp[:m] = r.reshape(-1).to(self.dtype)
-        y = sell_spmvT(self.vals, self.idx, self.qs, self.winstart,
-                       rp.view(self.nt, self.G, 128), S=self.S, Lp=self.Lp)
+        prolongator): K3 over the transpose plan, gathering r."""
+        plan = self.transpose_plan()
+        y = sell_spmvT(plan, r.reshape(-1).to(self.dtype).contiguous())
         off = self.G * 128
-        return y.reshape(-1)[off:off + n]
+        return y.reshape(-1)[off:off + self.shape[1]]
 
     def diagonal(self) -> torch.Tensor:
         return self.diag

@@ -15,6 +15,7 @@ two agree bit for bit. `sell_spmv.launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -76,12 +77,12 @@ def _check(vals, idx, qs, winstart, xp, G, S, mode):
                          f"[1, Lp={xp.shape[0]}]")
 
 
+@functools.cache
 def _launcher():
     fn = _build.load("sell_spmv").sell_spmv_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -91,21 +92,25 @@ def sell_spmv(vals, idx, qs, winstart, xp, *, G: int, S: int,
 
     The indices must come from `mat.sell.sell_pack`, which keeps every
     read inside the padded x buffer; the kernel does not re-check them.
+    On the card vals must be 16-byte and idx 4-byte aligned (a fresh
+    tensor is; convert.mg_from_packed aligns its views).
     """
     _check(vals, idx, qs, winstart, xp, G, S, mode)
-    if xp.device.type == "cpu":
+    dev = xp.device
+    if dev.type == "cpu":
         return sell_spmv_plain(vals, idx, qs, winstart, xp, G=G, S=S,
                                mode=mode)
+    if vals.data_ptr() % 16 or idx.data_ptr() % 4:
+        raise ValueError("sell_spmv: the kernel reads vals as float4 and "
+                         "idx as 32-bit words: vals must be 16-byte and idx "
+                         "4-byte aligned")
     nt, P = vals.shape[:2]
-    y = torch.empty((nt, G, 128), dtype=torch.float32, device=xp.device)
+    y = torch.empty((nt, G, 128), dtype=torch.float32, device=dev)
     if nt == 0:
         return y
-    launch = _launcher()
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        rc = launch(vals.data_ptr(), idx.data_ptr(), qs.data_ptr(),
-                    winstart.data_ptr(), xp.data_ptr(), y.data_ptr(),
-                    nt, P, G, int(mode == "diag"), stream)
+    rc = _build.launch(_launcher(), xp.get_device(), (
+        vals.data_ptr(), idx.data_ptr(), qs.data_ptr(), winstart.data_ptr(),
+        xp.data_ptr(), y.data_ptr(), nt, P, G, int(mode == "diag")))
     if rc != 0:
         raise RuntimeError(f"sell_spmv: kernel launch failed with CUDA "
                            f"error {rc}")

@@ -167,7 +167,8 @@ def stencil_mult(coeffs, x, offsets, grid, boundary=()) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"stencil_mult: kernel launch failed with CUDA "
                            f"error {rc}")
-    stencil_mult.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        stencil_mult.launches += 1  # a captured call launches nothing
     return y
 
 

@@ -473,7 +473,9 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
     hierarchy is packed on the host (pack_hierarchy) and moved to the
     device in one float and one int32 buffer (convert.mg_from_packed),
     under the log events PCMGPack and PCMGTransfer; otherwise each level
-    is built on its own, with an exact sparse LU coarse solve."""
+    is built on its own, with an exact sparse LU coarse solve. Either
+    way a level that restricts through P.multT builds P's transpose plan
+    (kernel K3's) under the log event PCMGTransposePlan."""
     from petsctpu_torch.convert import mg_from_packed
     from petsctpu_torch.device import resolve_device
     from petsctpu_torch.mat.dense import Dense
@@ -523,7 +525,8 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
 
     def transfer_ops(Pl):
         """(P, R or None): chunk-mode SELL P restricting through
-        P.multT, else dense P and Pᵀ when small, else ELL."""
+        P.multT (its transpose plan built here), else dense P and Pᵀ
+        when small, else ELL."""
         Pl = sp.csr_matrix(Pl)
         Pl.sum_duplicates()
         Pl.sort_indices()
@@ -532,8 +535,11 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
             P32 = Pl.astype(np.float32)
             choice = _sell_choice(P32, ((8, "chunk"), (16, "chunk")))
             if choice is not None:
-                return sell_from_scipy(P32, G=choice[0], mode="chunk",
-                                       device=dev), None
+                P = sell_from_scipy(P32, G=choice[0], mode="chunk",
+                                    device=dev)
+                with log_event("PCMGTransposePlan"):
+                    P.transpose_plan()
+                return P, None
         if fp32 and m_ * n_ * 4 <= DENSE_MAX_BYTES and min(m_, n_) <= 4096:
             D = np.asarray(Pl.toarray(), dtype)
             return (Dense(torch.from_numpy(D).to(dev)),

@@ -13,7 +13,9 @@ busy and idle shares of the wall time. PC picks the path:
           hierarchy, packing and transfer.
 For mg and gamg it also prints the host-clock time of one MG apply, of
 the coarse solve alone, and per level of the operator's product, a
-smooth, a restriction and a prolongation.
+smooth, a restriction and a prolongation; for gamg also K3's device time
+on each level that restricts through it (one kernel a level, in the
+launch shape of the level's transpose plan, timed in a CUDA graph).
 
 Setup runs once, before the timed solves. Needs CUDA; run from the
 repository root:
@@ -40,7 +42,9 @@ from petsctpu_torch.dm import DA  # noqa: E402
 from petsctpu_torch.ksp import KSP  # noqa: E402
 from petsctpu_torch.mat import mat_from_options, stencil_from_scipy  # noqa: E402
 from petsctpu_torch.models import ex45_system  # noqa: E402
+from petsctpu_torch.ops.sell_spmvT import sell_spmvT  # noqa: E402
 from petsctpu_torch.pc.mg import op_format  # noqa: E402
+from petsctpu_torch.timing import graph_ms  # noqa: E402
 
 
 def _fixed_its(its):
@@ -79,7 +83,8 @@ def _gamg_path(grid, its):
     print(f"GAMG setup {time.perf_counter() - t:.2f} s = hierarchy "
           f"{ev['PCGAMGHierarchy'].time:.2f} + packing "
           f"{ev['PCMGPack'].time:.2f} + transfer "
-          f"{ev['PCMGTransfer'].time:.2f} s")
+          f"{ev['PCMGTransfer'].time:.2f} s (K3's transpose plans "
+          f"{ev['PCMGTransposePlan'].time:.3f} s of it)")
     return ksp, torch.from_numpy(b.astype(np.float32)).cuda()
 
 
@@ -112,6 +117,12 @@ def _mg_parts(pc, b):
               f"{_wall_ms(lambda: lev.smoother.smooth(lev.A, x, x)):.4f} ms,"
               f" restrict {_wall_ms(lambda: lev.restrict(x)):.4f} ms, "
               f"prolong {_wall_ms(lambda: lev.P.mult(xc)):.4f} ms")
+        if lev.R is None and hasattr(lev.P, "transpose_plan"):
+            plan = lev.P.transpose_plan()
+            shape = "warp" if plan.warp_shape else "thread"
+            print(f"    K3 on level {l} ({shape} shape, "
+                  f"{int(plan.cnt.sum())} entries): "
+                  f"{graph_ms(lambda: sell_spmvT(plan, x)):.4f} ms device")
 
 
 def main(grid=128, its=100, pc="jacobi"):

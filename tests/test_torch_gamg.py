@@ -8,7 +8,9 @@ restriction through kernel K3) against petsctpu's, on the CPU.
   takes that branch's decisions on every device, as tests/test_sell.py:
   274 builds them): pack_hierarchy's buffers and metas equal
   PackedMGPC's, and the per-level formats equal the metas' kinds, with
-  level 0 restricting through P.multT, K3's plain version here.
+  level 0 restricting through P.multT, the plain version of K3's plan
+  here; the plan of every transfer level of a small ex45 hierarchy
+  equals the definition (sell_spmvT_plain on the pack) bit for bit.
 * One V-cycle (and a W-cycle, and additive MG) of the port's own setup
   and of convert.mg_from_packed on the reference's PackedMGPC, against
   PackedMGPC.apply (Pallas interpret mode): within 2e-4·max|y|
@@ -176,17 +178,48 @@ def test_formats_match_reference_and_restrict_through_k3(lap128,
     assert pc.formats[0][1] == ("sell", 8, "chunk")
     assert pc.formats[0][2] is None               # restricts through P.multT
     calls = []
-    plain = k3.sell_spmvT_plain
+    plain = k3.sell_spmvT_plan_plain
 
-    def spy(*args, **kw):
-        calls.append(args[0].shape)
-        return plain(*args, **kw)
+    def spy(plan, r):
+        calls.append(plan.nout)
+        return plain(plan, r)
 
-    monkeypatch.setattr(k3, "sell_spmvT_plain", spy)
+    monkeypatch.setattr(k3, "sell_spmvT_plan_plain", spy)
     y = pc.apply(torch.from_numpy(b))
     via_multT = sum(f[2] is None for f in pc.formats)
     assert len(calls) == via_multT >= 1
+    sells = [op for lv in pc.levels for op in (lv.A, lv.P)
+             if type(op).__name__ == "SellMat"]
+    assert sells and all(op.vals.data_ptr() % 16 == 0 for op in sells)
     assert y.shape == (A.shape[0],) and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_transpose_plan_of_ex45_transfer_levels(level):
+    """The chunk-mode pack of each GAMG prolongator of ex45 at 24³: the
+    plan's plain version equals sell_spmvT_plain bit for bit, in the
+    shape the rule picks and in the other, and Pᵀr of scipy within
+    1e-5."""
+    As, Ps = tgamg.gamg_hierarchy(poisson_3d(24, 24, 24, np.float32),
+                                  coarse_n=64)
+    assert len(Ps) >= 2
+    P = sp.csr_matrix(Ps[level], dtype=np.float32)
+    T = sell_from_scipy(P, G=8, mode="chunk", device=CPU)
+    r = np.random.default_rng(level).standard_normal(P.shape[0]) \
+        .astype(np.float32)
+    rt = torch.zeros(T.nt * T.G * 128)
+    rt[:P.shape[0]] = torch.from_numpy(r)
+    ref = k3.sell_spmvT_plain(T.vals, T.idx, T.qs, T.winstart,
+                              rt.view(T.nt, T.G, 128), S=T.S, Lp=T.Lp)
+    auto = T.transpose_plan()
+    other = k3.transpose_plan(T.vals, T.idx, T.qs, T.winstart, S=T.S,
+                              Lp=T.Lp, warp_shape=not auto.warp_shape)
+    for plan in (auto, other):
+        assert torch.equal(k3.sell_spmvT_plan_plain(plan,
+                                                    torch.from_numpy(r)), ref)
+    got = T.multT(torch.from_numpy(r)).double().numpy()
+    ref64 = P.T.astype(np.float64) @ r.astype(np.float64)
+    assert _rel(got, ref64) <= 1e-5
 
 
 @pytest.mark.parametrize("setup", ["port", "convert"])

@@ -11,6 +11,8 @@
 * mat_from_options: the same perm as petsctpu.
 """
 
+from dataclasses import replace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,17 +204,26 @@ def test_sell_multT_is_k3():
             fn()
 
 
-def _prolongator_like(G, seed=5):
+def _prolongator_like(G, seed=5, wide=False, empty_tile=False):
     """tests/test_sell.py:234's case: few nonzeros a row, columns
-    clustered by row blocks."""
+    clustered by row blocks. wide=True spreads them over 80,000 columns
+    (every window then spans about 640 rows); empty_tile=True leaves the
+    second tile's rows empty."""
     rng = np.random.default_rng(seed)
     m, n = G * 128 * 3 + 77, 1400
     rows = np.repeat(np.arange(m), 3)
-    cols = np.clip((rows // (m // n + 1)) + rng.integers(-40, 40, rows.size),
-                   0, n - 1)
-    A = sp.coo_matrix((rng.standard_normal(rows.size).astype(np.float32),
-                       (rows, cols)), shape=(m, n)).tocsr()
+    if wide:
+        n = 80000
+        cols = rng.integers(0, n, rows.size)
+    else:
+        cols = np.clip((rows // (m // n + 1))
+                       + rng.integers(-40, 40, rows.size), 0, n - 1)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    if empty_tile:
+        vals[(rows >= G * 128) & (rows < 2 * G * 128)] = 0.0
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
     A.sum_duplicates()
+    A.eliminate_zeros()
     return A, rng.standard_normal(m).astype(np.float32)
 
 
@@ -226,22 +237,16 @@ def test_sell_multT_matches_jax_and_scipy(G):
     np.testing.assert_allclose(got, np.asarray(J.multT(jnp.asarray(r))),
                                rtol=2e-5, atol=2e-4)
     np.testing.assert_allclose(got, A.T @ r, rtol=2e-5, atol=2e-4)
+    assert T.transpose_plan() is T.transpose_plan()     # built once, kept
 
 
-def test_sell_spmvT_plain_matches_sequential_loop():
-    """The plain version sums each pass's row in (g, l) order, each window
-    row over its passes in order and each y row over the tiles in order:
-    bit-equal to a direct loop."""
-    from petsctpu_torch.ops.sell_spmvT import sell_spmvT
-
-    A, r = _prolongator_like(4, seed=8)
-    T = tsell.sell_from_scipy(A, G=4, mode="chunk", device=CPU)
+def _sequential_spmvT(T, rt):
+    """y = Tᵀr by a direct loop in the definition's order: each pass's row
+    over its slots in (g, l) order, each window row over its passes, each
+    y row over the tiles."""
     vals, idx, qs, ws = (t.numpy() for t in (T.vals, T.idx, T.qs,
                                              T.winstart))
-    nt, P, G = vals.shape[:3]
-    rt = np.zeros(nt * G * 128, np.float32)
-    rt[:A.shape[0]] = r
-    rt = rt.reshape(nt, G, 128)
+    nt, P = vals.shape[:2]
     part = np.zeros((nt, P, 128), np.float32)
     for t, p, g, l in zip(*np.nonzero(vals)):
         c = idx[t, p, g, l]
@@ -253,13 +258,141 @@ def test_sell_spmvT_plain_matches_sequential_loop():
     ref = np.zeros((T.Lp, 128), np.float32)
     for t in range(nt):
         ref[ws[t]:ws[t] + T.S] = ref[ws[t]:ws[t] + T.S] + wins[t]
-    y = sell_spmvT(T.vals, T.idx, T.qs, T.winstart, torch.from_numpy(rt),
-                   S=T.S, Lp=T.Lp).numpy()
+    return ref
+
+
+def _padded_r(T, r):
+    rt = np.zeros(T.nt * T.G * 128, np.float32)
+    rt[:r.size] = r
+    return rt.reshape(T.nt, T.G, 128)
+
+
+def test_sell_spmvT_plain_matches_sequential_loop():
+    """The plain version sums each pass's row in (g, l) order, each window
+    row over its passes in order and each y row over the tiles in order:
+    bit-equal to a direct loop, and so is K3's wrapper on a plan."""
+    from petsctpu_torch.ops.sell_spmvT import (sell_spmvT, sell_spmvT_plain,
+                                               transpose_plan)
+
+    A, r = _prolongator_like(4, seed=8)
+    T = tsell.sell_from_scipy(A, G=4, mode="chunk", device=CPU)
+    rt = _padded_r(T, r)
+    ref = _sequential_spmvT(T, rt)
+    y = sell_spmvT_plain(T.vals, T.idx, T.qs, T.winstart,
+                         torch.from_numpy(rt), S=T.S, Lp=T.Lp).numpy()
     np.testing.assert_array_equal(y, ref)
+    plan = transpose_plan(T.vals, T.idx, T.qs, T.winstart, S=T.S, Lp=T.Lp)
+    np.testing.assert_array_equal(
+        sell_spmvT(plan, torch.from_numpy(r)).numpy(), ref)
+
+
+PLAN_CASES = {
+    "G4": dict(G=4), "G8": dict(G=8), "G16": dict(G=16),
+    "wide_80000_cols": dict(G=8, wide=True),
+    "empty_tile": dict(G=8, empty_tile=True),
+}
+
+
+@pytest.mark.parametrize("shape", ["auto", "thread", "warp"])
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_transpose_plan_plain_equals_definition(case, shape):
+    """The plan's plain version equals sell_spmvT_plain on the pack and
+    the sequential loop bit for bit, in either launch shape."""
+    from petsctpu_torch.ops.sell_spmvT import (sell_spmvT_plain,
+                                               sell_spmvT_plan_plain,
+                                               transpose_plan)
+
+    kw = PLAN_CASES[case]
+    A, r = _prolongator_like(seed=6, **kw)
+    T = tsell.sell_from_scipy(A, G=kw["G"], mode="chunk", device=CPU)
+    if case == "wide_80000_cols":
+        assert T.S >= 600
+    if case == "empty_tile":
+        assert not T.vals[1].any()
+    rt = _padded_r(T, r)
+    ref = sell_spmvT_plain(T.vals, T.idx, T.qs, T.winstart,
+                           torch.from_numpy(rt), S=T.S, Lp=T.Lp)
+    np.testing.assert_array_equal(ref.numpy(), _sequential_spmvT(T, rt))
+    warp = {"auto": None, "thread": False, "warp": True}[shape]
+    plan = transpose_plan(T.vals, T.idx, T.qs, T.winstart, S=T.S, Lp=T.Lp,
+                          warp_shape=warp)
+    if warp is not None:
+        assert plan.warp_shape == warp
+    y = sell_spmvT_plan_plain(plan, torch.from_numpy(r))
+    assert y.shape == (T.Lp, 128) and torch.equal(y, ref)
+    assert plan.rows <= A.shape[0] and int(plan.cnt.sum()) == A.nnz
+
+
+def test_transpose_plan_split_rule_limit(monkeypatch):
+    """A CPU plan takes the H100's limit (132 SMs x 64 warps); the rule
+    picks the warp shape up to the limit and the thread shape above."""
+    from petsctpu_torch.ops import sell_spmvT as k3
+
+    assert k3.warp_shape_max_outputs("cpu") == 132 * 64 == 8448
+    A, _ = _prolongator_like(seed=6, G=8)
+    T = tsell.sell_from_scipy(A, G=8, mode="chunk", device=CPU)
+    live = int((torch.bincount(
+        torch.from_numpy(sp.csr_matrix(A).indices)) > 0).sum())
+    pk = (T.vals, T.idx, T.qs, T.winstart)
+    for limit, warp in ((live, True), (live - 1, False)):
+        monkeypatch.setattr(k3, "warp_shape_max_outputs",
+                            lambda dev, n=limit: n)
+        assert k3.transpose_plan(*pk, S=T.S, Lp=T.Lp).warp_shape == warp
+
+
+def test_transpose_plan_flags_and_padding_on_two_tiles():
+    """A hand-made pack: nt 2, P 2, G 1. Output 133 takes slots
+    (t0,p0,l0), (t0,p0,l3), (t0,p1,l1) and (t1,p0,l4); output 135 takes
+    (t0,p1,l2)."""
+    from petsctpu_torch.ops.sell_spmvT import (PASS_FLAG, TILE_FLAG,
+                                               sell_spmvT_plain,
+                                               sell_spmvT_plan_plain,
+                                               transpose_plan)
+
+    vals = torch.zeros((2, 2, 1, 128))
+    idx = torch.zeros((2, 2, 1, 128), dtype=torch.int8)
+    for (t, p, l), v, c in (((0, 0, 0), 1.0, 5), ((0, 0, 3), 2.0, 5),
+                            ((0, 1, 1), 3.0, 5), ((0, 1, 2), 4.0, 7),
+                            ((1, 0, 4), 5.0, 5)):
+        vals[t, p, 0, l], idx[t, p, 0, l] = v, c
+    qs = torch.ones((2, 2), dtype=torch.int32)
+    ws = torch.zeros(2, dtype=torch.int32)
+    pk = (vals, idx, qs, ws)
+    P_, T_ = PASS_FLAG, TILE_FLAG - (1 << 32)      # as int32 bits
+    # thread shape: outputs 133 and 135 are lanes 5 and 7 of group 4,
+    # the only group with entries; its longest list has 4
+    th = transpose_plan(*pk, S=2, Lp=2, warp_shape=False)
+    assert (th.val.numel(), th.nout, th.longest) == (128, 256, 4)
+    assert th.cnt[133] == 4 and th.cnt[135] == 1 and th.cnt.sum() == 5
+    assert th.first[133] == 5 and th.first[135] == 7
+    np.testing.assert_array_equal(th.val[5::32].numpy(), [1, 2, 3, 5])
+    np.testing.assert_array_equal(th.src[5::32].numpy(),
+                                  [0 | P_ | T_, 3, 1 | P_, 132 | P_ | T_])
+    assert th.val[7] == 4 and th.src[7] == 2 | P_ | T_
+    pad = torch.ones(128, dtype=torch.bool)
+    pad[5::32] = False
+    pad[7] = False
+    assert not th.val[pad].any() and not th.src[pad].any()
+    # warp shape: output 133 is split into its tile-0 and tile-1 segments
+    wp = transpose_plan(*pk, S=2, Lp=2, warp_shape=True)
+    assert wp.val.numel() == 5 and wp.longest == 3
+    np.testing.assert_array_equal(wp.val.numpy(), [1, 2, 3, 5, 4])
+    assert wp.ogroup[133] == 0 and wp.ogroup[134] == 1
+    assert wp.ogroup[135] == 1 and wp.ogroup[136] == 2 == wp.ogroup[-1]
+    np.testing.assert_array_equal(wp.first[[0, 1, 32]].numpy(), [0, 3, 4])
+    np.testing.assert_array_equal(wp.cnt[[0, 1, 32]].numpy(), [3, 1, 1])
+    assert int(wp.cnt.sum()) == 5
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(256)
+                         .astype(np.float32))
+    ref = sell_spmvT_plain(*pk, r.view(2, 1, 128), S=2, Lp=2)
+    w0 = (r[0] * 1.0 + r[3] * 2.0) + r[1] * 3.0    # tile 0: two passes
+    assert ref.reshape(-1)[133] == w0 + r[132] * 5.0
+    for plan in (th, wp):
+        assert torch.equal(sell_spmvT_plan_plain(plan, r), ref)
 
 
 def test_sell_spmvT_rejects_what_the_kernel_does_not_take():
-    from petsctpu_torch.ops.sell_spmvT import sell_spmvT
+    from petsctpu_torch.ops.sell_spmvT import sell_spmvT, transpose_plan
 
     nt, P, G, S, Lp = 2, 3, 4, 8, 16
 
@@ -267,26 +400,55 @@ def test_sell_spmvT_rejects_what_the_kernel_does_not_take():
         a = dict(vals=torch.zeros((nt, P, G, 128), dtype=torch.float32),
                  idx=torch.zeros((nt, P, G, 128), dtype=torch.int8),
                  qs=torch.zeros((nt, P), dtype=torch.int32),
-                 winstart=torch.zeros((nt,), dtype=torch.int32),
-                 rt=torch.zeros((nt, G, 128), dtype=torch.float32))
+                 winstart=torch.zeros((nt,), dtype=torch.int32))
         a = {k: v.to(device) for k, v in a.items()}
         a.update(over)
         return a
 
-    assert sell_spmvT(**args(), S=S, Lp=Lp).shape == (Lp, 128)
+    plan = transpose_plan(**args(), S=S, Lp=Lp)
+    r = torch.zeros(nt * G * 128)
+    assert sell_spmvT(plan, r).shape == (Lp, 128)
+    assert not sell_spmvT(plan, r).any()
     with pytest.raises(ValueError, match="not supported"):
-        sell_spmvT(**args("meta"), S=S, Lp=Lp)
+        transpose_plan(**args("meta"), S=S, Lp=Lp)
     bad = [dict(vals=torch.zeros((nt, P, G, 128), dtype=torch.float64)),
            dict(idx=torch.zeros((nt, P, G, 128), dtype=torch.int32)),
            dict(qs=torch.zeros((nt, P + 1), dtype=torch.int32)),
-           dict(rt=torch.zeros((nt, G + 1, 128), dtype=torch.float32)),
            dict(vals=torch.zeros((nt, P, G, 256), dtype=torch.float32)
                 [..., ::2])]
     for over in bad:
         with pytest.raises(ValueError):
-            sell_spmvT(**args(**over), S=S, Lp=Lp)
+            transpose_plan(**args(**over), S=S, Lp=Lp)
     with pytest.raises(ValueError, match="window rows"):
-        sell_spmvT(**args(), S=Lp + 1, Lp=Lp)
+        transpose_plan(**args(), S=Lp + 1, Lp=Lp)
+    # the fine row and two flags share an entry's 32 bits
+    big = 1 << 19                           # nt·G·128 = 2³⁰ at G = 16
+    with pytest.raises(ValueError, match="30 bits"):
+        transpose_plan(vals=torch.zeros((big, 0, 16, 128)),
+                       idx=torch.zeros((big, 0, 16, 128), dtype=torch.int8),
+                       qs=torch.zeros((big, 0), dtype=torch.int32),
+                       winstart=torch.zeros(big, dtype=torch.int32),
+                       S=S, Lp=Lp)
+    # the wrapper: r, and the plan, on the same device, of the right type
+    with pytest.raises(ValueError, match="not supported"):
+        sell_spmvT(plan, r.to("meta"))
+    with pytest.raises(ValueError, match="is on"):
+        sell_spmvT(replace(plan, val=plan.val.to("meta")), r)
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        sell_spmvT(replace(plan, val=plan.val.double()), r)
+    with pytest.raises(ValueError, match="must be torch.int32"):
+        sell_spmvT(replace(plan, src=plan.src.long()), r)
+    for bad_r in (r.double(), r.view(nt, G, 128), torch.zeros(2 * r.numel())
+                  [::2]):
+        with pytest.raises(ValueError, match="contiguous float32 vector"):
+            sell_spmvT(plan, bad_r)
+    with pytest.raises(TypeError, match="TransposePlan"):
+        sell_spmvT(args(), r)
+    full = transpose_plan(**args(vals=torch.ones((nt, P, G, 128))), S=S,
+                          Lp=Lp)
+    assert full.rows == nt * G * 128
+    with pytest.raises(ValueError, match="the plan reads"):
+        sell_spmvT(full, r[:-1])
 
 
 def test_sell_plan_stats_and_viability_match_jax():
