@@ -80,7 +80,17 @@ petsctpu. Phases, each of which raises on failure:
    case is timed: the kernel (back-to-back calls, and replayed from a
    CUDA graph, which leaves out the host's cost of a call), the plain
    version and the library call, beside the bound, and K2 on the padded
-   layout beside the tile-mode SELL cases at bench scale.
+   layout beside the tile-mode SELL cases at bench scale. SELL-X (H1's
+   crossed mode) is launched 10 more times and must give the same bits
+   each time, and H1's crossed kernel must equal its plain version bit
+   for bit on inputs SELL-X does not reach (outside the counted run):
+   G 8 / P 16 with int32 idx and G 32 / P 4 on 140 tiles (more than the
+   H100's 132 SMs), G 16 / P 8 on 5 tiles with int32 idx, each with a
+   tile of no chunks, a tile whose staged half window runs past the last
+   row of xp, and idx and i1 values across the whole int8 range (taken
+   mod 128). SELL-X's and P12's (H3's chained rep sum) device times are
+   printed against their bounds, and the host's cost of a call by part
+   (scripts/bench_calls.py) for P10 A (H3) and P17 (H1).
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -89,6 +99,7 @@ It ends with the nvidia-smi line, a JSON line of kernels and, last,
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -109,7 +120,7 @@ from petsctpu_torch.mat.sell import sell_from_scipy, sell_pack, sell_to_scipy
 from petsctpu_torch.models import ex45_system, laplacian_2d
 from petsctpu_torch.ops import _build
 from petsctpu_torch.ops.gather_forms import gather_forms
-from petsctpu_torch.ops.sell_pass import sell_pass
+from petsctpu_torch.ops.sell_pass import sell_pass, sell_pass_plain
 from petsctpu_torch.ops.sell_spmv import sell_spmv, sell_spmv_plain
 from petsctpu_torch.ops.sell_spmvT import (sell_spmvT, sell_spmvT_plain,
                                            sell_spmvT_plan_plain,
@@ -118,6 +129,10 @@ from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 from petsctpu_torch.ops.window_spmv import window_spmv
 from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
                                    HBM_BYTES_PER_S, graph_ms, time_ms)
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "scripts"))
+from bench_calls import case_parts  # noqa: E402
 
 GRID = 128                 # ex45 at 128³: n = 2,097,152
 MG_GRID = 129              # ex45 -pc_type mg at 129³: n = 2,146,689
@@ -829,6 +844,74 @@ def warm_gamg_ms_per_it(gamg):
 
 
 PROBE_KERNELS = (sell_pass, window_spmv, gather_forms)
+# H1's crossed mode (SELL-X) and H3's chained rep sum (P12): device time
+# against the bound; H3's and H1's slowest calls against their library
+# calls (P10 A, P17): the host's cost of a call by part
+DEVICE_VS_BOUND = ("probe_sellx_crossed", "probe_gather6_D")
+HOST_PARTS = ("probe_pallas_gather5_A", "probe_sell_bisect_d")
+
+
+def check_repeatable(case, res, times=10):
+    """The case's kernel launched `times` more times gives the checked
+    output's bits every time (no atomics, a fixed fold order)."""
+    for k in range(times):
+        out = case.run()
+        if not torch.equal(out, res["out"]):
+            raise AssertionError(f"{case.name}: launch {k + 2} differs from "
+                                 "the first")
+    torch.cuda.synchronize()
+    print(f"{case.name}: the same bits over {times + 1} launches")
+
+
+def crossed_case(rng, G, idx_dtype, nt):
+    """H1 crossed-mode inputs on the card: nt tiles of 1-3 chunks, tile 0
+    with none; idx and i1 across the whole int8 range, except that the
+    last tile, whose half windows start past every other tile's, reads
+    only rows 0-39 of them, the last 40 rows of xp (its staged window
+    runs 88 rows past the end)."""
+    P = 128 // G
+    nch = rng.integers(1, 4, nt).astype(np.int32)
+    nch[0] = 0
+    cstart = np.concatenate([[0], np.cumsum(nch)[:-1]]).astype(np.int32)
+    NCH = int(nch.sum())
+    ws = (rng.integers(0, 8, nt) * 8).astype(np.int32)
+    hh = rng.integers(0, 2, NCH).astype(np.int32)
+    i1 = rng.integers(-128, 128, (NCH, 128, 128)).astype(np.int8)
+    ws[-1] = int(ws[:-1].max()) + 256
+    tail = slice(int(cstart[-1]), NCH)
+    hh[tail] = 1
+    i1[tail] = rng.integers(0, 40, i1[tail].shape)
+    xp = rng.standard_normal((int(ws[-1]) + 128 + 40, 128))
+    a = dict(vals=rng.standard_normal((NCH, P, G, 128)).astype(np.float32),
+             idx=rng.integers(-128, 128, (NCH, P, G, 128)).astype(idx_dtype),
+             xp=xp.astype(np.float32), ws=ws, cstart=cstart, nch=nch, hh=hh,
+             i1=i1)
+    return {k: torch.from_numpy(v).cuda() for k, v in a.items()}
+
+
+def check_crossed_edges(rng):
+    """H1's crossed kernel against its plain version, bit for bit, on the
+    inputs of crossed_case that SELL-X does not reach: a G other than
+    16 (P = 16, two batches of 8 passes; P = 4, a batch of 4 with
+    clamped loads and 1,024 quads for 512 threads), int32 idx, a tile
+    with no chunks, a half window past the end of xp, and more tiles than
+    the H100 has SMs."""
+    for G, idx_dtype, nt in ((8, np.int32, 140), (32, np.int8, 140),
+                             (16, np.int32, 5)):
+        a = crossed_case(rng, G, idx_dtype, nt)
+        arrays = [a.pop(k) for k in ("vals", "idx", "xp", "ws", "cstart",
+                                     "nch")]
+        got = sell_pass(*arrays, mode="crossed", **a)
+        ref = sell_pass_plain(*arrays, mode="crossed", **a)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"sell_pass crossed, G={G} {idx_dtype.__name__} {nt} tiles: "
+                "the kernel differs from its plain version by "
+                f"{(got - ref).abs().max().item():.3e}")
+        print(f"sell_pass crossed G={G} P={128 // G} "
+              f"{idx_dtype.__name__} {nt} tiles ({arrays[0].shape[0]} "
+              "chunks, a tile of none, a half window past xp's end): "
+              "equals its plain version bit for bit")
 
 
 def probes_phase():
@@ -844,6 +927,9 @@ def probes_phase():
     launches = {k.__name__: k.launches for k in PROBE_KERNELS}
     print(f"probes path: {len(checked)} cases checked in {secs:.1f} s; "
           f"launches {launches}")
+    by_name = {case.name: (case, res) for case, res in checked}
+    check_repeatable(*by_name["probe_sellx_crossed"])
+    check_crossed_edges(np.random.default_rng(13))
     t = time.perf_counter()
     results = []
     for case, res in checked:
@@ -851,6 +937,18 @@ def probes_phase():
         print(probes.line(res), flush=True)
         results.append(res)
     print(f"probes timed in {time.perf_counter() - t:.1f} s")
+    for name in DEVICE_VS_BOUND:
+        res = by_name[name][1]
+        print(f"{name}: device {res['graph_ms']:.4f} ms in a CUDA graph "
+              f"against a {res['bound_ms']:.6f} ms bound = "
+              f"{100 * res['bound_ms'] / res['graph_ms']:.1f} % of it; a call "
+              f"{res['ms']:.4f} ms, library {res['library_ms']:.4f} ms")
+    for name in HOST_PARTS:
+        case = by_name[name][0]
+        print(f"host cost of a {case.kernel} call, {name}, by part "
+              "(us a call):")
+        for part, us in case_parts(case).items():
+            print(f"  {part}: {us:.2f}")
     kernels = []
     for name, n in launches.items():
         rs = [r for r in results if r["kernel"] == name]

@@ -5,8 +5,13 @@ into `petsctpu_torch/_build/lib<name>.so`, a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). A
 library is rebuilt when any source under `csrc/` is newer than it.
 Nothing is built at import: `load` builds at first use, and
-`build_all` starts one nvcc per source, all together. `launch` calls a
-loaded entry point on PyTorch's current stream.
+`build_all` starts one nvcc per source, all together.
+
+Every wrapper of `petsctpu_torch/ops` calls its kernel the same way: it
+runs its `_check` (which raises on a malformed call, before any launch,
+and returns the kernel's static arguments), takes its entry point from
+`entry` once, calls it through `launch` on PyTorch's raw current stream
+and counts the launch with `counted`.
 """
 
 from __future__ import annotations
@@ -96,14 +101,36 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(name: str, argtypes):
+    """Kernel `name`'s C entry point `<name>_launch` (built and loaded at
+    first use), taking `argtypes` (the stream last) and returning its
+    CUDA error code."""
+    fn = getattr(load(name), f"{name}_launch")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(fn, index: int, args) -> int:
     """fn(*args, stream) with `stream` the raw cudaStream_t of CUDA device
     `index`'s current stream (where a PyTorch op on that device runs) and
     that device current during the call; returns fn's CUDA error code.
     The raw handle costs a fraction of a microsecond, where building
-    torch.cuda.current_stream()'s Stream object costs several."""
+    torch.cuda.current_stream()'s Stream object costs several; the device
+    is switched (as a torch.cuda.device context would) only when `index`
+    is not the current one."""
     stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == torch.cuda.current_device():
+    if index == torch._C._cuda_getDevice():
         return fn(*args, stream)
-    with torch.cuda.device(index):
+    prev = torch.cuda._exchange_device(index)
+    try:
         return fn(*args, stream)
+    finally:
+        torch.cuda._maybe_exchange_device(prev)
+
+
+def counted(wrapper) -> None:
+    """Add one to wrapper.launches, unless the current stream is being
+    captured into a CUDA graph (a captured call launches nothing)."""
+    if not torch._C._cuda_isCurrentStreamCapturing():
+        wrapper.launches += 1

@@ -31,6 +31,7 @@ gathers are exact. `gather_forms.launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -150,6 +151,9 @@ def gather_dims(form, x, idx=None, idx2=None, *, t=0, size=None, blocks=1):
 
 
 def _check(form, x, idx, idx2, t, size, blocks):
+    """The full checks of a call; returns the kernel's static arguments
+    (form code, index bytes, reps, M, N, L, t, blocks) and the output's
+    shape and size."""
     if form not in FORMS:
         raise ValueError(f"gather_forms: form must be one of {FORMS}, "
                          f"got {form!r}")
@@ -172,16 +176,24 @@ def _check(form, x, idx, idx2, t, size, blocks):
                          "(cuda runs the kernel, cpu its plain version)")
     if x.dtype != torch.float32:
         raise ValueError(f"gather_forms: x must be float32, got {x.dtype}")
-    return gather_dims(form, x, idx, idx2, t=t, size=size, blocks=blocks)
+    reps, M, N, L, shape = gather_dims(form, x, idx, idx2, t=t, size=size,
+                                       blocks=blocks)
+    idx_bytes = 2 if idx is not None and idx.dtype == torch.int16 else 4
+    total = 1
+    for n in shape:
+        total *= n
+    return ((FORMS.index(form), idx_bytes), (reps, M, N, L, int(t), blocks),
+            shape, total)
 
 
+# the C entry point's argument types, the stream last
+ARGTYPES = ((ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 4 + (ctypes.c_longlong,)
+            + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
+
+
+@functools.cache
 def _launcher():
-    fn = _build.load("gather_forms").gather_forms_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 \
-            + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("gather_forms", ARGTYPES)
 
 
 def gather_forms(form, x, idx=None, idx2=None, *, t: int = 0, size=None,
@@ -190,26 +202,21 @@ def gather_forms(form, x, idx=None, idx2=None, *, t: int = 0, size=None,
 
     Every index must lie inside x; the kernel does not re-check them.
     """
-    reps, M, N, L, shape = _check(form, x, idx, idx2, t, size, blocks)
-    if x.device.type == "cpu":
+    head, tail, shape, total = _check(form, x, idx, idx2, t, size, blocks)
+    if not x.is_cuda:
         return gather_forms_plain(form, x, idx, idx2, t=t, size=size,
                                   blocks=blocks)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    out = x.new_empty(shape)
+    if total == 0:
         return out
-    ptr = (lambda a: None if a is None else a.data_ptr())
-    launch = _launcher()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = launch(FORMS.index(form),
-                    2 if idx is not None and idx.dtype == torch.int16 else 4,
-                    x.data_ptr(), ptr(idx), ptr(idx2), out.data_ptr(),
-                    out.numel(), reps, M, N, L, int(t), blocks, stream)
+    rc = _build.launch(_launcher(), x.get_device(), head + (
+        x.data_ptr(), None if idx is None else idx.data_ptr(),
+        None if idx2 is None else idx2.data_ptr(), out.data_ptr(),
+        total) + tail)
     if rc != 0:
         raise RuntimeError(f"gather_forms: kernel launch failed with CUDA "
                            f"error {rc}")
-    if not torch.cuda.is_current_stream_capturing():
-        gather_forms.launches += 1  # a captured call launches nothing
+    _build.counted(gather_forms)
     return out
 
 

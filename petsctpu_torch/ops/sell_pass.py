@@ -16,18 +16,22 @@ reads x from row ws[t] on. The row of a slot in x is, by `mode`:
     group    qbase + qoff[ch,p,g]      (qbase [NCH], [NCH,P] or None = 0)
     crossed  128·hh[ch] + i1[ch, j, G·p + g]   (P·G = 128)
 
-and its column is j = idx[ch,p,g,l]. `sell_pass` launches the kernel for
-CUDA tensors (or raises) and takes the plain PyTorch version
-`sell_pass_plain` only for tensors on the CPU. Both fold each chunk's
-part from +0 in pass order with one rounding per product and per sum,
-take the first chunk's part as y and add each later one in order, so on
-the card they agree bit for bit. `sell_pass.launches` counts kernel
-launches.
+and its column is j = idx[ch,p,g,l]. In crossed mode j and the i1 entry
+lie in [0, 128) (one half window of x, its 128 lanes): both are taken
+mod 128 (j & 127, i1 & 127), which for int8 is what the TPU kernel's
+take_along_axis does (a negative index counts from the end of the
+row). `sell_pass` launches the kernel for CUDA tensors (or raises) and
+takes the plain PyTorch version `sell_pass_plain` only for tensors on
+the CPU. Both fold each chunk's part from +0 in pass order with one
+rounding per product and per sum, take the first chunk's part as y and
+add each later one in order, so on the card they agree bit for bit.
+`sell_pass.launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,8 +56,9 @@ def pass_columns(idx, ws_of, ch, p, *, mode, qs=None, qbase=None,
             qb = qbase[ch, p] if qbase.dim() == 2 else qbase[ch]
             row = row + qb.long()[:, None, None]
     else:
+        j = j & 127
         row = 128 * hh[ch].long()[:, None, None] \
-            + i1[ch[:, None, None], j, G * p + g].long()
+            + (i1[ch[:, None, None], j, G * p + g].long() & 127)
     return (ws_of.long()[:, None, None] + row) * 128 + j
 
 
@@ -80,6 +85,9 @@ def sell_pass_plain(vals, idx, xp, ws, cstart, nch, *, mode="tile", qs=None,
 
 
 def _check(vals, idx, xp, ws, cstart, nch, mode, qs, qbase, qoff, hh, i1):
+    """The checks of a call; returns the kernel's static arguments:
+    (mode code, idx bytes, qoff bytes) and (nt, P, G, qbase per pass,
+    rows of xp)."""
     if mode not in MODES:
         raise ValueError(f"sell_pass: mode must be one of {MODES}, got "
                          f"{mode!r}")
@@ -137,15 +145,20 @@ def _check(vals, idx, xp, ws, cstart, nch, mode, qs, qbase, qoff, hh, i1):
     if mode == "crossed" and P * G != 128:
         raise ValueError(f"sell_pass: crossed mode needs P*G = 128, got "
                          f"P={P} G={G}")
+    return ((MODES.index(mode), _BYTES[idx.dtype],
+             _BYTES[qoff.dtype] if qoff is not None else 1),
+            (nt, P, G, int(qbase is not None and qbase.dim() == 2),
+             xp.shape[0]))
 
 
+# the C entry point's argument types, the stream last
+ARGTYPES = ((ctypes.c_int,) * 3 + (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 5
+            + (ctypes.c_void_p,))
+
+
+@functools.cache
 def _launcher():
-    fn = _build.load("sell_pass").sell_pass_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("sell_pass", ARGTYPES)
 
 
 def sell_pass(vals, idx, xp, ws, cstart, nch, *, mode="tile", qs=None,
@@ -153,31 +166,36 @@ def sell_pass(vals, idx, xp, ws, cstart, nch, *, mode="tile", qs=None,
     """The SELL pass y [NT,G,128] f32 (see the module docstring).
 
     Every chunk range and every row must lie inside the arrays and x;
-    the kernel does not re-check them.
+    the kernel does not re-check them. In crossed mode idx and i1 are
+    taken mod 128 (see the module docstring), and on the card vals, idx,
+    xp and i1 must be 16-byte aligned (a fresh tensor is): the kernel
+    reads a pass as float4 values and copies x's half windows and i1's
+    slabs into shared memory in 16-byte units.
     """
-    _check(vals, idx, xp, ws, cstart, nch, mode, qs, qbase, qoff, hh, i1)
-    kw = dict(mode=mode, qs=qs, qbase=qbase, qoff=qoff, hh=hh, i1=i1)
-    if xp.device.type == "cpu":
-        return sell_pass_plain(vals, idx, xp, ws, cstart, nch, **kw)
-    nt = ws.shape[0]
-    P, G = vals.shape[1:3]
-    y = torch.empty((nt, G, 128), dtype=torch.float32, device=xp.device)
-    ptr = (lambda a: None if a is None else a.data_ptr())
-    launch = _launcher()
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        rc = launch(MODES.index(mode), _BYTES[idx.dtype],
-                    _BYTES[qoff.dtype] if qoff is not None else 1,
-                    vals.data_ptr(), idx.data_ptr(), xp.data_ptr(),
-                    ws.data_ptr(), cstart.data_ptr(), nch.data_ptr(),
-                    ptr(qbase if mode == "group" else qs), ptr(qoff),
-                    ptr(hh), ptr(i1), y.data_ptr(), nt, P, G,
-                    int(qbase is not None and qbase.dim() == 2), stream)
+    head, tail = _check(vals, idx, xp, ws, cstart, nch, mode, qs, qbase,
+                        qoff, hh, i1)
+    if not xp.is_cuda:
+        return sell_pass_plain(vals, idx, xp, ws, cstart, nch, mode=mode,
+                               qs=qs, qbase=qbase, qoff=qoff, hh=hh, i1=i1)
+    if hh is not None and (vals.data_ptr() % 16 or idx.data_ptr() % 16
+                           or xp.data_ptr() % 16 or i1.data_ptr() % 16):
+        raise ValueError("sell_pass: crossed mode reads vals and idx in "
+                         "16- and 4-byte units and copies xp and i1 to "
+                         "shared memory in 16-byte units: all four must be "
+                         "16-byte aligned")
+    y = xp.new_empty((tail[0], tail[2], 128))
+    q = qs if qs is not None else qbase     # the kernel's per-pass rows
+    rc = _build.launch(_launcher(), xp.get_device(), head + (
+        vals.data_ptr(), idx.data_ptr(), xp.data_ptr(), ws.data_ptr(),
+        cstart.data_ptr(), nch.data_ptr(), None if q is None else q.data_ptr(),
+        None if qoff is None else qoff.data_ptr(),
+        None if hh is None else hh.data_ptr(),
+        None if i1 is None else i1.data_ptr(),
+        y.data_ptr()) + tail)
     if rc != 0:
         raise RuntimeError(f"sell_pass: kernel launch failed with CUDA "
                            f"error {rc}")
-    if not torch.cuda.is_current_stream_capturing():
-        sell_pass.launches += 1  # a captured call launches nothing
+    _build.counted(sell_pass)
     return y
 
 

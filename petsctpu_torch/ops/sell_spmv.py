@@ -75,15 +75,16 @@ def _check(vals, idx, qs, winstart, xp, G, S, mode):
     if not 0 < S <= xp.shape[0]:
         raise ValueError(f"sell_spmv: window rows S={S} must lie in "
                          f"[1, Lp={xp.shape[0]}]")
+    return nt, P
+
+
+# the C entry point's argument types, the stream last
+ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
 
 
 @functools.cache
 def _launcher():
-    fn = _build.load("sell_spmv").sell_spmv_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("sell_spmv", ARGTYPES)
 
 
 def sell_spmv(vals, idx, qs, winstart, xp, *, G: int, S: int,
@@ -95,17 +96,15 @@ def sell_spmv(vals, idx, qs, winstart, xp, *, G: int, S: int,
     On the card vals must be 16-byte and idx 4-byte aligned (a fresh
     tensor is; convert.mg_from_packed aligns its views).
     """
-    _check(vals, idx, qs, winstart, xp, G, S, mode)
-    dev = xp.device
-    if dev.type == "cpu":
+    nt, P = _check(vals, idx, qs, winstart, xp, G, S, mode)
+    if not xp.is_cuda:
         return sell_spmv_plain(vals, idx, qs, winstart, xp, G=G, S=S,
                                mode=mode)
     if vals.data_ptr() % 16 or idx.data_ptr() % 4:
         raise ValueError("sell_spmv: the kernel reads vals as float4 and "
                          "idx as 32-bit words: vals must be 16-byte and idx "
                          "4-byte aligned")
-    nt, P = vals.shape[:2]
-    y = torch.empty((nt, G, 128), dtype=torch.float32, device=dev)
+    y = xp.new_empty((nt, G, 128))
     if nt == 0:
         return y
     rc = _build.launch(_launcher(), xp.get_device(), (
@@ -114,8 +113,7 @@ def sell_spmv(vals, idx, qs, winstart, xp, *, G: int, S: int,
     if rc != 0:
         raise RuntimeError(f"sell_spmv: kernel launch failed with CUDA "
                            f"error {rc}")
-    if not torch.cuda.is_current_stream_capturing():
-        sell_spmv.launches += 1  # a captured call launches nothing
+    _build.counted(sell_spmv)
     return y
 
 

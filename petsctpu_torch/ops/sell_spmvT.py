@@ -337,13 +337,13 @@ def _check(plan, r):
                          f"reads {plan.rows}")
 
 
+# the C entry point's argument types, the stream last
+ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+
+
 @functools.cache
 def _launcher():
-    fn = _build.load("sell_spmvT").sell_spmvT_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("sell_spmvT", ARGTYPES)
 
 
 def sell_spmvT(plan: TransposePlan, r: torch.Tensor) -> torch.Tensor:
@@ -351,10 +351,9 @@ def sell_spmvT(plan: TransposePlan, r: torch.Tensor) -> torch.Tensor:
     (see sell_spmvT_plain), r the fine vector (at least plan.rows
     entries)."""
     _check(plan, r)
-    dev = r.device
-    if dev.type == "cpu":
+    if not r.is_cuda:
         return sell_spmvT_plan_plain(plan, r)
-    y = torch.empty(plan.nout, dtype=torch.float32, device=dev)
+    y = r.new_empty(plan.nout)
     rc = _build.launch(_launcher(), r.get_device(), (
         plan.val.data_ptr(), plan.src.data_ptr(), plan.first.data_ptr(),
         plan.cnt.data_ptr(), plan.ogroup.data_ptr(), r.data_ptr(),
@@ -362,8 +361,7 @@ def sell_spmvT(plan: TransposePlan, r: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"sell_spmvT: kernel launch failed with CUDA "
                            f"error {rc}")
-    if not torch.cuda.is_current_stream_capturing():
-        sell_spmvT.launches += 1  # a captured call launches nothing
+    _build.counted(sell_spmvT)
     return y.view(plan.nout // 128, 128)
 
 

@@ -85,6 +85,11 @@ def stencil_mult_plain(coeffs, x, offsets, grid, boundary=()) -> torch.Tensor:
 
 
 def _check(coeffs, x, offsets, grid, boundary):
+    """The full checks of a call; returns the kernel's static arguments:
+    the offsets (a ctypes array, see _host_args), their count, the grid
+    and the boundaries (ctypes arrays) and the dtype code."""
+    grid, offsets = tuple(grid), tuple(tuple(o) for o in offsets)
+    boundary = tuple(boundary)
     for name, t in (("coeffs", coeffs), ("x", x)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"stencil_mult: {name} must be a tensor")
@@ -120,12 +125,15 @@ def _check(coeffs, x, offsets, grid, boundary):
     if len(bnd) != nd or any(b not in _BOUNDARY_CODES for b in bnd):
         raise ValueError(f"stencil_mult: boundary must name one of "
                          f"{tuple(_BOUNDARY_CODES)} per axis, got {boundary}")
+    offs, dims, bnd = _host_args(offsets, grid, boundary)
+    return offs, D, dims, bnd, _DTYPE_CODES[x.dtype]
 
 
 @functools.lru_cache(maxsize=256)
 def _host_args(offsets: tuple, grid: tuple, boundary: tuple):
     """The ctypes arrays of one stencil's static description (3-D,
-    leading axes of extent 1 for 1- and 2-D grids)."""
+    leading axes of extent 1 for 1- and 2-D grids): offsets, grid and
+    boundary codes."""
     lead = 3 - len(grid)
     offs = [int(o) for off in offsets for o in (0,) * lead + tuple(off)]
     bnd = ("none",) * lead + boundary_types(boundary, len(grid))
@@ -134,13 +142,14 @@ def _host_args(offsets: tuple, grid: tuple, boundary: tuple):
             (ctypes.c_int * 3)(*(_BOUNDARY_CODES[b] for b in bnd)))
 
 
+# the C entry point's argument types, the stream last
+ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (ctypes.c_void_p,) * 2
+            + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+
+
+@functools.cache
 def _launcher():
-    fn = _build.load("stencil_mult").stencil_mult_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] \
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("stencil_mult", ARGTYPES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,25 +159,20 @@ def _num_sms(index: int) -> int:
 
 def stencil_mult(coeffs, x, offsets, grid, boundary=()) -> torch.Tensor:
     """The stencil product y (see stencil_mult_plain), shaped as x."""
-    grid, offsets = tuple(grid), tuple(tuple(o) for o in offsets)
-    boundary = tuple(boundary)
-    _check(coeffs, x, offsets, grid, boundary)
-    if x.device.type == "cpu":
-        return stencil_mult_plain(coeffs, x, offsets, grid, boundary)
+    offs, D, dims, bnd, dtype = _check(coeffs, x, offsets, grid, boundary)
+    if not x.is_cuda:
+        return stencil_mult_plain(coeffs, x,
+                                  tuple(tuple(o) for o in offsets),
+                                  tuple(grid), tuple(boundary))
     y = torch.empty_like(x)
-    offs, dims, bnd = _host_args(offsets, grid, boundary)
-    dev = x.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _launcher()(coeffs.data_ptr(), x.data_ptr(), y.data_ptr(),
-                         offs, len(offsets), dims, bnd,
-                         _DTYPE_CODES[x.dtype],
-                         _num_sms(torch.cuda.current_device()), stream)
+    index = x.get_device()
+    rc = _build.launch(_launcher(), index, (
+        coeffs.data_ptr(), x.data_ptr(), y.data_ptr(), offs, D, dims, bnd,
+        dtype, _num_sms(index)))
     if rc != 0:
         raise RuntimeError(f"stencil_mult: kernel launch failed with CUDA "
                            f"error {rc}")
-    if not torch.cuda.is_current_stream_capturing():
-        stencil_mult.launches += 1  # a captured call launches nothing
+    _build.counted(stencil_mult)
     return y
 
 

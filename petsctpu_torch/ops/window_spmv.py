@@ -16,6 +16,7 @@ product and per sum, so on the card they agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +36,7 @@ def window_spmv_plain(starts, q, r, vals, x, *, Rb: int) -> torch.Tensor:
 
 
 def _check(starts, q, r, vals, x, Rb):
+    """The full checks of a call; returns the kernel's (n, K, Rb)."""
     dev = x.device
     for name, t in (("starts", starts), ("q", q), ("r", r), ("vals", vals),
                     ("x", x)):
@@ -64,15 +66,16 @@ def _check(starts, q, r, vals, x, Rb):
     if x.dtype != torch.float32 or x.dim() != 1:
         raise ValueError(f"window_spmv: x must be float32 1-D, got "
                          f"{x.dtype} {tuple(x.shape)}")
+    return n, K, Rb
 
 
+# the C entry point's argument types, the stream last
+ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+
+
+@functools.cache
 def _launcher():
-    fn = _build.load("window_spmv").window_spmv_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("window_spmv", ARGTYPES)
 
 
 def window_spmv(starts, q, r, vals, x, *, Rb: int) -> torch.Tensor:
@@ -81,22 +84,17 @@ def window_spmv(starts, q, r, vals, x, *, Rb: int) -> torch.Tensor:
     Every column starts[i//Rb] + 128·q + r must lie inside x; the kernel
     does not re-check them.
     """
-    _check(starts, q, r, vals, x, Rb)
-    if x.device.type == "cpu":
+    dims = _check(starts, q, r, vals, x, Rb)
+    if not x.is_cuda:
         return window_spmv_plain(starts, q, r, vals, x, Rb=Rb)
-    n, K = vals.shape
-    y = torch.empty(n, dtype=torch.float32, device=x.device)
-    launch = _launcher()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = launch(starts.data_ptr(), q.data_ptr(), r.data_ptr(),
-                    vals.data_ptr(), x.data_ptr(), y.data_ptr(), n, K, Rb,
-                    stream)
+    y = x.new_empty(dims[0])
+    rc = _build.launch(_launcher(), x.get_device(), (
+        starts.data_ptr(), q.data_ptr(), r.data_ptr(), vals.data_ptr(),
+        x.data_ptr(), y.data_ptr()) + dims)
     if rc != 0:
         raise RuntimeError(f"window_spmv: kernel launch failed with CUDA "
                            f"error {rc}")
-    if not torch.cuda.is_current_stream_capturing():
-        window_spmv.launches += 1  # a captured call launches nothing
+    _build.counted(window_spmv)
     return y
 
 

@@ -68,7 +68,7 @@ def _sell_bytes(a):
     for _, ch, p, col in _passes(a):
         xread[col.reshape(-1)] = True
         if i1read is not None:
-            j = a["idx"][ch, p].long()
+            j = a["idx"][ch, p].long() & 127
             i1read[((ch[:, None, None] * 128 + j) * 128 + G * p + g)
                    .reshape(-1)] = True
     rest = nbytes(*(v for k, v in a.items()

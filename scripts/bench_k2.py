@@ -19,7 +19,8 @@ the two is printed):
               compacted stream.
 
 Then the host's microseconds a call of each part of the wrapper
-(perf_counter over 100 calls, the card idle before each part). Needs
+(`host_parts` of scripts/bench_calls.py: the median of five rounds of
+perf_counter, the card idle before each). Needs
 CUDA and nvcc; run from the repository root:
 
     python3 scripts/bench_k2.py [--grid GRID] [--other NAME=DIR ...]
@@ -33,12 +34,14 @@ import os
 import statistics
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from bench_calls import host_parts  # noqa: E402
 
 from petsctpu_torch.mat.sell import sell_from_scipy  # noqa: E402
 from petsctpu_torch.models import ex45_system  # noqa: E402
@@ -121,44 +124,18 @@ def time_pack(label, pack, calls):
               f"CUDA graph ({100 * bound_ms / gms:.1f} % of K2's bound)")
 
 
-def host_us(fn, n=100):
-    """Host microseconds a call of fn, over n calls after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(n):
-        fn()
-    us = 1e6 * (time.perf_counter() - t) / n
-    torch.cuda.synchronize()
-    return us
-
-
-def host_parts(pack, raw):
-    """The wrapper's host cost a call, by part."""
+def k2_parts(pack, entry):
+    """The wrapper's host cost a call, by part (bench_calls.host_parts)."""
     vals, idx, qs, ws, xp, G, S = pack
-    dev, index = xp.device, xp.get_device()
-    shape = (vals.shape[0], G, 128)
-    args = pack[:5] + (G, S, "diag")
-
-    def ctx():
-        with torch.cuda.device(index):
-            pass
-    parts = {
-        "sell_spmv (the whole wrapper)":
-            lambda: k2.sell_spmv(*pack[:5], G=G, S=S),
-        "_check": lambda: k2._check(*args),
-        "torch.empty of y": lambda: torch.empty(shape, device=dev),
-        "torch.cuda.current_device": torch.cuda.current_device,
-        "torch.cuda.device context": ctx,
-        "current_stream().cuda_stream":
-            lambda: torch.cuda.current_stream().cuda_stream,
-        "the raw current stream":
-            lambda: torch._C._cuda_getCurrentRawStream(index),
-        "is_current_stream_capturing": torch.cuda.is_current_stream_capturing,
-        "C entry point (the launch)": raw,
-    }
-    for name, fn in parts.items():
-        print(f"  host {name}: {host_us(fn):.2f} us a call")
+    nt, P = vals.shape[:2]
+    y = torch.empty((nt, G, 128), device=xp.device)
+    cargs = tuple(t.data_ptr() for t in (vals, idx, qs, ws, xp, y)) \
+        + (nt, P, G, 1, torch._C._cuda_getCurrentRawStream(xp.get_device()))
+    got = host_parts(lambda: k2.sell_spmv(*pack[:5], G=G, S=S),
+                     lambda: k2._check(*pack[:5], G, S, "diag"), xp,
+                     (nt, G, 128), entry, cargs)
+    for name, us in got.items():
+        print(f"  host {name}: {us:.2f} us a call")
 
 
 def main(argv=None):
@@ -193,7 +170,7 @@ def main(argv=None):
         calls |= {name: runner(fn, pack) for name, fn in entries.items()}
         time_pack(label, pack, calls | extra)
     print(f"host cost of a K2 call on ex45 {g}^3, by part:")
-    host_parts(ex45, runner(entries["k2 raw"], ex45))
+    k2_parts(ex45, entries["k2 raw"])
 
 
 if __name__ == "__main__":
