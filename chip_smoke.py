@@ -41,11 +41,22 @@ petsctpu. Phases, each of which raises on failure:
    plain version bit for bit, and the scipy fp64 product of the
    assembled operator within 1e-5 relative in fp32 and 1e-12 in fp64,
    on bench.py's 4096² 5-point layout with random coefficients (fp32),
-   the 129³ ex45 operator, the 65³ 27-point Galerkin operator of the
-   MG hierarchy (fp64), and small 2-D periodic and mirror stencils;
-8. K1's times at those three large shapes: kernel, plain version,
-   torch.sparse CSR `mv` and the byte bound; and the ms per CG+MG
-   iteration of a repeat of the solve;
+   every level operator of the MG hierarchy (fp64: the 129³ ex45
+   operator and the 65³, 33³, 17³, 9³ and 5³ 27-point Galerkin
+   operators), small 2-D periodic and mirror stencils, and the edge
+   cases of K1_EDGES against numpy's fp64 product (grids with no
+   interior point, D = 1, D = 125, a 19-point stencil on the generic
+   path, a fast extent off a multiple of 32, every boundary type, an
+   fp32 7-point stencil whose interior warps take the interior path,
+   1-D);
+   and with inf and NaN coefficients at boundary points it must give
+   the same values and NaN at the same points;
+8. K1's times at every level shape and at 4096²: kernel, plain version,
+   torch.sparse CSR `mv` and the byte bound, and its launches an
+   iteration at each level shape (StencilMat.mult's K1 calls counted by
+   grid in phase 6's counted solve, their sum equal to the rise of K1's
+   launch count over it); and the ms per CG+MG iteration of a repeat of
+   the solve;
 9. slice 3's path at full size, KSP ex45 with -pc_type gamg on SELL: the
    128³ operator through mat_from_options(-mat_type sell) and a KSP with
    set_operators(M, A_host), CG preconditioned by smoothed-aggregation
@@ -88,9 +99,12 @@ petsctpu. Phases, each of which raises on failure:
    H100's 132 SMs), G 16 / P 8 on 5 tiles with int32 idx, each with a
    tile of no chunks, a tile whose staged half window runs past the last
    row of xp, and idx and i1 values across the whole int8 range (taken
-   mod 128). SELL-X's and P12's (H3's chained rep sum) device times are
-   printed against their bounds, and the host's cost of a call by part
-   (scripts/bench_calls.py) for P10 A (H3) and P17 (H1).
+   mod 128); and H2 must equal its plain version bit for bit on the
+   (n, K, Rb) of H2_EDGES (K 5, 33 and 64, Rb off a multiple of 32, n
+   under a block of rows). SELL-X's and P12's (H3's chained rep sum)
+   device times are printed against their bounds, and the host's cost
+   of a call by part (scripts/bench_calls.py) for P10 A (H3) and P17
+   (H1).
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -98,6 +112,7 @@ It ends with the nvidia-smi line, a JSON line of kernels and, last,
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -116,6 +131,7 @@ from petsctpu_torch.dm import DA
 from petsctpu_torch.ksp import KSP
 from petsctpu_torch.mat import (StencilMat, mat_from_options,
                                 stencil_from_scipy, stencil_to_scipy)
+from petsctpu_torch.mat import stencil as stencil_module
 from petsctpu_torch.mat.sell import sell_from_scipy, sell_pack, sell_to_scipy
 from petsctpu_torch.models import ex45_system, laplacian_2d
 from petsctpu_torch.ops import _build
@@ -126,13 +142,15 @@ from petsctpu_torch.ops.sell_spmvT import (sell_spmvT, sell_spmvT_plain,
                                            sell_spmvT_plan_plain,
                                            transpose_plan)
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
-from petsctpu_torch.ops.window_spmv import window_spmv
-from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
-                                   HBM_BYTES_PER_S, graph_ms, time_ms)
+from petsctpu_torch.ops.window_spmv import window_spmv, window_spmv_plain
+from petsctpu_torch.timing import (FP32_FLOPS_PER_S, HBM_BYTES_PER_S,
+                                   graph_ms, time_ms)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "scripts"))
 from bench_calls import case_parts  # noqa: E402
+from bench_k1 import (STAR5, STAR7, STAR19, bench_stencil,  # noqa: E402
+                      csr_tensor, k1_bound)
 
 GRID = 128                 # ex45 at 128³: n = 2,097,152
 MG_GRID = 129              # ex45 -pc_type mg at 129³: n = 2,146,689
@@ -140,7 +158,32 @@ GAMG_GRID = 128            # ex45 -pc_type gamg at 128³: n = 2,097,152
 K3_LEVELS = (0, 1)         # the levels that restrict through K3 at 128³
 BENCH_M = 4096             # bench.py's stencil: 4096², n = 16,777,216
 MG_OPTS = {"ksp_type": "cg", "pc_type": "mg", "ksp_rtol": "1e-5"}
-STAR5 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+BOX27 = tuple((i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+              for k in (-1, 0, 1))
+BOX125 = tuple((i, j, k) for i in range(-2, 3) for j in range(-2, 3)
+               for k in range(-2, 3))
+# K1's edge cases on the card: (label, grid, offsets, boundary, dtype)
+K1_EDGES = (
+    ("no interior point", (2, 3, 37), BOX27, ("none",) * 3, np.float64),
+    ("no interior point, fp32 5-point", (2, 37), STAR5, ("none",) * 2,
+     np.float32),
+    ("D=1", (7, 9, 45), ((0, 0, 1),), ("none", "none", "periodic"),
+     np.float64),
+    ("D=125 (the 5x5x5 box)", (12, 11, 70), BOX125,
+     ("mirror", "periodic", "none"), np.float32),
+    ("19-point (generic path)", (20, 21, 45), STAR19, ("none",) * 3,
+     np.float64),
+    ("27-point, fast extent 47", (17, 13, 47), BOX27, ("periodic",) * 3,
+     np.float32),
+    ("7-point, three boundary types", (33, 34, 35), STAR7,
+     ("periodic", "mirror", "none"), np.float64),
+    ("7-point fp32 (the interior path), three boundary types", (20, 21, 45),
+     STAR7, ("mirror", "none", "periodic"), np.float32),
+    ("1-D 3-point", (1000,), ((-1,), (0,), (1,)), ("mirror",), np.float64),
+)
+# H2's edge cases on the card: (n, K, Rb)
+H2_EDGES = ((96, 5, 48), (1000, 33, 100), (4100, 64, 41), (40, 33, 20),
+            (2047, 32, 89))
 KSP_OPTS = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-5",
             "ksp_max_it": "2000"}
 GMRES_OPTS = {"ksp_type": "gmres", "pc_type": "jacobi",
@@ -308,12 +351,7 @@ def measure(A, M, xp):
     call_ms = time_ms(lambda: sell_spmv(*args, **kw))
     ms = graph_ms(lambda: sell_spmv(*args, **kw))
     plain_ms = time_ms(lambda: sell_spmv_plain(*args, **kw), inner=1)
-    Ac = sp.csr_matrix(A, dtype=np.float32)
-    csr = torch.sparse_csr_tensor(
-        torch.from_numpy(Ac.indptr.astype(np.int64)),
-        torch.from_numpy(Ac.indices.astype(np.int64)),
-        torch.from_numpy(Ac.data), size=Ac.shape,
-        check_invariants=True).cuda()
+    csr = csr_tensor(A, np.float32)
     x = xp.reshape(-1)[M.G * 128:M.G * 128 + A.shape[1]].contiguous()
     y_lib = torch.mv(csr, x)
     y = sell_spmv(*args, **kw).reshape(-1)[:A.shape[0]]
@@ -360,14 +398,28 @@ def drive_mg_path():
     torch.cuda.synchronize()
     mg_s = time.perf_counter() - t
     setup_launches = stencil_mult.launches
-    t = time.perf_counter()
-    res = ksp.solve(bt)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t
+    by_grid = collections.Counter()
+    real = stencil_module.stencil_mult
+
+    def spy(coeffs, x, offsets, grid, boundary=()):
+        by_grid[tuple(grid)] += 1
+        return real(coeffs, x, offsets, grid, boundary)
+    stencil_module.stencil_mult = spy      # StencilMat.mult's K1 call
+    try:
+        t = time.perf_counter()
+        res = ksp.solve(bt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        stencil_module.stencil_mult = real
     launches = {"stencil_mult": stencil_mult.launches,
                 "sell_spmv": sell_spmv.launches}
     its, reason = int(res.its), int(res.reason)
     solve_launches = launches["stencil_mult"] - setup_launches
+    if sum(by_grid.values()) != solve_launches:
+        raise AssertionError(f"K1's calls by grid ({sum(by_grid.values())}) "
+                             f"differ from its launches in the solve "
+                             f"({solve_launches})")
     x = res.x.cpu().numpy()
     if x.shape != (A.shape[0],) or not np.isfinite(x).all():
         raise AssertionError("MG solution has the wrong shape or NaNs")
@@ -391,7 +443,8 @@ def drive_mg_path():
         raise AssertionError(f"K1 launched {solve_launches} times in {its} "
                              "its")
     return dict(S=S, ksp=ksp, b=bt, launches=launches["stencil_mult"],
-                ms_per_it=1e3 * secs / its)
+                ms_per_it=1e3 * secs / its, its=its,
+                per_it={g: n / its for g, n in by_grid.items()})
 
 
 def check_mg_small_against_cpu():
@@ -415,19 +468,6 @@ def check_mg_small_against_cpu():
                              "CPU")
     if gx.shape != (A.shape[0],) or not np.isfinite(gx).all():
         raise AssertionError("17^3 MG solution has the wrong shape or NaNs")
-
-
-def bench_stencil(rng, m):
-    """bench.py's 4096² 5-point layout (bench.py:42-55) in fp32, each
-    coefficient scaled by a random factor in [1, 1.1)."""
-    C = np.zeros((5, m, m), np.float32)
-    C[0] = 4.0
-    C[1, 1:, :] = -1.0
-    C[2, :-1, :] = -1.0
-    C[3, :, 1:] = -1.0
-    C[4, :, :-1] = -1.0
-    C *= 1.0 + 0.1 * rng.random((5, m, m), dtype=np.float32)
-    return StencilMat(torch.from_numpy(C).cuda(), STAR5, (m, m))
 
 
 def numpy_stencil(S, x):
@@ -489,22 +529,13 @@ def measure_k1(label, S, x, A_host):
     call_ms = time_ms(lambda: stencil_mult(*args))
     ms = graph_ms(lambda: stencil_mult(*args))
     plain_ms = time_ms(lambda: stencil_mult_plain(*args), runs=20, inner=1)
-    Ac = A_host.astype(np.float32 if S.dtype == torch.float32
-                       else np.float64)
-    csr = torch.sparse_csr_tensor(
-        torch.from_numpy(Ac.indptr.astype(np.int64)),
-        torch.from_numpy(Ac.indices.astype(np.int64)),
-        torch.from_numpy(Ac.data), size=Ac.shape,
-        check_invariants=True).cuda()
+    csr = csr_tensor(A_host, np.float32 if S.dtype == torch.float32
+                     else np.float64)
     y_lib = torch.mv(csr, x)
     y = stencil_mult(*args)
     lib_rel = float((y_lib - y).abs().max() / y.abs().max())
     library_ms = time_ms(lambda: torch.mv(csr, x))
-    n, D = S.shape[0], len(S.offsets)
-    nbytes = (D + 2) * S.coeffs.element_size() * n
-    peak = FP32_FLOPS_PER_S if S.dtype == torch.float32 else FP64_FLOPS_PER_S
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = 2.0 * D * n / peak * 1e3
+    nbytes, bound_bytes_ms, bound_ops_ms = k1_bound(S)
     print(f"K1 at {label}: {ms:.4f} ms in a CUDA graph "
           f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes} compulsory "
           f"bytes), {call_ms:.4f} ms a call back to back; plain "
@@ -522,9 +553,43 @@ def measure_k1(label, S, x, A_host):
                 else "operations")
 
 
+def check_k1_edges(rng):
+    """K1 against its plain version, bit for bit, and numpy's fp64
+    product on K1_EDGES: no interior point, D = 1 and 125, a 19-point
+    stencil, a fast extent off a multiple of 32, every boundary type;
+    then a 7-point stencil with inf and NaN coefficients at boundary
+    points (an out-of-grid neighbour adds coeff·0): the same values and
+    NaN at the same points."""
+    errs = []
+    for label, grid, offs, bnd, dt in K1_EDGES:
+        C = rng.standard_normal((len(offs),) + grid).astype(dt)
+        S = StencilMat(torch.from_numpy(C).cuda(), offs, grid, bnd)
+        errs.append(check_k1(f"edge: {label}", S, rng)[0])
+    grid = (9, 10, 33)
+    C = rng.standard_normal((7,) + grid)
+    C[1, 0] = np.inf                    # offset (-1, 0, 0) at i0 = 0
+    C[6, :, :, -1] = np.nan             # offset (0, 0, 1) at i2 = 32
+    C[3, 4, 0, 5] = -np.inf             # offset (0, -1, 0) at i1 = 0
+    S = StencilMat(torch.from_numpy(C).cuda(), STAR7, grid)
+    x = torch.from_numpy(rng.standard_normal(S.shape[0])).cuda()
+    args = (S.coeffs, x, S.offsets, S.grid, S.boundary)
+    y, y_plain = stencil_mult(*args), stencil_mult_plain(*args)
+    nan = torch.isnan(y_plain)
+    same = torch.equal(torch.isnan(y), nan) and torch.equal(y[~nan],
+                                                            y_plain[~nan])
+    print(f"K1 edge: inf and NaN coefficients at boundary points: "
+          f"{int(nan.sum())} NaN of {y.numel()}, equal to the plain "
+          f"version: {same}")
+    if not same or int(nan.sum()) == 0:
+        raise AssertionError("K1 with inf/NaN coefficients differs from its "
+                             "plain version")
+    return errs
+
+
 def k1_phases(mg, rng):
-    """K1 against plain on every case, and its times at the three large
-    shapes; returns (max |kernel - plain|, times at 129³)."""
+    """K1 against plain on every case, and its times at every level shape
+    of the slice-2 hierarchy and at 4096²; returns (max |kernel - plain|,
+    times at 129³)."""
     errs, times = [], {}
     S = bench_stencil(rng, BENCH_M)
     A_host = stencil_to_scipy(S)
@@ -532,12 +597,16 @@ def k1_phases(mg, rng):
     errs.append(err)
     measure_k1(f"{BENCH_M}^2 5-point fp32", S, x, A_host)
     del S, A_host, x
-    for label, S in ((f"{MG_GRID}^3 7-point", mg["S"]),
-                     ("65^3 27-point Galerkin", mg["ksp"].pc.levels[1].A)):
+    per_it, its = mg["per_it"], mg["its"]
+    for lv in mg["ksp"].pc.levels:
+        S = lv.A
+        label = f"{S.grid[0]}^3 {len(S.offsets)}-point"
         A_host = stencil_to_scipy(S)
         err, x = check_k1(label, S, rng, A_host)
         errs.append(err)
         times[label] = measure_k1(label + " fp64", S, x, A_host)
+        print(f"K1 at {label}: {per_it.get(S.grid, 0):.2f} launches an "
+              f"iteration of the CG+MG solve ({its} its)")
     small = (((67, 130), STAR5 + ((2, -1), (-3, 2)), ("periodic", "none"),
               np.float64),
              ((61, 140), STAR5 + ((2, 0), (0, -2)), ("mirror", "mirror"),
@@ -549,6 +618,7 @@ def k1_phases(mg, rng):
         C = rng.standard_normal((len(offs),) + grid).astype(dt)
         S = StencilMat(torch.from_numpy(C).cuda(), offs, grid, bnd)
         errs.append(check_k1(f"small {'/'.join(bnd)}", S, rng)[0])
+    errs += check_k1_edges(rng)
     return max(errs), times[f"{MG_GRID}^3 7-point"]
 
 
@@ -737,14 +807,6 @@ def check_gamg_small_against_cpu():
         raise AssertionError("128^2 GAMG solution has the wrong shape or NaNs")
 
 
-def csr_of(A):
-    A = sp.csr_matrix(A, dtype=np.float32)
-    return torch.sparse_csr_tensor(
-        torch.from_numpy(A.indptr.astype(np.int64)),
-        torch.from_numpy(A.indices.astype(np.int64)),
-        torch.from_numpy(A.data), size=A.shape, check_invariants=True).cuda()
-
-
 def pack_bytes(M):
     return sum(t.numel() * t.element_size()
                for t in (M.vals, M.idx, M.qs, M.winstart))
@@ -774,7 +836,7 @@ def measure_k3(l, M, P_host, rng):
                            warp_shape=not plan.warp_shape)
     other_ms = graph_ms(lambda: sell_spmvT(other, r))
     del other
-    csr = csr_of(P_host.T)
+    csr = csr_tensor(P_host.T, np.float32)
     y_lib = torch.mv(csr, r)
     off = M.G * 128
     y = sell_spmvT(plan, r).reshape(-1)[off:off + M.shape[1]]
@@ -824,7 +886,7 @@ def measure_k2_prolongation(M, P_host, rng):
                              "version")
     call_ms = time_ms(lambda: sell_spmv(*args, **kw))
     ms = graph_ms(lambda: sell_spmv(*args, **kw))
-    csr = csr_of(P_host)
+    csr = csr_tensor(P_host, np.float32)
     library_ms = time_ms(lambda: torch.mv(csr, x))
     nbytes = pack_bytes(M) + xp.numel() * 4 + y.numel() * 4
     live = int((M.vals != 0).sum())
@@ -914,6 +976,27 @@ def check_crossed_edges(rng):
               "equals its plain version bit for bit")
 
 
+def check_window_edges(rng):
+    """H2 against its plain version, bit for bit, on H2_EDGES: K 5, 33
+    and 64 (a part chunk of slots), Rb not a multiple of 32 (the rows of
+    a warp in two blocks), n below a block of rows and off a multiple of
+    32."""
+    for n, K, Rb in H2_EDGES:
+        starts = (rng.integers(0, 64, n // Rb) * 16).astype(np.int32)
+        a = [torch.from_numpy(v).cuda() for v in (
+            starts, rng.integers(0, 32, (n, K)).astype(np.int32),
+            rng.integers(0, 128, (n, K)).astype(np.int32),
+            rng.standard_normal((n, K)).astype(np.float32),
+            rng.standard_normal(32 * 128 + 1024).astype(np.float32))]
+        y, y_plain = window_spmv(*a, Rb=Rb), window_spmv_plain(*a, Rb=Rb)
+        if not torch.equal(y, y_plain):
+            raise AssertionError(
+                f"window_spmv n={n} K={K} Rb={Rb}: the kernel differs from "
+                f"its plain version by {(y - y_plain).abs().max().item()}")
+        print(f"window_spmv n={n} K={K} Rb={Rb}: equals its plain version "
+              "bit for bit")
+
+
 def probes_phase():
     """Slice 4's path: every probe case launched once through its kernel
     and checked, with the counts reset just before and read just after;
@@ -930,6 +1013,7 @@ def probes_phase():
     by_name = {case.name: (case, res) for case, res in checked}
     check_repeatable(*by_name["probe_sellx_crossed"])
     check_crossed_edges(np.random.default_rng(13))
+    check_window_edges(np.random.default_rng(17))
     t = time.perf_counter()
     results = []
     for case, res in checked:

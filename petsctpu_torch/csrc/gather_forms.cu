@@ -48,6 +48,8 @@
 
 #include <cuda_runtime.h>
 
+#include "card.cuh"
+
 namespace {
 
 enum Form { kTake = 0, kRows, kAxis0, kAxis1, kChain, kWindow, kTranspose };
@@ -178,20 +180,12 @@ __global__ void __launch_bounds__(32 * kRepWarps) rep_sum_kernel(Args a)
 // blocks). The SM count is asked once a device.
 cudaError_t rep_sum_outputs(int64_t* outputs)
 {
-    constexpr int kDevices = 64;
-    static int sms[kDevices] = {};
-    int dev = 0;
+    int dev = 0, n = 0;
     cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = card::sm_count(dev, &n);
     if (err != cudaSuccess)
         return err;
-    int n = dev < kDevices ? sms[dev] : 0;
-    if (n == 0) {
-        err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess)
-            return err;
-        if (dev < kDevices)
-            sms[dev] = n;
-    }
     *outputs = static_cast<int64_t>(n) * kThreads;
     return cudaSuccess;
 }

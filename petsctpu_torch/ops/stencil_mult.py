@@ -13,7 +13,10 @@ petsctpu/mat/stencil.py:91-104: D coefficient planes over a 1-, 2- or
 takes the plain PyTorch version `stencil_mult_plain` (pad+slice shifted
 reads, as petsctpu's `_shift`) only for tensors on the CPU. Both sum in
 offset order from 0 with a separate multiply and add, so on the card
-they agree bit for bit. `stencil_mult.launches` counts kernel launches.
+they agree bit for bit. `stencil_plan` is the kernel's host plan (each
+offset's flat delta and the interior box, read by the interior path of
+its fp32 5- and 7-point instantiations), built once a stencil.
+`stencil_mult.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -86,8 +89,7 @@ def stencil_mult_plain(coeffs, x, offsets, grid, boundary=()) -> torch.Tensor:
 
 def _check(coeffs, x, offsets, grid, boundary):
     """The full checks of a call; returns the kernel's static arguments:
-    the offsets (a ctypes array, see _host_args), their count, the grid
-    and the boundaries (ctypes arrays) and the dtype code."""
+    _host_args's and the dtype code."""
     grid, offsets = tuple(grid), tuple(tuple(o) for o in offsets)
     boundary = tuple(boundary)
     for name, t in (("coeffs", coeffs), ("x", x)):
@@ -125,26 +127,45 @@ def _check(coeffs, x, offsets, grid, boundary):
     if len(bnd) != nd or any(b not in _BOUNDARY_CODES for b in bnd):
         raise ValueError(f"stencil_mult: boundary must name one of "
                          f"{tuple(_BOUNDARY_CODES)} per axis, got {boundary}")
-    offs, dims, bnd = _host_args(offsets, grid, boundary)
-    return offs, D, dims, bnd, _DTYPE_CODES[x.dtype]
+    return (*_host_args(offsets, grid, boundary), _DTYPE_CODES[x.dtype])
+
+
+def stencil_plan(offsets: tuple, grid: tuple):
+    """K1's host plan of one stencil, on its 3-D grid (leading axes of
+    extent 1 for 1- and 2-D grids): (extents, offsets, deltas, lo, hi).
+    deltas[d] = (o0·n1 + o1)·n2 + o2 is offset d's step in the flat
+    grid; the interior box [lo_k, hi_k) on axis k, from
+    max(0, −min_d o_dk) to n_k − max(0, max_d o_dk), holds the points
+    whose every neighbour lies inside the grid (none when lo_k ≥ hi_k
+    on some axis), where x[i + deltas[d]] is the neighbour whatever the
+    boundary."""
+    lead = 3 - len(grid)
+    n = (1,) * lead + tuple(int(m) for m in grid)
+    offs = tuple((0,) * lead + tuple(int(o) for o in off) for off in offsets)
+    deltas = tuple((o0 * n[1] + o1) * n[2] + o2 for o0, o1, o2 in offs)
+    lo = tuple(max(0, -min(o[k] for o in offs)) for k in range(3))
+    hi = tuple(n[k] - max(0, max(o[k] for o in offs)) for k in range(3))
+    return n, offs, deltas, lo, hi
 
 
 @functools.lru_cache(maxsize=256)
 def _host_args(offsets: tuple, grid: tuple, boundary: tuple):
-    """The ctypes arrays of one stencil's static description (3-D,
-    leading axes of extent 1 for 1- and 2-D grids): offsets, grid and
-    boundary codes."""
-    lead = 3 - len(grid)
-    offs = [int(o) for off in offsets for o in (0,) * lead + tuple(off)]
-    bnd = ("none",) * lead + boundary_types(boundary, len(grid))
-    return ((ctypes.c_int * len(offs))(*offs),
-            (ctypes.c_longlong * 3)(*((1,) * lead + tuple(grid))),
-            (ctypes.c_int * 3)(*(_BOUNDARY_CODES[b] for b in bnd)))
+    """The kernel's static arguments of one stencil, as ctypes arrays
+    (see stencil_plan): offsets, their count, grid, boundary codes, flat
+    deltas and the interior box (lo then hi)."""
+    n, offs, deltas, lo, hi = stencil_plan(offsets, grid)
+    bnd = ("none",) * (3 - len(grid)) + boundary_types(boundary, len(grid))
+    flat = [o for off in offs for o in off]
+    return ((ctypes.c_int * len(flat))(*flat), len(offs),
+            (ctypes.c_longlong * 3)(*n),
+            (ctypes.c_int * 3)(*(_BOUNDARY_CODES[b] for b in bnd)),
+            (ctypes.c_longlong * len(deltas))(*deltas),
+            (ctypes.c_longlong * 6)(*lo, *hi))
 
 
 # the C entry point's argument types, the stream last
-ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (ctypes.c_void_p,) * 2
-            + (ctypes.c_int,) * 2 + (ctypes.c_void_p,))
+ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) + (ctypes.c_void_p,) * 4
+            + (ctypes.c_int,) + (ctypes.c_void_p,))
 
 
 @functools.cache
@@ -152,23 +173,18 @@ def _launcher():
     return _build.entry("stencil_mult", ARGTYPES)
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def stencil_mult(coeffs, x, offsets, grid, boundary=()) -> torch.Tensor:
     """The stencil product y (see stencil_mult_plain), shaped as x."""
-    offs, D, dims, bnd, dtype = _check(coeffs, x, offsets, grid, boundary)
+    offs, D, dims, bnd, deltas, box, dtype = _check(coeffs, x, offsets,
+                                                    grid, boundary)
     if not x.is_cuda:
         return stencil_mult_plain(coeffs, x,
                                   tuple(tuple(o) for o in offsets),
                                   tuple(grid), tuple(boundary))
     y = torch.empty_like(x)
-    index = x.get_device()
-    rc = _build.launch(_launcher(), index, (
+    rc = _build.launch(_launcher(), x.get_device(), (
         coeffs.data_ptr(), x.data_ptr(), y.data_ptr(), offs, D, dims, bnd,
-        dtype, _num_sms(index)))
+        deltas, box, dtype))
     if rc != 0:
         raise RuntimeError(f"stencil_mult: kernel launch failed with CUDA "
                            f"error {rc}")

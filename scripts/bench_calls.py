@@ -1,5 +1,6 @@
 """Time the host's cost of a kernel wrapper call, by part, on one NVIDIA
-card, for probe cases of H1 (`sell_pass`) and H3 (`gather_forms`).
+card, for probe cases of H1 (`sell_pass`), H2 (`window_spmv`, case
+probe_pallas_gather2_window) and H3 (`gather_forms`).
 
 For each case named (by default probe_pallas_gather5_A, H3's slowest
 call against its library call, and probe_sell_bisect_d, H1's), it prints
@@ -17,17 +18,21 @@ repository root:
     python3 scripts/bench_calls.py [--root DIR] [--n N] [--pairs A B] [case ...]
 
 `host_us` and `host_parts` are also what `scripts/bench_k2.py` (K2's
-parts) and `chip_smoke.py` (phase 13) time a call's parts with; they
-import this file with the repository already on sys.path.
+parts) and `chip_smoke.py` (phase 13) time a call's parts with, and
+`other_wrapper` is how `scripts/bench_k1.py` and `bench_k2.py` load
+another checkout's kernel wrapper; they import this file with the
+repository already on sys.path.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 
@@ -49,13 +54,54 @@ from petsctpu_torch import probes  # noqa: E402
 from petsctpu_torch.ops import _build  # noqa: E402
 from petsctpu_torch.ops import gather_forms as h3  # noqa: E402
 from petsctpu_torch.ops import sell_pass as h1  # noqa: E402
+from petsctpu_torch.ops import window_spmv as h2  # noqa: E402
 from petsctpu_torch.probes import gather as pg, sell as ps  # noqa: E402
 from petsctpu_torch.timing import graph_ms, time_ms  # noqa: E402
 
 DEFAULT = ("probe_pallas_gather5_A", "probe_sell_bisect_d")
 # kernel: (wrapper module, the probe module that calls it, the position
 # of the size argument of its C entry point)
-KERNELS = {"gather_forms": (h3, pg, 6), "sell_pass": (h1, ps, 14)}
+KERNELS = {"gather_forms": (h3, pg, 6), "sell_pass": (h1, ps, 14),
+           "window_spmv": (h2, ps, 6)}
+
+
+def _module(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def other_wrapper(name, root, kernel):
+    """Another checkout's wrapper module of `kernel` (e.g. "stencil_mult"),
+    bound to that checkout's own _build: its kernel is built from
+    root's csrc into root's _build and called through its own C
+    interface (`_launcher()`, ARGTYPES), so a changed interface still
+    works."""
+    ops = os.path.join(os.path.abspath(root), "petsctpu_torch", "ops")
+    build = _module(f"{kernel}_{name}_build", os.path.join(ops, "_build.py"))
+    mod = _module(f"{kernel}_{name}", os.path.join(ops, f"{kernel}.py"))
+    mod._build = build
+    return mod
+
+
+def build_together(wrappers, kernel):
+    """`kernel` of each wrapper module's checkout, built at once (one nvcc
+    each)."""
+    errors = []
+
+    def one(mod):
+        try:
+            mod._build.build_all([kernel])
+        except Exception as e:                   # raised below
+            errors.append(e)
+    threads = [threading.Thread(target=one, args=(m,)) for m in wrappers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def host_us(fn, n=2000, rounds=5):
@@ -148,12 +194,17 @@ def _wrapper_args(case):
 
 
 def case_parts(case, n=2000) -> dict:
-    """host_parts of one call of a probe case's H1 or H3 wrapper."""
+    """host_parts of one call of a probe case's H1, H2 or H3 wrapper."""
     mod, args, kw, cargs, entry, out = _wrapper_args(case)
+    like = args[2]
     if mod is h3:
         form, x, idx, idx2 = (list(args) + [None] * 4)[:4]
         ca = (form, x, idx, idx2, kw.get("t", 0), kw.get("size"),
               kw.get("blocks", 1))
+        like = x
+    elif mod is h2:
+        ca = (*args, kw["Rb"])
+        like = args[4]
     else:
         ca = (*args, kw.get("mode", "tile"),
               *(kw.get(k) for k in ("qs", "qbase", "qoff", "hh", "i1")))
@@ -161,8 +212,7 @@ def case_parts(case, n=2000) -> dict:
     zero[KERNELS[case.kernel][2]] = 0
     wrapper = getattr(mod, case.kernel)
     return host_parts(lambda: wrapper(*args, **kw), lambda: mod._check(*ca),
-                      args[1] if mod is h3 else args[2], tuple(out.shape),
-                      entry, cargs, zero, n)
+                      like, tuple(out.shape), entry, cargs, zero, n)
 
 
 def parts(name, n):

@@ -12,9 +12,9 @@ the two is printed):
   k2          the wrapper `sell_spmv`, as the port calls it;
   k2 raw      the same kernel through its C entry point alone (the
               wrapper's host cost left out);
-  NAME        with --other NAME=DIR (repeatable), the sell_spmv.cu of
-              another checkout (DIR/petsctpu_torch/csrc/sell_spmv.cu,
-              with the same C interface), built and called the same way;
+  NAME        with --other NAME=DIR (repeatable), the K2 of another
+              checkout, built from DIR's csrc into DIR's _build and called
+              through its C entry point (bench_calls.other_wrapper);
   H1 tile     on gather7 base only, H1 (sell_pass) in tile mode on the
               compacted stream.
 
@@ -29,7 +29,6 @@ CUDA and nvcc; run from the repository root:
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
 import statistics
 import subprocess
@@ -41,7 +40,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from bench_calls import host_parts  # noqa: E402
+from bench_calls import build_together, host_parts, other_wrapper  # noqa: E402
 
 from petsctpu_torch.mat.sell import sell_from_scipy  # noqa: E402
 from petsctpu_torch.models import ex45_system  # noqa: E402
@@ -50,26 +49,6 @@ from petsctpu_torch.ops import sell_spmv as k2  # noqa: E402
 from petsctpu_torch.probes.sell import (_gather7_inputs,  # noqa: E402
                                         probe_gather7_base)
 from petsctpu_torch.timing import HBM_BYTES_PER_S, graph_ms, time_ms  # noqa: E402
-
-VOID, INT = ctypes.c_void_p, ctypes.c_int
-
-
-def c_entry(lib_path):
-    fn = ctypes.CDLL(str(lib_path)).sell_spmv_launch
-    fn.argtypes = [VOID] * 6 + [INT] * 4 + [VOID]
-    fn.restype = INT
-    return fn
-
-
-def other_fn(name, src_dir):
-    """Another checkout's K2, built by nvcc with the port's flags."""
-    src = os.path.join(src_dir, "petsctpu_torch", "csrc", "sell_spmv.cu")
-    out = _build.BUILD / f"libother_{name}_sell_spmv.so"
-    _build.BUILD.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
-                   check=True, capture_output=True, text=True, timeout=600)
-    return c_entry(out)
-
 
 def runner(fn, pack):
     """A call of C entry point fn on a pack, writing into one output."""
@@ -151,10 +130,13 @@ def main(argv=None):
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
     _build.build_all(["sell_spmv", "sell_pass"])
-    entries = {"k2 raw": c_entry(_build.lib_path("sell_spmv"))}
+    others = {}
     for spec in args.other:
-        name, src_dir = spec.split("=", 1)
-        entries[name] = other_fn(name, src_dir)
+        name, root = spec.split("=", 1)
+        others[name] = other_wrapper(name, root, "sell_spmv")
+    build_together(list(others.values()), "sell_spmv")
+    entries = {"k2 raw": k2._launcher()}
+    entries |= {name: mod._launcher() for name, mod in others.items()}
     g = args.grid
     A, _, _ = ex45_system(g, g, g)
     M = sell_from_scipy(A, G=16)

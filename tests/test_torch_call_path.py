@@ -307,8 +307,6 @@ def test_cuda_path_arguments_convert_to_the_entry_points_types(kernel,
                         lambda fn, index, a: fn(*a, None))
     monkeypatch.setattr(_build, "counted",
                         lambda w: setattr(w, "launches", w.launches + 1))
-    if hasattr(mod, "_num_sms"):                # K1 asks the card for it
-        monkeypatch.setattr(mod, "_num_sms", lambda index: 132)
     card = [(_card(v) if not isinstance(v, str) else v) for v in args]
     if kernel == "sell_spmvT":
         card = [args[0], _card(args[1])]
