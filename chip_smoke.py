@@ -106,6 +106,34 @@ petsctpu. Phases, each of which raises on failure:
    of a call by part (scripts/bench_calls.py) for P10 A (H3) and P17
    (H1).
 
+Slice 5 runs right after phase 5, on phase 4's 128³ SELL operator:
+14. its path, KSP ex45 with -ksp_type cg -pc_type bjacobi
+   -pc_bjacobi_blocks 8 -sub_pc_type ilu (fp32, natural sub-ordering),
+   rtol 1e-5: true residual ≤ 1e-4, the setup seconds split into factor
+   numerics, levels and plan building, ms per iteration (first and
+   repeated), and SpTRSV launched twice a PC apply (the wrapper's count
+   against the applies counted), with the counts reset just before the
+   path and read just after; the repeat is profiled (device busy and
+   idle shares); then CG + -pc_type icc (one 2,097,152-row plan, the grid
+   shape) and CG + -pc_type sor (SSOR, scalar: ex45 has no inodes) once
+   each, to the same residual;
+15. bjacobi(8) ILU, ASM(4, overlap 1), ICC(1) and SSOR at 16³ in fp64
+   on the card against the port's CPU path: equal its and reason,
+   histories within 1e-10 relative;
+16. SpTRSV against its plain version, bit for bit, on the 128³ bjacobi
+   L and U plans, the ICC plans, the SSOR plans and an SOR triangle with
+   ω = 1.5, and on edge plans (a diagonal, a 4,096-row chain, rows
+   without off-diagonals, stacked unequal subdomains in the block and
+   cluster shapes, padded levels in the grid shape, K = 6 and 17 in the
+   grid and cluster shapes); after phase 8, slice 2's coarse LU plans
+   (fp64) likewise, and an MG apply's host time;
+17. SpTRSV's times on each 128³ triangle: 20 solves replayed from a CUDA
+   graph, a call back to back, the plain version, one
+   torch.triangular_solve on the CSR triangle (cuSPARSE), the byte bound
+   at 3.35 TB/s, and the dependency bound: the plan's bytes at the
+   measured STREAM triad against its levels times one dependent round,
+   measured on the chain.
+
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
 """
@@ -129,9 +157,11 @@ from petsctpu_torch.core.logging import log_begin, log_events
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.dm import DA
 from petsctpu_torch.ksp import KSP
-from petsctpu_torch.mat import (StencilMat, mat_from_options,
+from petsctpu_torch.mat import (StencilMat, aij_from_scipy, mat_from_options,
                                 stencil_from_scipy, stencil_to_scipy)
 from petsctpu_torch.mat import stencil as stencil_module
+from petsctpu_torch.mat.factor import (ilu0, make_sptrsv_plan,
+                                       stacked_sptrsv_plan)
 from petsctpu_torch.mat.sell import sell_from_scipy, sell_pack, sell_to_scipy
 from petsctpu_torch.models import ex45_system, laplacian_2d
 from petsctpu_torch.ops import _build
@@ -141,16 +171,19 @@ from petsctpu_torch.ops.sell_spmv import sell_spmv, sell_spmv_plain
 from petsctpu_torch.ops.sell_spmvT import (sell_spmvT, sell_spmvT_plain,
                                            sell_spmvT_plan_plain,
                                            transpose_plan)
+from petsctpu_torch.ops.sptrsv import launch_shape, sptrsv, sptrsv_plain
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 from petsctpu_torch.ops.window_spmv import window_spmv, window_spmv_plain
-from petsctpu_torch.timing import (FP32_FLOPS_PER_S, HBM_BYTES_PER_S,
-                                   graph_ms, time_ms)
+from petsctpu_torch.pc.sor import make_sor
+from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
+                                   HBM_BYTES_PER_S, graph_ms, time_ms)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "scripts"))
 from bench_calls import case_parts  # noqa: E402
 from bench_k1 import (STAR5, STAR7, STAR19, bench_stencil,  # noqa: E402
                       csr_tensor, k1_bound)
+from profile_torch_cg import _union_us, _wall_ms  # noqa: E402
 
 GRID = 128                 # ex45 at 128³: n = 2,097,152
 MG_GRID = 129              # ex45 -pc_type mg at 129³: n = 2,146,689
@@ -189,6 +222,21 @@ KSP_OPTS = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-5",
 GMRES_OPTS = {"ksp_type": "gmres", "pc_type": "jacobi",
               "ksp_gmres_restart": "30", "ksp_max_it": "300"}
 GAMG_OPTS = {"ksp_type": "cg", "pc_type": "gamg", "ksp_rtol": "1e-5"}
+# slice 5: bench.py's config 2 at slice 1's size, and two more PCs once
+SLICE5_OPTS = {"ksp_type": "cg", "pc_type": "bjacobi",
+               "pc_bjacobi_blocks": "8", "sub_pc_type": "ilu",
+               "ksp_rtol": "1e-5", "ksp_max_it": "2000"}
+ONCE_OPTS = {"icc": {"ksp_type": "cg", "pc_type": "icc", "ksp_rtol": "1e-5",
+                     "ksp_max_it": "2000"},
+             "sor": {"ksp_type": "cg", "pc_type": "sor", "ksp_rtol": "1e-5",
+                     "ksp_max_it": "2000"}}
+# the 16³ fp64 solves held card against CPU
+SMALL_PCS = {"bjacobi(8) ILU": {"pc_type": "bjacobi",
+                                "pc_bjacobi_blocks": "8"},
+             "ASM(4, overlap 1)": {"pc_type": "asm", "pc_asm_blocks": "4",
+                                   "pc_asm_overlap": "1"},
+             "ICC(1)": {"pc_type": "icc", "pc_factor_levels": "1"},
+             "SSOR": {"pc_type": "sor"}}
 
 
 def device_info():
@@ -273,6 +321,7 @@ def reset_counts():
     sell_pass.launches = 0
     window_spmv.launches = 0
     gather_forms.launches = 0
+    sptrsv.launches = 0
 
 
 def drive_main_path(A, b_np):
@@ -282,6 +331,8 @@ def drive_main_path(A, b_np):
     t = time.perf_counter()
     M, perm = mat_from_options(A, opts, dtype=torch.float32)
     setup_s = time.perf_counter() - t
+    if not np.array_equal(perm, np.arange(A.shape[0])):
+        raise AssertionError("natural ordering gave a permutation")
     b = torch.from_numpy(b_np[perm].astype(np.float32)).cuda()
     res, cg_s = solve(M, b, KSP_OPTS)
     its, reason = int(res.its), int(res.reason)
@@ -413,7 +464,7 @@ def drive_mg_path():
     finally:
         stencil_module.stencil_mult = real
     launches = {"stencil_mult": stencil_mult.launches,
-                "sell_spmv": sell_spmv.launches}
+                "sell_spmv": sell_spmv.launches, "sptrsv": sptrsv.launches}
     its, reason = int(res.its), int(res.reason)
     solve_launches = launches["stencil_mult"] - setup_launches
     if sum(by_grid.values()) != solve_launches:
@@ -435,13 +486,17 @@ def drive_mg_path():
           f"{1e3 * secs / its:.4f} ms/it; true rel residual {relres:.3e}; "
           f"history {float(res.history[0]):.6e} -> "
           f"{float(res.history[its]):.6e}; K1 launches {solve_launches} in "
-          f"the solve, {launches['stencil_mult']} in the path")
+          f"the solve, {launches['stencil_mult']} in the path; SpTRSV "
+          f"launches {launches['sptrsv']} (the coarse LU)")
     if reason <= 0 or not relres <= 1e-4:
         raise AssertionError(f"CG+MG failed: reason {reason}, residual "
                              f"{relres}")
     if solve_launches < its:
         raise AssertionError(f"K1 launched {solve_launches} times in {its} "
                              "its")
+    if launches["sptrsv"] < 2 * its:
+        raise AssertionError(f"SpTRSV launched {launches['sptrsv']} times in "
+                             f"{its} its")
     return dict(S=S, ksp=ksp, b=bt, launches=launches["stencil_mult"],
                 ms_per_it=1e3 * secs / its, its=its,
                 per_it={g: n / its for g, n in by_grid.items()})
@@ -905,6 +960,391 @@ def warm_gamg_ms_per_it(gamg):
     return 1e3 * (time.perf_counter() - t) / int(res.its)
 
 
+# ---------------------------------------------------------------- slice 5
+
+def solve_counted(ksp, b):
+    """ksp.solve(b) with the PC's applies and SpTRSV's launches counted:
+    (result, seconds, PC applies, SpTRSV launches)."""
+    pc = ksp.pc
+    applies = [0]
+    real = pc.apply
+
+    def apply(x):
+        applies[0] += 1
+        return real(x)
+    pc.apply = apply
+    before = sptrsv.launches
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ksp.solve(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        del pc.apply
+    return res, secs, applies[0], sptrsv.launches - before
+
+
+def true_residual(A, b_np, res):
+    x = res.x.double().cpu().numpy()
+    if x.shape != (A.shape[0],) or not np.isfinite(x).all():
+        raise AssertionError("solution has the wrong shape or NaNs")
+    return float(np.linalg.norm(b_np - A @ x) / np.linalg.norm(b_np))
+
+
+def setup_split():
+    """Seconds of the logged setup events: numerics, levels, plans."""
+    ev = log_events()
+    t = {k: ev[k].time if k in ev else 0.0
+         for k in ("MatFactorNumeric", "MatSolveLevels", "MatSolvePlan")}
+    return (t["MatFactorNumeric"], t["MatSolveLevels"],
+            t["MatSolvePlan"] - t["MatSolveLevels"])
+
+
+def profile_solve(ksp, b):
+    """The device's busy and idle shares of a repeat of the solve under
+    torch.profiler, and its top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ksp.solve(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    n = int(res.its)
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = _union_us([(e.time_range.start, e.time_range.end)
+                      for e in events])
+    per = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        per[e.name][0] += 1
+        per[e.name][1] += e.time_range.end - e.time_range.start
+    print(f"slice5 profiled: wall {1e3 * wall / n:.4f} ms/it; device busy "
+          f"{busy / n / 1e3:.4f} ms/it, idle share "
+          f"{1 - busy / (wall * 1e6):.3f}")
+    for name, (count, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"  {us / n / 1e3:9.5f} ms  {count / n:5.1f}/it  {name[:80]}")
+
+
+def drive_slice5_path(A, b_np, M):
+    """Slice 5's path at full size: ex45 128³ on phase 4's fp32 SELL
+    operator, KSP with -ksp_type cg -pc_type bjacobi -pc_bjacobi_blocks 8
+    -sub_pc_type ilu (natural sub-ordering), rtol 1e-5, counting
+    launches; then a repeat of the solve, timed and profiled."""
+    reset_counts()
+    log_begin()
+    ksp = KSP(Options(dict(SLICE5_OPTS))).set_operators(M, A)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    numeric, levels, plans = setup_split()
+    pc = ksp.pc
+    b = torch.from_numpy(b_np.astype(np.float32)).cuda()
+    res, secs, applies, launches = solve_counted(ksp, b)
+    its, reason = int(res.its), int(res.reason)
+    path_launches = sptrsv.launches
+    relres = true_residual(A, b_np, res)
+    print(f"slice5 path: bjacobi(8) ILU(0) setup {setup_s:.2f} s = factor "
+          f"numerics {numeric:.2f} + levels {levels:.2f} + plan building "
+          f"{plans:.2f} + subdomains and the rest "
+          f"{setup_s - numeric - levels - plans:.2f} s; plans "
+          f"{tuple(pc.Lplans.level_rows.shape)} L, "
+          f"{tuple(pc.Uplans.level_rows.shape)} U (nb, nlev, rmax)")
+    print(f"slice5 path: CG+bjacobi(8) ILU its={its} reason={reason} "
+          f"{secs:.3f} s = {1e3 * secs / its:.4f} ms/it; true rel residual "
+          f"{relres:.3e}; history {float(res.history[0]):.6e} -> "
+          f"{float(res.history[its]):.6e}; {applies} PC applies, SpTRSV "
+          f"launches {launches} ({launches / its:.2f} an iteration), K2 "
+          f"launches {sell_spmv.launches}")
+    if reason <= 0 or not relres <= 1e-4:
+        raise AssertionError(f"CG+bjacobi failed: reason {reason}, "
+                             f"residual {relres}")
+    if launches != 2 * applies or applies < its:
+        raise AssertionError(f"SpTRSV launched {launches} times for "
+                             f"{applies} PC applies in {its} its")
+    if sell_spmv.launches < its:
+        raise AssertionError(f"K2 launched {sell_spmv.launches} times in "
+                             f"{its} its")
+    res2, secs2, _, _ = solve_counted(ksp, b)
+    if int(res2.its) != its:
+        raise AssertionError("the repeated solve took other its")
+    print(f"slice5 CG+bjacobi(8) ILU ms per iteration at {GRID}^3: "
+          f"{1e3 * secs / its:.4f} in the main path, "
+          f"{1e3 * secs2 / its:.4f} repeated")
+    profile_solve(ksp, b)
+    return dict(ksp=ksp, b=b, launches=path_launches,
+                per_it=launches / its)
+
+
+def drive_once(A, b_np, M, name):
+    """CG with -pc_type icc or sor at 128³ on the SELL operator, once."""
+    log_begin()
+    ksp = KSP(Options(dict(ONCE_OPTS[name]))).set_operators(M, A)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    numeric, levels, plans = setup_split()
+    b = torch.from_numpy(b_np.astype(np.float32)).cuda()
+    res, secs, applies, launches = solve_counted(ksp, b)
+    its, reason = int(res.its), int(res.reason)
+    relres = true_residual(A, b_np, res)
+    print(f"{name} at {GRID}^3 ({type(ksp.pc).__name__}): setup {setup_s:.2f}"
+          f" s (numerics {numeric:.2f}, levels {levels:.2f}, plans "
+          f"{plans:.2f}); CG its={its} reason={reason} {secs:.3f} s = "
+          f"{1e3 * secs / its:.4f} ms/it; true rel residual {relres:.3e}; "
+          f"SpTRSV launches {launches} for {applies} PC applies")
+    if reason <= 0 or not relres <= 1e-4:
+        raise AssertionError(f"CG+{name} failed: reason {reason}, residual "
+                             f"{relres}")
+    if launches != 2 * applies:
+        raise AssertionError(f"{name}: {launches} SpTRSV launches for "
+                             f"{applies} applies")
+    return ksp
+
+
+def check_slice5_small_against_cpu():
+    """bjacobi(8) ILU, ASM(4, overlap 1), ICC(1) and SSOR at 16³ in fp64
+    on AIJ, on the card and on the CPU through the port: equal its and
+    reason, histories within 1e-10 relative."""
+    A, b, _ = ex45_system(16, 16, 16)
+    for label, pc_opts in SMALL_PCS.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            opts = Options({"ksp_type": "cg", "ksp_rtol": "1e-8", **pc_opts})
+            res = KSP(opts).set_operators(aij_from_scipy(A, device=dev),
+                                          A).solve(
+                torch.from_numpy(b).to(dev))
+            out[dev] = (int(res.its), int(res.reason), res.history.numpy())
+        (gi, gr, gh), (ci, cr, ch) = out["cuda"], out["cpu"]
+        hdiff = float(np.abs(gh[:gi + 1] / ch[:gi + 1] - 1).max()) \
+            if gi == ci else float("inf")
+        print(f"16^3 CG+{label} card vs cpu: its {gi}/{ci} reason {gr}/{cr}"
+              f" history rel diff {hdiff:.2e}")
+        if (gi, gr) != (ci, cr) or gr <= 0 or not hdiff <= 1e-10:
+            raise AssertionError(f"16^3 CG+{label} on the card disagrees "
+                                 "with the CPU")
+
+
+def check_sptrsv(label, plan, rng):
+    """SpTRSV against its plain version, bit for bit, on the card."""
+    shape = tuple(plan.dinv.shape)
+    b = torch.from_numpy(rng.standard_normal(shape)).to("cuda", plan.dtype)
+    x = plan.solve(b)
+    ref = sptrsv_plain(*plan.order, b.reshape(plan.nb, -1)).reshape(x.shape)
+    torch.cuda.synchronize()
+    err = float((x - ref).abs().max())
+    held = sum(t.numel() * t.element_size() for t in (*plan.order,
+                                                        plan.nlevs))
+    print(f"sptrsv {label}: {tuple(plan.level_rows.shape)} levels x rows, "
+          f"K={plan.cols.shape[-1]} ({plan.order[2].shape[-1]} on the "
+          f"device, {held} B), rmax {plan.rmax}, {plan.dtype}, "
+          f"{launch_shape(plan.nb, plan.rmax)} shape: "
+          f"max|kernel-plain|={err}")
+    if not torch.equal(x, ref):
+        raise AssertionError(f"sptrsv {label}: the kernel differs from its "
+                             f"plain version by {err}")
+    return err, b
+
+
+def edge_plans(rng):
+    """SpTRSV's edge plans: a diagonal (nlev 1), a chain (1-D tridiagonal
+    lower, n 4096, rmax 1) in fp64 and fp32, rows with no off-diagonals
+    among others, stacked plans of unequal subdomains (identity-padded,
+    levels padded) in the block and the cluster shapes, a single plan in
+    the grid shape with padded levels and slots, and two-level triangles
+    of six off-diagonals a row (K > 4: the slots past the fourth loaded
+    after the barrier) in the grid and the cluster shapes."""
+    out = {"diagonal": make_sptrsv_plan(
+        sp.diags(rng.uniform(1, 2, 1000)).tocsr(), True, False,
+        np.float64, device="cuda")}
+    e = np.ones(4096)
+    chain = sp.diags([-e[:-1], 2 * e], [-1, 0]).tocsr()
+    for dt in (np.float64, np.float32):
+        out[f"chain {np.dtype(dt).name}"] = make_sptrsv_plan(
+            chain, True, False, dt, device="cuda")
+    n = 5000
+    T = sp.tril(sp.random(n, n, density=3.0 / n, random_state=rng,
+                          format="csr"), -1).tocsr()
+    T = (sp.diags(np.where(rng.random(n) < 0.5, 0.0, 1.0)) @ T).tocsr()
+    T.eliminate_zeros()
+    out["half the rows without off-diagonals"] = make_sptrsv_plan(
+        (T + sp.diags(rng.uniform(1, 2, n))).tocsr(), True, False,
+        np.float32, device="cuda")
+
+    def unequal(A, pieces):
+        size = max(m for _, m in pieces)
+        subs = []
+        for lo, m in pieces:
+            L = ilu0(A[lo:lo + m][:, lo:lo + m])[0]
+            subs.append(sp.block_diag([L, sp.csr_matrix((size - m,) * 2)])
+                        .tocsr() if m < size else L)
+        return stacked_sptrsv_plan(subs, True, True, np.float32,
+                                   device="cuda")
+
+    A16 = sp.csr_matrix(ex45_system(16, 16, 16)[0])
+    out["stacked, unequal subdomains"] = unequal(
+        A16, ((0, 300), (300, 1000), (1300, 37)))
+    A64 = sp.csr_matrix(ex45_system(64, 64, 64)[0])
+    out["stacked, unequal subdomains, wide levels"] = unequal(
+        A64, ((0, 20000), (20000, 60000), (80000, 3000)))
+    out["grid shape, padded"] = make_sptrsv_plan(
+        ilu0(A64)[1], False, False, np.float64, pad_to=(300, 3100, 5),
+        device="cuda")
+    # two wide levels: rows 3000-5999 each read 6 rows of 0-2999
+    m = 3000
+    r = np.repeat(np.arange(m, 2 * m), 6)
+    c = rng.integers(0, m, r.size)
+    W = (sp.coo_matrix((rng.standard_normal(r.size), (r, c)),
+                       shape=(2 * m, 2 * m)).tocsr()
+         + sp.diags(rng.uniform(1, 2, 2 * m))).tocsr()
+    out["two wide levels, K > 4"] = make_sptrsv_plan(
+        W, True, False, np.float32, device="cuda")
+    out["stacked two wide levels, K > 4"] = stacked_sptrsv_plan(
+        [W, sp.csr_matrix(W.T)[::-1][:, ::-1].tocsr()], True, False,
+        np.float64, device="cuda")
+    return out
+
+
+def plan_to_scipy(plan):
+    """The triangle of a (stacked) plan as one scipy CSR (stacked plans
+    block-diagonal), the diagonal as 1/dinv."""
+    cols = plan.cols.reshape(plan.nb, plan.n + 1, -1)
+    vals = plan.vals.astype(np.float64).reshape(cols.shape)
+    dinv = plan.dinv.astype(np.float64).reshape(plan.nb, plan.n)
+    n = plan.n
+    blocks = []
+    for s in range(plan.nb):
+        r = np.repeat(np.arange(n), cols.shape[-1])
+        c, v = cols[s, :n].ravel(), vals[s, :n].ravel()
+        live = c < n
+        blocks.append((sp.coo_matrix((v[live], (r[live], c[live])),
+                                     shape=(n, n))
+                       + sp.diags(1.0 / dinv[s])).tocsr())
+    return sp.block_diag(blocks).tocsr()
+
+
+def library_trsv(plan, upper):
+    """One PyTorch call computing the same solve, where this PyTorch has
+    one: torch.triangular_solve on a CUDA sparse CSR triangle (cuSPARSE).
+    Returns (the call, None) or (None, why not)."""
+    T = csr_tensor(plan_to_scipy(plan),
+                   np.float32 if plan.dtype == torch.float32 else np.float64)
+    bcol = torch.ones((T.shape[0], 1), dtype=plan.dtype, device="cuda")
+    try:
+        torch.triangular_solve(bcol, T, upper=upper)
+    except (RuntimeError, NotImplementedError) as err:
+        return None, str(err).splitlines()[0][:120]
+    return (lambda: torch.triangular_solve(bcol, T, upper=upper)), None
+
+
+def sptrsv_bound(plan, triad_gbs, level_us):
+    """(bound ms, bound_by, its term, bytes, every term): the larger of
+    the plan's live bytes (a row's index, its live cols and vals, b,
+    1/diag and x written; the level starts) over the measured STREAM
+    triad, and nlev dependent rounds of `level_us` each (a level's
+    loads, x gather, store and barrier, timed on a chain plan). The flops
+    (2 a live slot and 2 a row) at their type's peak count too, far
+    below both. bound_by is "bytes" for the first term, "operations" for
+    the others."""
+    n, es = plan.n, plan.vals.itemsize
+    live = int((plan.cols.reshape(plan.nb, n + 1, -1)[:, :n] != n).sum())
+    rows = plan.nb * n
+    nbytes = rows * (4 + 3 * es) + live * (4 + es) + 4 * plan.order[0].numel()
+    peak = FP32_FLOPS_PER_S if plan.dtype == torch.float32 \
+        else FP64_FLOPS_PER_S
+    nlev = int(plan.nlevs.max())
+    terms = {"bytes at the STREAM triad": nbytes / (triad_gbs * 1e9) * 1e3,
+             f"{nlev} dependent levels": nlev * level_us * 1e-3,
+             "flops at peak": (2 * live + 2 * rows) / peak * 1e3}
+    term = max(terms, key=terms.get)
+    return (terms[term], "bytes" if term.startswith("bytes")
+            else "operations", term, nbytes, terms)
+
+
+def measure_sptrsv(label, plan, upper, triad_gbs, level_us, rng):
+    """A triangle's times: a call back to back, 20 solves replayed from a
+    CUDA graph, the plain version, the library call; and its bound."""
+    shape = tuple(plan.dinv.shape)
+    b = torch.from_numpy(rng.standard_normal(shape)).to("cuda", plan.dtype)
+    call_ms = time_ms(lambda: plan.solve(b), runs=20, inner=5)
+    device_ms = graph_ms(lambda: plan.solve(b))
+    lead = (*plan.order, b.reshape(plan.nb, -1))
+    plain_ms = time_ms(lambda: sptrsv_plain(*lead), runs=3, inner=1,
+                       warmup=1)
+    lib, why = library_trsv(plan, upper)
+    library_ms = (time_ms(lib, runs=5, inner=1, warmup=1) if lib is not None
+                  else None)
+    bound_ms, bound_by, term, nbytes, terms = sptrsv_bound(
+        plan, triad_gbs, level_us)
+    nlev = int(plan.nlevs.max())
+    lib_text = (f"{library_ms:.4f} ms" if library_ms is not None
+                else f"none ({why})")
+    terms_text = "; ".join(f"{k} {v:.4f} ms" for k, v in terms.items())
+    print(f"sptrsv at {label}: {device_ms:.4f} ms in a CUDA graph "
+          f"({1e3 * device_ms / nlev:.3f} us a level, {nlev} levels), "
+          f"{call_ms:.4f} ms a call back to back; plain {plain_ms:.4f} ms; "
+          f"torch.triangular_solve on CSR {lib_text}; bound {bound_ms:.4f} "
+          f"ms by {term}, {100 * bound_ms / device_ms:.1f} % of the device "
+          f"time ({terms_text}; {nbytes} B live)")
+    return dict(ms=call_ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bound_term=term)
+
+
+def slice5_phases(A, b_np, M, triad_gbs, rng):
+    """Slice 5 on phase 4's 128³ operator: the counted CG+bjacobi(8)
+    path, CG+icc and CG+sor once, the 16³ card-vs-CPU solves, SpTRSV
+    against its plain version on every plan of phase 16 (slice
+    2's coarse LU plans are checked in mg_sptrsv_check), and the times of
+    each 128³ triangle. Returns the kernels line's entry for sptrsv and
+    the max |kernel - plain| of its checks."""
+    path = drive_slice5_path(A, b_np, M)
+    icc = drive_once(A, b_np, M, "icc")
+    sor = drive_once(A, b_np, M, "sor")
+    check_slice5_small_against_cpu()
+    pc = path["ksp"].pc
+    sor_w = make_sor(A, omega=1.5, dtype=np.float32, device="cuda")
+    plans = {"bjacobi(8) ILU L": (pc.Lplans, False),
+             "bjacobi(8) ILU U": (pc.Uplans, True),
+             "ICC L (one subdomain)": (icc.pc.Lplan, False),
+             "ICC U (one subdomain)": (icc.pc.Uplan, True),
+             "SSOR forward": (sor.pc.fwd_plan, False),
+             "SSOR backward": (sor.pc.bwd_plan, True),
+             "SOR omega=1.5 forward": (sor_w.fwd_plan, False)}
+    errs = [check_sptrsv(f"{GRID}^3 {k}", p, rng)[0]
+            for k, (p, _) in plans.items()]
+    edges = edge_plans(rng)
+    errs += [check_sptrsv(f"edge: {k}", p, rng)[0] for k, p in edges.items()]
+    chain = edges["chain float64"]
+    b = torch.ones(chain.n, dtype=torch.float64, device="cuda")
+    level_us = 1e3 * graph_ms(lambda: chain.solve(b)) / chain.nlev
+    print(f"sptrsv chain (n {chain.n}, rmax 1, fp64): {level_us:.3f} us a "
+          "dependent level (index, cols, x gather, store, barrier)")
+    times = {k: measure_sptrsv(f"{GRID}^3 {k}", p, up, triad_gbs, level_us,
+                               rng)
+             for k, (p, up) in plans.items() if "omega" not in k}
+    return dict(name="sptrsv", route="cuda",
+                source="petsctpu_torch/csrc/sptrsv.cu",
+                replaces="petsctpu/mat/factor.py:368",
+                launches=path["launches"], max_abs_err=max(errs),
+                **times["bjacobi(8) ILU L"])
+
+
+def mg_sptrsv_check(mg, rng):
+    """Slice 2's coarse LU plans (fp64) through SpTRSV, bit for bit, and
+    an MG apply's host time."""
+    pc = mg["ksp"].pc
+    err = max(check_sptrsv(f"slice 2 coarse LU {k}", p, rng)[0]
+              for k, p in (("L", pc.coarse.Lplan), ("U", pc.coarse.Uplan)))
+    print(f"slice 2: an MG apply {_wall_ms(lambda: pc.apply(mg['b'])):.4f} "
+          "ms (host clock, the coarse LU through SpTRSV)")
+    return err
+
+
 PROBE_KERNELS = (sell_pass, window_spmv, gather_forms)
 # H1's crossed mode (SELL-X) and H3's chained rep sum (P12): device time
 # against the bound; H3's and H1's slowest calls against their library
@@ -1071,10 +1511,12 @@ def main():
     times = measure(A, M, xp)
     print(f"CG+jacobi ms per iteration at {GRID}^3: {cg_ms_per_it:.4f} in "
           f"the main path, {warm_cg_ms_per_it(Mp, bp):.4f} repeated")
+    trsv = slice5_phases(A, b, Mp, stream_triad_gbs(), rng)
     del A, b, M, xp, Mp, bp, R
     mg = drive_mg_path()
     check_mg_small_against_cpu()
     k1_err, k1_times = k1_phases(mg, rng)
+    trsv["max_abs_err"] = max(trsv["max_abs_err"], mg_sptrsv_check(mg, rng))
     mg_launches = mg["launches"]
     print(f"CG+MG ms per iteration at {MG_GRID}^3: {mg['ms_per_it']:.4f} in "
           f"the main path, {warm_mg_ms_per_it(mg):.4f} repeated")
@@ -1099,7 +1541,7 @@ def main():
                     source="petsctpu_torch/csrc/sell_spmvT.cu",
                     replaces="petsctpu/mat/sell.py:214",
                     launches=gamg["launches"], max_abs_err=k3_err,
-                    **k3_times[0])]
+                    **k3_times[0]), trsv]
     del gamg, k3_levels
     kernels += probes_phase()
     print(smi)

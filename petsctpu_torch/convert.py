@@ -161,3 +161,74 @@ def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
     coarse_A = AIJ(geti(ci).long(), getf(vi), shc, nzc)
     coarse = DenseLUPC(getf(lum), geti((pivo, (shc[0],))))
     return MGPC(tuple(levels), coarse, coarse_A, cycles, mg_type)
+
+
+def sptrsv_from_arrays(level_rows, cols, vals, dinv, n: int, nlev: int,
+                       device=None):
+    """A SpTRSVPlan from petsctpu's plan arrays (level_rows, cols int32;
+    vals, dinv), a plan or nb stacked ones (a leading axis)."""
+    from petsctpu_torch.mat.factor import SpTRSVPlan
+
+    return SpTRSVPlan(np.asarray(level_rows, np.int32),
+                      np.asarray(cols, np.int32), np.asarray(vals),
+                      np.asarray(dinv), int(n), int(nlev), device=device)
+
+
+def _plan(p: dict, dev):
+    return sptrsv_from_arrays(p["level_rows"], p["cols"], p["vals"],
+                              p["dinv"], p["n"], p["nlev"], dev)
+
+
+def ilu_from_arrays(L: dict, U: dict, LT: dict = None, UT: dict = None,
+                    perm=None, device=None):
+    """An ILUPC from petsctpu's L and U plans (each a dict of its arrays
+    and statics), an ILUPCT with the transpose plans LT (of Lᵀ, upper)
+    and UT (of Uᵀ, lower), and a PermutedPC around it given the
+    ordering's perm."""
+    from petsctpu_torch.pc.factor import ILUPC, ILUPCT, PermutedPC
+
+    dev = resolve_device(device)
+    pc = (ILUPC(_plan(L, dev), _plan(U, dev)) if LT is None else
+          ILUPCT(_plan(L, dev), _plan(U, dev), _plan(LT, dev),
+                 _plan(UT, dev)))
+    return pc if perm is None else PermutedPC(pc, _tensor(perm, dev,
+                                                          torch.int64))
+
+
+def icc_from_arrays(L: dict, U: dict, dinv, perm=None, device=None):
+    """An ICCPC from petsctpu's plans of Uᵀ (L) and U and 1/d."""
+    from petsctpu_torch.pc.factor import ICCPC, PermutedPC
+
+    dev = resolve_device(device)
+    pc = ICCPC(_plan(L, dev), _plan(U, dev), _tensor(dinv, dev))
+    return pc if perm is None else PermutedPC(pc, _tensor(perm, dev,
+                                                          torch.int64))
+
+
+def sor_from_arrays(fwd: dict, bwd: dict, U_ell: tuple, L_ell: tuple, diag,
+                    omega: float, sweeps: int, symmetric: bool,
+                    device=None):
+    """A SORPC from petsctpu's two sweep plans, its strict triangles as
+    ELL (cols, vals, shape, nnz) and its diagonal."""
+    from petsctpu_torch.pc.sor import SORPC
+
+    dev = resolve_device(device)
+    return SORPC(_plan(fwd, dev), _plan(bwd, dev),
+                 aij_from_arrays(*U_ell, device=dev),
+                 aij_from_arrays(*L_ell, device=dev), _tensor(diag, dev),
+                 float(omega), int(sweeps), bool(symmetric))
+
+
+def asm_from_arrays(idx, own, valid, L: dict, U: dict, perm_r, perm_c,
+                    n: int, restricted: bool, use_perm: bool,
+                    contiguous: bool, device=None):
+    """An ASMPC from petsctpu's subdomain index arrays and its stacked
+    L and U plans (a leading subdomain axis on every plan array)."""
+    from petsctpu_torch.pc.asm import ASMPC
+
+    dev = resolve_device(device)
+    return ASMPC(_tensor(idx, dev, torch.int64), _tensor(own, dev),
+                 _tensor(valid, dev), _plan(L, dev), _plan(U, dev),
+                 _tensor(perm_r, dev, torch.int64),
+                 _tensor(perm_c, dev, torch.int64), int(n),
+                 bool(restricted), bool(use_perm), bool(contiguous))

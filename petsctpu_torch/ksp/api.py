@@ -169,8 +169,8 @@ class KSP:
             return self
         if self.pc is None:
             from petsctpu_torch.pc import make_pc
-            # the reference's default is ILU when the host matrix is
-            # given; ILU is not ported yet, so that default raises
+            # the reference's default: ILU(0) when the host matrix is
+            # given, Jacobi on the device operator alone
             pc_type = self.opts.get_str("pc_type", "ilu" if self.A_host
                                         is not None else "jacobi")
             self.pc = make_pc(pc_type, A=self.A, A_host=self.A_host,

@@ -7,6 +7,10 @@ library is rebuilt when any source under `csrc/` is newer than it.
 Nothing is built at import: `load` builds at first use, and
 `build_all` starts one nvcc per source, all together.
 
+The host sources `csrc/<name>.cpp` (the factor numerics, not kernels)
+are built the same way by g++ into `_build/lib<name>.so` at first use
+(`load_host`), and raise if they cannot be built.
+
 Every wrapper of `petsctpu_torch/ops` calls its kernel the same way: it
 runs its `_check` (which raises on a malformed call, before any launch,
 and returns the kernel's static arguments), takes its entry point from
@@ -30,6 +34,8 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -87,6 +93,39 @@ def build_all(names=None) -> dict:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def build_host(name: str) -> None:
+    """Compile the host source csrc/<name>.cpp with g++ (no -march, so no
+    FMA contraction: the same bits as a numpy loop in fp64)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: the host library {name} is "
+                           "built from petsctpu_torch/csrc at first use")
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD / f"lib{name}.so.{os.getpid()}.tmp"
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cpp")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host build of {name} failed: g++ exit "
+                           f"{proc.returncode}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path(name))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library `name`, built first if it is missing or
+    older than csrc/<name>.cpp."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            so = lib_path(name)
+            if not so.exists() or (CSRC / f"{name}.cpp").stat().st_mtime \
+                    > so.stat().st_mtime:
+                build_host(name)
+            lib = ctypes.CDLL(str(so))
+            _LIBS[name] = lib
+        return lib
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,9 +2,9 @@
 
 Counterpart of petsctpu/pc/mg.py (reference:
 src/ksp/pc/impls/mg/mg.c — PCMGMCycle_Private :10, PCSetUp_MG :529,
-PCApply_MG :296): a level hierarchy with Chebyshev+Jacobi smoothers,
-matrix-free Q1 transfers and an exact LU coarse solve; V and W cycles,
-full, kaskade and additive MG.
+PCApply_MG :296): a level hierarchy with Chebyshev+Jacobi (or SSOR)
+smoothers, matrix-free Q1 transfers and an exact LU coarse solve; V and
+W cycles, full, kaskade and additive MG.
 
   * Chebyshev bounds come from a power iteration at setup, [0.1, 1.1]·λmax
     of D⁻¹A. They are rounded in the solve's dtype as petsctpu rounds
@@ -22,8 +22,10 @@ full, kaskade and additive MG.
     petsctpu chooses (SELL through K2, dense, slant-band or ELL), and a
     chunk-mode SELL prolongator restricts through P.multT, kernel K3.
 
-The SSOR smoother branch is ROADMAP queue 1 item 5, the MXU band format
-(pc_gamg_mat_type band) item 9.
+With mg_levels_pc_type sor (the host setups) each level smooths with
+Chebyshev around an SSOR SORPC, its bounds from a host Arnoldi estimate,
+as the reference. The MXU band format (pc_gamg_mat_type band) is ROADMAP
+queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -42,13 +44,16 @@ from petsctpu_torch.pc.factor import LUPC, PermutedPC, make_lu
 
 class ChebySmoother:
     """Fixed-iteration Chebyshev smoother with the Jacobi preconditioner
-    (dinv). emin and emax are Python numbers, already rounded in the
-    solve's dtype; the recurrence's scalars are computed once, here, in
-    that dtype, in petsctpu's order of operations."""
+    (dinv), or any PC given as `pc` (an SSOR SORPC: the reference's MG
+    default smoother is Chebyshev + SOR local_symmetric, mg.c:220-224).
+    emin and emax are Python numbers, already rounded in the solve's
+    dtype; the recurrence's scalars are computed once, here, in that
+    dtype, in petsctpu's order of operations."""
 
     def __init__(self, dinv: torch.Tensor, emin: float, emax: float,
-                 its: int = 2):
+                 its: int = 2, pc=None):
         self.dinv = dinv
+        self.pc = pc
         self.emin = float(emin)
         self.emax = float(emax)
         self.its = int(its)
@@ -72,12 +77,15 @@ class ChebySmoother:
         # before the max_it-counted loop, so its=k applies k+1
         # corrections in all (cheby.c pre-loop VecAYPX + k updates)
         r = b - A.mult(x)
-        d = self.dinv * r / self.theta
+        d = self._prec(r) / self.theta
         for c_d, c_r in self.steps:
             x = x + d
             r = r - A.mult(d)
-            d = c_d * d + c_r * (self.dinv * r)
+            d = c_d * d + c_r * self._prec(r)
         return x + d
+
+    def _prec(self, r):
+        return self.pc.apply(r) if self.pc is not None else self.dinv * r
 
 
 class MGLevel:
@@ -186,15 +194,57 @@ def _power_lambda_max(A: sp.csr_matrix, dinv: np.ndarray,
     return float(lam)
 
 
+def _arnoldi_lambda_max(matvec, n: int, iters: int = 10) -> float:
+    """Host Arnoldi Ritz estimate of max Re λ(M⁻¹A): the reference's
+    Chebyshev eigenvalue estimate (10 GMRES steps, cheby.c:77) for SSOR
+    smoothers, where power iteration converges slowly."""
+    rng = np.random.default_rng(11)
+    v = rng.standard_normal(n)
+    v /= np.linalg.norm(v)
+    m = min(iters, n)
+    V = np.zeros((m + 1, n))
+    H = np.zeros((m + 1, m))
+    V[0] = v
+    k = m
+    for j in range(m):
+        w = matvec(V[j])
+        h = V[:j + 1] @ w
+        w = w - V[:j + 1].T @ h
+        H[:j + 1, j] = h
+        hj1 = np.linalg.norm(w)
+        H[j + 1, j] = hj1
+        if hj1 == 0:
+            k = j + 1
+            break
+        V[j + 1] = w / hj1
+    lam = float(np.linalg.eigvals(H[:k, :k]).real.max())
+    return lam if lam > 0 else 1.0
+
+
 def _cheby_smoother(Ah: sp.csr_matrix, dtype, its: int,
                     pc_type: str = "jacobi", device=None) -> ChebySmoother:
-    if pc_type != "jacobi":
-        raise NotImplementedError(
-            f"mg_levels_pc_type={pc_type} is not ported yet (SOR/SSOR "
-            "smoothers: ROADMAP queue 1 item 5)")
+    """Chebyshev + Jacobi, or + SSOR (ω = 1, one symmetric sweep) for
+    mg_levels_pc_type sor; any other type takes Jacobi, as in the
+    reference."""
     d = Ah.diagonal()
     d = np.where(d != 0, d, 1.0)
     dinv = (1.0 / d).astype(dtype)
+    if pc_type == "sor":
+        import scipy.sparse.linalg as spla
+
+        from petsctpu_torch.pc.sor import make_sor
+        ssor = make_sor(Ah, omega=1.0, sweeps=1, symmetric=True,
+                        dtype=dtype, device=device)
+        Lm = sp.tril(Ah, k=0).tocsr()
+        Um = sp.triu(Ah, k=0).tocsr()
+
+        def m_inv(r):                  # host SSOR: (D+U)⁻¹ D (D+L)⁻¹
+            y = spla.spsolve_triangular(Lm, r, lower=True)
+            return spla.spsolve_triangular(Um, d * y, lower=False)
+
+        lam = _arnoldi_lambda_max(lambda v: m_inv(Ah @ v), Ah.shape[0])
+        return ChebySmoother(torch.from_numpy(dinv).to(device),
+                             dtype(0.1 * lam), dtype(1.1 * lam), its, ssor)
     lam = _power_lambda_max(Ah, dinv)
     return ChebySmoother(torch.from_numpy(dinv).to(device),
                          dtype(0.1 * lam), dtype(1.1 * lam), its)

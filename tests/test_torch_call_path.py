@@ -20,6 +20,7 @@ import petsctpu_torch
 from petsctpu_torch.ops import _build
 from petsctpu_torch.ops import gather_forms as h3
 from petsctpu_torch.ops import sell_pass as h1
+from petsctpu_torch.ops import sptrsv as trsv
 from petsctpu_torch.ops import stencil_mult as k1
 from petsctpu_torch.ops import window_spmv as h2
 
@@ -39,9 +40,12 @@ class _OnCard(torch.Tensor):
 
 
 def _card(v):
-    """A CPU tensor as one on "the card"; anything else as it is."""
+    """A CPU tensor as one on "the card" (a tuple's tensors too); anything
+    else as it is."""
     if isinstance(v, torch.Tensor) and v.device.type == "cpu":
         return v.as_subclass(_OnCard)
+    if isinstance(v, tuple):
+        return tuple(_card(t) for t in v)
     return v
 
 
@@ -86,9 +90,29 @@ def _stencil_call():
                 offsets=offs, grid=grid, boundary=("none", "periodic"))
 
 
+def _sptrsv_call(dtype=torch.float64):
+    """Two stacked 3-row lower plans of one level each but row 2's, in
+    level order."""
+    nb, n, K = 2, 3, 2
+    lr = np.array([[[0, 1], [2, 3]]] * nb, dtype=np.int32)
+    cols = np.full((nb, n + 1, K), n, dtype=np.int32)
+    cols[:, 2, 0] = 0
+    vals = np.zeros((nb, n + 1, K))
+    vals[:, 2, 0] = 0.5
+    *order, nlevs = trsv.level_order(lr, cols, vals, np.ones((nb, n)))
+    lstart, lrows, lcols, lvals, ldinv = (torch.from_numpy(a)
+                                          for a in order)
+    return dict(lstart=lstart, lrows=lrows, lcols=lcols,
+                lvals=lvals.to(dtype), ldinv=ldinv.to(dtype),
+                b=torch.ones((nb, n), dtype=dtype),
+                nlevs=torch.from_numpy(nlevs), rmax=2)
+
+
 def _strided(shape, dtype=torch.float32):
     return torch.zeros(shape[:-1] + (2 * shape[-1],), dtype=dtype)[..., ::2]
 
+
+SPTRSV_LEAD = ("lstart", "lrows", "lcols", "lvals", "ldinv", "b")
 
 # kernel: (wrapper, a well-formed call, the wrapper's ops module)
 KERNELS = {
@@ -96,6 +120,7 @@ KERNELS = {
     "gather_forms": (h3.gather_forms, _gather_call, h3),
     "window_spmv": (h2.window_spmv, _window_call, h2),
     "stencil_mult": (k1.stencil_mult, _stencil_call, k1),
+    "sptrsv": (trsv.sptrsv, _sptrsv_call, trsv),
 }
 
 
@@ -106,7 +131,8 @@ def _call(kernel, a):
             "gather_forms": ("form", "x", "idx", "idx2"),
             "window_spmv": ("starts", "q", "r", "vals", "x"),
             "stencil_mult": ("coeffs", "x", "offsets", "grid",
-                             "boundary")}[kernel]
+                             "boundary"),
+            "sptrsv": SPTRSV_LEAD}[kernel]
     args = [a.pop(k, None) for k in lead]
     return wrapper(*args, **a)
 
@@ -181,6 +207,29 @@ MALFORMED = [
      lambda: {"offsets": ((0, 0), (1,), (0, -1))}, ValueError),
     ("stencil_mult", "unknown boundary",
      lambda: {"boundary": ("none", "wrap")}, ValueError),
+    ("sptrsv", "device mix",
+     lambda: {"lcols": torch.zeros((2, 3, 1), dtype=torch.int32,
+                                   device="meta")}, ValueError),
+    ("sptrsv", "non-contiguous",
+     lambda: {"ldinv": _strided((2, 3), torch.float64)}, ValueError),
+    ("sptrsv", "wrong dtype",
+     lambda: {"lvals": torch.zeros((2, 3, 1), dtype=torch.float32)},
+     ValueError),
+    ("sptrsv", "wrong index dtype",
+     lambda: {"lcols": torch.zeros((2, 3, 1), dtype=torch.int64)},
+     ValueError),
+    ("sptrsv", "half precision",
+     lambda: _sptrsv_call(torch.float16), ValueError),
+    ("sptrsv", "wrong shape",
+     lambda: {"nlevs": torch.ones(3, dtype=torch.int32)}, ValueError),
+    ("sptrsv", "unstacked plan",
+     lambda: {"lvals": torch.zeros((3, 1), dtype=torch.float64)},
+     ValueError),
+    ("sptrsv", "not a tensor", lambda: {"nlevs": [2, 2]}, TypeError),
+    ("sptrsv", "level starts of another plan",
+     lambda: {"lstart": torch.zeros((1, 3), dtype=torch.int32)},
+     ValueError),
+    ("sptrsv", "rmax below one", lambda: {"rmax": 0}, ValueError),
 ]
 
 
@@ -226,7 +275,7 @@ def test_no_wrapper_opens_a_device_context_or_builds_a_stream_object():
 
 @pytest.mark.parametrize("module", ["gather_forms", "sell_pass",
                                     "window_spmv", "stencil_mult",
-                                    "sell_spmv", "sell_spmvT"])
+                                    "sell_spmv", "sell_spmvT", "sptrsv"])
 def test_every_wrapper_launches_through_build_launch(module):
     """Each wrapper calls its kernel only through _build.launch, counts
     through _build.counted, and catches nothing around a build or a
@@ -273,21 +322,23 @@ def _launch_case(kernel):
         args, kw = _k2_call() if kernel == "sell_spmv" else _k3_call()
         return mod, args, kw
     mod = {"sell_pass": h1, "gather_forms": h3, "window_spmv": h2,
-           "stencil_mult": k1}[kernel]
+           "stencil_mult": k1, "sptrsv": trsv}[kernel]
     a = {"sell_pass": lambda: _sell_pass_call("crossed"),
          "gather_forms": lambda: _gather_call("chain"),
-         "window_spmv": _window_call, "stencil_mult": _stencil_call}[kernel]()
+         "window_spmv": _window_call, "stencil_mult": _stencil_call,
+         "sptrsv": _sptrsv_call}[kernel]()
     lead = {"sell_pass": ("vals", "idx", "xp", "ws", "cstart", "nch"),
             "gather_forms": ("form", "x", "idx", "idx2"),
             "window_spmv": ("starts", "q", "r", "vals", "x"),
             "stencil_mult": ("coeffs", "x", "offsets", "grid",
-                             "boundary")}[kernel]
+                             "boundary"),
+            "sptrsv": SPTRSV_LEAD}[kernel]
     return mod, [a.pop(k) for k in lead], a
 
 
 @pytest.mark.parametrize("kernel", ["sell_pass", "gather_forms",
                                     "window_spmv", "stencil_mult",
-                                    "sell_spmv", "sell_spmvT"])
+                                    "sell_spmv", "sell_spmvT", "sptrsv"])
 def test_cuda_path_arguments_convert_to_the_entry_points_types(kernel,
                                                                monkeypatch):
     """The wrapper's CUDA path, run on tensors that report the card: the
@@ -396,3 +447,56 @@ def test_crossed_mode_takes_indices_mod_128(G, idx_dtype):
     ref = _crossed_emulation(a)
     err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
     assert err <= 1e-5, err
+
+
+def test_sptrsv_launch_shapes_and_the_barrier_counter(monkeypatch):
+    """A level of at most BLOCK_ROWS rows takes the block shape; wider,
+    stacked plans take clusters and a single plan the grid, which alone
+    gets a barrier counter."""
+    import ctypes
+
+    got = []
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *trsv.ARGTYPES)
+    entry = proto(lambda *a: got.append(a) or 0)
+    monkeypatch.setattr(trsv, "_launcher", lambda: entry)
+    monkeypatch.setattr(_build, "launch", lambda fn, index, a: fn(*a, None))
+    monkeypatch.setattr(_build, "counted",
+                        lambda w: setattr(w, "launches", w.launches + 1))
+    assert [trsv.launch_shape(nb, r) for nb, r in (
+        (1, 1024), (8, 1024), (8, 1025), (1, 1025))] == \
+        ["block", "block", "cluster", "grid"]
+    monkeypatch.setattr(trsv, "BLOCK_ROWS", 1)
+    for nb in (1, 2):
+        a = {k: v if k == "rmax" else v[:nb]
+             for k, v in _sptrsv_call().items()}
+        lead = [_card(a.pop(k)) for k in SPTRSV_LEAD]
+        trsv.sptrsv(*lead, nlevs=_card(a["nlevs"]), rmax=a["rmax"])
+    one, two = got
+    # bar (argument 8) and the shape (the last before the stream)
+    assert one[8] is not None and one[-2] == trsv.SHAPES["grid"]
+    assert two[8] is None and two[-2] == trsv.SHAPES["cluster"]
+
+
+def test_sptrsv_plain_matches_a_row_loop():
+    """The plain version against x solved row by row in level order,
+    each row's slots folded left to right: the same bits."""
+    import scipy.sparse as sp
+
+    from petsctpu_torch.mat.factor import make_sptrsv_plan
+
+    rng = np.random.default_rng(11)
+    n = 60
+    T = sp.random(n, n, density=0.08, random_state=rng, format="csr")
+    T = (sp.tril(T, -1) + sp.diags(rng.uniform(1, 2, n))).tocsr()
+    b = rng.standard_normal(n)
+    plan = make_sptrsv_plan(T, True, False, device="cpu")
+    x = plan.solve(torch.from_numpy(b)).numpy()
+    ref = np.zeros(n)
+    cols, vals, dinv = plan.cols, plan.vals, plan.dinv
+    for rows in plan.level_rows:
+        for r in rows[rows < n]:
+            acc = 0.0
+            for c, v in zip(cols[r], vals[r]):
+                acc = acc + v * (ref[c] if c < n else 0.0)
+            ref[r] = (b[r] - acc) * dinv[r]
+    np.testing.assert_array_equal(x, ref)

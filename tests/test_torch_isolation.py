@@ -32,7 +32,9 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
     assert "petsctpu_torch.ops.sell_spmvT" in mods
     for m in ("ops.sell_pass", "ops.window_spmv", "ops.gather_forms",
               "probes", "probes.common", "probes.gather", "probes.sell",
-              "probes.__main__", "timing"):
+              "probes.__main__", "timing", "ops.sptrsv", "mat.host_factor",
+              "mat.factor", "mat.order", "mat.coloring", "mat.base",
+              "pc.factor", "pc.asm", "pc.sor"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (

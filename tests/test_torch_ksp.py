@@ -208,11 +208,19 @@ def test_fp32_sell_unrefined_gmres_tracks_fp64():
 
 
 def test_default_pc_with_host_matrix_is_ilu_and_not_ported():
+    """The default PC with a host matrix is ILU(0), ported in slice 5:
+    the solve builds an ILUPC and matches petsctpu's default."""
     A, b, _ = ex2_system(4, 4)
     ksp = tksp.KSP(Options({"ksp_type": "cg"}))
     ksp.set_operators(aij_from_scipy(A, device=CPU), A_host=A)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ksp.solve(torch.from_numpy(b))
+    res = ksp.solve(torch.from_numpy(b))
+    assert type(ksp.pc).__name__ == "ILUPC"
+    jksp = JKSP(JOptions({"ksp_type": "cg"}))
+    jksp.set_operators(jaij_from_scipy(A), A)
+    jres = jksp.solve(jnp.asarray(b))
+    assert (int(res.its), int(res.reason)) == (int(jres.its),
+                                               int(jres.reason))
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(jres.x), atol=1e-10)
 
 
 @pytest.mark.parametrize("ksp_type", ["bcgs", "minres", "agmres"])

@@ -505,5 +505,5 @@ def test_rcm_fast_and_bandwidth_match_jax():
     np.testing.assert_array_equal(np.sort(perm), np.arange(A.shape[0]))
     Ap = A[perm][:, perm]
     assert bandwidth(Ap) == jbandwidth(Ap) <= bandwidth(A)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        get_ordering(A, "nd")
+    with pytest.raises(ValueError, match="unknown ordering"):
+        get_ordering(A, "amd")
