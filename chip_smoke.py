@@ -143,6 +143,34 @@ launch counts reset just before phase 14 and read after its last solve:
    on the chain, in the shape it takes (block-smem) or in the block
    shape with x in global memory.
 
+Slice 6 runs right after slice 5, on the same 128³ SELL operator:
+18. its path, KSP ex45 with -ksp_type bcgs -pc_type bjacobi
+   -pc_bjacobi_blocks 8 -sub_pc_type ilu (fp32), rtol 1e-5: converged,
+   true residual ≤ 1e-4, and, counted from just before the solve to just
+   after it, exactly 2 K2 launches an iteration, 2·its + 1 sptrsv_lu
+   launches (one a PC apply, the first on b) and its + 1 copies to the
+   host (the initial norm, then one an iteration); ms per iteration
+   first and repeated, the repeat profiled (device busy, idle share,
+   SpTRSV's and K2's shares), setup seconds. These K2 and sptrsv_lu
+   launches join the kernels line's counts;
+19. every slice-6 type at 16³ in fp64 on AIJ, on the card against the
+   port's CPU path (SLICE6_SMALL: ex45, a nonsymmetric ex45 and a well
+   conditioned one, with Jacobi or ILU(0), rtol 1e-6), then SpecEstPC
+   with fgmres (the host-driven fgmres_host), CG with a null space on
+   the Neumann Laplacian, a Fischer-guess sequence and complex128
+   BiCGStab: equal its and reason, histories within 1e-10 relative
+   (the Fischer sequence 1e-7: its guess solves nearly dependent normal
+   equations);
+20. at 128³ on the SELL operator: Chebyshev + Jacobi with the default
+   power-iteration bounds (petsctpu's 12 steps underestimate λmax, so
+   it may diverge: its and reason printed) and with the 10-step Arnoldi
+   bounds for 300 iterations (the residual must fall), ms per
+   iteration; DGMRES(30) + Jacobi for three cycles, ms per cycle, its
+   basis on the card (the peak of device memory above the start holds
+   V); solve_ir with fp64 AIJ residuals and CG + bjacobi(8) ILU fp32
+   inner solves on SELL to rtol 1e-10: the fp64 true residual ≤ 1e-10,
+   sweeps and inner its printed.
+
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
 """
@@ -150,6 +178,7 @@ It ends with the nvidia-smi line, a JSON line of kernels and, last,
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -165,10 +194,18 @@ from petsctpu_torch.convert import sell_from_arrays
 from petsctpu_torch.core.logging import log_begin, log_events
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.dm import DA
-from petsctpu_torch.ksp import KSP
+from petsctpu_torch.ksp import KSP, ksp_solve
+from petsctpu_torch.ksp import bcgs as ksp_bcgs
+from petsctpu_torch.ksp import common as ksp_common
+from petsctpu_torch.ksp.cheby import (estimate_extreme_singular_arnoldi,
+                                      estimate_lambda_max)
+from petsctpu_torch.ksp.common import KSPConfig
+from petsctpu_torch.ksp.mixed import solve_ir
+from petsctpu_torch.ksp.specest import SpecEstPC
 from petsctpu_torch.mat import (StencilMat, aij_from_scipy, mat_from_options,
                                 stencil_from_scipy, stencil_to_scipy)
 from petsctpu_torch.mat import stencil as stencil_module
+from petsctpu_torch.mat.nullspace import make_nullspace
 from petsctpu_torch.mat.factor import (SpTRSVPlan, ilu0, lu_solve,
                                        make_sptrsv_plan, stacked_sptrsv_plan)
 from petsctpu_torch.mat.sell import sell_from_scipy, sell_pack, sell_to_scipy
@@ -185,6 +222,7 @@ from petsctpu_torch.ops.sptrsv import (device_shape, sptrsv, sptrsv_lu,
                                        sptrsv_lu_plain, sptrsv_plain)
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 from petsctpu_torch.ops.window_spmv import window_spmv, window_spmv_plain
+from petsctpu_torch.pc.simple import make_jacobi
 from petsctpu_torch.pc.sor import make_sor
 from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
                                    HBM_BYTES_PER_S, graph_ms, time_ms)
@@ -242,6 +280,38 @@ ONCE_OPTS = {"icc": {"ksp_type": "cg", "pc_type": "icc", "ksp_rtol": "1e-5",
                      "ksp_max_it": "2000"},
              "sor": {"ksp_type": "cg", "pc_type": "sor", "ksp_rtol": "1e-5",
                      "ksp_max_it": "2000"}}
+# slice 6: BiCGStab with slice 5's PC at its size, and three runs beside it
+SLICE6_OPTS = {"ksp_type": "bcgs", "pc_type": "bjacobi",
+               "pc_bjacobi_blocks": "8", "sub_pc_type": "ilu",
+               "ksp_rtol": "1e-5", "ksp_max_it": "2000"}
+SLICE6_ITS = 61            # BiCGStab + bjacobi(8) ILU(0)'s its at 128³
+CHEBY_ITS = 300
+DGMRES_OPTS = {"ksp_type": "dgmres", "pc_type": "jacobi",
+               "ksp_gmres_restart": "30", "ksp_max_it": "90"}
+# the 16³ fp64 solves of every slice-6 type, card against CPU: each on
+# a system and PC where its stream is not chaotic (on the CPU, the
+# port's solve with its dots summed in another order, left to right,
+# agrees with its own to better than 1e-10; TFQMR + Jacobi and
+# DGMRES(10) + Jacobi on N differ so by 2e-8 and 1.3e-10, and differed
+# on an NVIDIA H100 80GB HBM3, 700.00 W by 3.4e-9 and 2.1e-10): N is
+# ex45 with +0.4 on its superdiagonal entries (nonsymmetric, ex45's
+# pattern), W is N + 2·diag(A) (well conditioned) for LSQR
+ILU = {"pc_type": "ilu"}
+ILU_T = {"pc_type": "ilu", "pc_factor_transpose_solves": "true"}
+JACOBI = {"pc_type": "jacobi"}
+SLICE6_SMALL = {
+    "bcgs": ("N", ILU), "cgs": ("N", ILU), "bicg": ("N", ILU_T),
+    "gcr": ("N", ILU), "bcgsl": ("N", ILU), "lgmres": ("N", ILU),
+    "ibcgs": ("N", ILU), "fbcgs": ("N", ILU), "fbcgsr": ("N", ILU),
+    "lcd": ("N", ILU), "tcqmr": ("N", ILU), "fgmres_host": ("N", ILU),
+    "cgne": ("N", ILU_T), "dgmres": ("N", {**ILU, "ksp_gmres_restart": "6"}),
+    "agmres": ("N", {**ILU, "ksp_gmres_restart": "4"}),
+    "tfqmr": ("N", ILU), "lsqr": ("W", JACOBI),
+    "cr": ("A", JACOBI), "stcg": ("A", JACOBI), "gltr": ("A", JACOBI),
+    "qcg": ("A", JACOBI), "chebyshev": ("A", JACOBI),
+    "specest": ("A", JACOBI), "richardson": ("A", JACOBI),
+    "pipecr": ("A", ILU), "minres": ("A", ILU), "symmlq": ("A", ILU),
+    "nash": ("A", ILU), "preonly": ("A", ILU)}
 # the 16³ fp64 solves held card against CPU
 SMALL_PCS = {"bjacobi(8) ILU": {"pc_type": "bjacobi",
                                 "pc_bjacobi_blocks": "8"},
@@ -1025,9 +1095,10 @@ def setup_split():
             t["MatSolvePlan"] - t["MatSolveLevels"], t["MatSolveSegments"])
 
 
-def profile_solve(ksp, b):
+def profile_solve(ksp, b, label="slice5"):
     """The device's busy and idle shares of a repeat of the solve under
-    torch.profiler, and its top kernels by device time."""
+    torch.profiler, its top kernels by device time, and SpTRSV's and
+    K2's shares of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1045,9 +1116,12 @@ def profile_solve(ksp, b):
     for e in events:
         per[e.name][0] += 1
         per[e.name][1] += e.time_range.end - e.time_range.start
-    print(f"slice5 profiled: wall {1e3 * wall / n:.4f} ms/it; device busy "
+    share = {k: sum(us for name, (_, us) in per.items() if k in name)
+             / max(busy, 1e-9) for k in ("sptrsv", "sell_spmv")}
+    print(f"{label} profiled: wall {1e3 * wall / n:.4f} ms/it; device busy "
           f"{busy / n / 1e3:.4f} ms/it, idle share "
-          f"{1 - busy / (wall * 1e6):.3f}")
+          f"{1 - busy / (wall * 1e6):.3f}; SpTRSV {share['sptrsv']:.3f} "
+          f"and K2 {share['sell_spmv']:.3f} of the busy time")
     for name, (count, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:6]:
         print(f"  {us / n / 1e3:9.5f} ms  {count / n:5.1f}/it  {name[:80]}")
 
@@ -1748,6 +1822,277 @@ def probes_phase():
     return kernels
 
 
+@contextlib.contextmanager
+def counted_host_copies():
+    """Counts the KSP loop's copies to the host (ksp.common.to_host, as
+    the BiCGStab loop and its start call it) while inside."""
+    calls = [0]
+    real = ksp_common.to_host
+
+    def counted(*vals):
+        calls[0] += 1
+        return real(*vals)
+
+    for mod in (ksp_common, ksp_bcgs):
+        mod.to_host = counted
+    try:
+        yield calls
+    finally:
+        for mod in (ksp_common, ksp_bcgs):
+            mod.to_host = real
+
+
+def drive_slice6_path(A, b_np, M):
+    """Slice 6's path at full size: ex45 128³ on phase 4's fp32 SELL
+    operator, KSP with -ksp_type bcgs -pc_type bjacobi -pc_bjacobi_blocks
+    8 -sub_pc_type ilu, rtol 1e-5, K2's and SpTRSV's launches and the
+    loop's host copies counted from just before the solve to just after
+    it; then a repeat of the solve, timed and profiled."""
+    log_begin()
+    ksp = KSP(Options(dict(SLICE6_OPTS))).set_operators(M, A)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    b = torch.from_numpy(b_np.astype(np.float32)).cuda()
+    reset_counts()
+    with counted_host_copies() as copies:
+        res, secs, applies, _, _ = solve_counted(ksp, b)
+    k2, lu, single = sell_spmv.launches, sptrsv_lu.launches, sptrsv.launches
+    its, reason = int(res.its), int(res.reason)
+    relres = true_residual(A, b_np, res)
+    print(f"slice6 path: BiCGStab+bjacobi(8) ILU setup {setup_s:.2f} s; "
+          f"its={its} reason={reason} {secs:.3f} s = "
+          f"{1e3 * secs / its:.4f} ms/it; true rel residual {relres:.3e}; "
+          f"history {float(res.history[0]):.6e} -> "
+          f"{float(res.history[its]):.6e}; {applies} PC applies; K2 "
+          f"launches {k2} ({k2 / its:.2f} an iteration), sptrsv_lu {lu}, "
+          f"sptrsv {single}; host copies {copies[0]} (one for the initial "
+          "norm, then one an iteration)")
+    if reason <= 0 or not relres <= 1e-4:
+        raise AssertionError(f"BiCGStab+bjacobi failed: reason {reason}, "
+                             f"residual {relres}")
+    if GRID == 128 and SLICE6_ITS is not None and its != SLICE6_ITS:
+        raise AssertionError(f"BiCGStab+bjacobi took {its} its, not "
+                             f"{SLICE6_ITS}")
+    if k2 != 2 * its:
+        raise AssertionError(f"K2 launched {k2} times in {its} its, not 2 "
+                             "an iteration")
+    if lu != 2 * its + 1 or applies != lu or single:
+        raise AssertionError(f"sptrsv_lu launched {lu} times (sptrsv "
+                             f"{single}) for {applies} PC applies in {its} "
+                             "its, not 2·its + 1")
+    if copies[0] != its + 1:
+        raise AssertionError(f"{copies[0]} host copies in {its} its")
+    res2, secs2, _, _, _ = solve_counted(ksp, b)
+    if int(res2.its) != its:
+        raise AssertionError("the repeated solve took other its")
+    print(f"slice6 BiCGStab+bjacobi(8) ILU ms per iteration at {GRID}^3: "
+          f"{1e3 * secs / its:.4f} in the path, {1e3 * secs2 / its:.4f} "
+          "repeated")
+    profile_solve(ksp, b, "slice6")
+    return dict(pc=ksp.pc, k2=k2, sptrsv_lu=lu)
+
+
+def slice6_small_systems(g=16):
+    """The 16³ systems of phase 19: ex45 (SPD), N = ex45 with +0.4 on
+    its superdiagonal entries (nonsymmetric, ex45's pattern), W = N +
+    2·diag(ex45) (well conditioned)."""
+    A, _, _ = ex45_system(g, g, g)
+    N = (A + sp.diags(0.4 * (A.diagonal(1) != 0), 1)).tocsr()
+    W = (N + sp.diags(2 * A.diagonal())).tocsr()
+    return {"A": A, "N": N, "W": W}
+
+
+def same_solve(label, card, cpu, rtol=1e-10):
+    """Card against CPU: equal its and reason, the history within rtol
+    (atol rtol·1e-3·‖r0‖ for entries at rounding noise)."""
+    ci, cr = int(card.its), int(card.reason)
+    hi, hr = int(cpu.its), int(cpu.reason)
+    hc, hh = card.history.numpy(), cpu.history.numpy()
+    live = ~np.isnan(hh)
+    diff = float("inf")
+    if (ci, cr) == (hi, hr) and np.array_equal(live, ~np.isnan(hc)):
+        a, c = hc[live], hh[live]        # preonly records no history
+        diff = float(np.max(np.abs(a - c) / (np.abs(c) + 1e-3 * rtol
+                                                * abs(c[0])))) \
+            if live.any() else 0.0
+    xd = float(np.abs(card.x.cpu().numpy() - cpu.x.numpy()).max())
+    print(f"16^3 {label} card vs cpu: its {ci}/{hi} reason {cr}/{hr} "
+          f"history rel diff {diff:.2e} max|x diff| {xd:.2e}")
+    if not diff <= rtol or not np.isfinite(card.x.cpu().numpy()).all():
+        raise AssertionError(f"16^3 {label} on the card disagrees with the "
+                             "CPU")
+    return diff
+
+
+def check_slice6_small_against_cpu(devices=("cuda", "cpu")):
+    """Every type of slice 6 at 16³ in fp64 on AIJ, on the card and on
+    the CPU through the port, rtol 1e-6 (SLICE6_SMALL), then SpecEstPC
+    with fgmres (routed to fgmres_host), CG with a null space on the
+    Neumann Laplacian, a Fischer-guess sequence and complex128
+    BiCGStab: equal its and reason, histories within 1e-10 relative."""
+    systems = slice6_small_systems()
+    worst = 0.0
+    for name, (key, pc_opts) in SLICE6_SMALL.items():
+        M = systems[key]
+        b = M @ np.ones(M.shape[0])
+        out = [KSP(Options({"ksp_type": name, "ksp_rtol": "1e-6",
+                            "ksp_max_it": "600", **pc_opts}))
+               .set_operators(aij_from_scipy(M, device=dev), M)
+               .solve(torch.from_numpy(b).to(dev)) for dev in devices]
+        worst = max(worst, same_solve(f"{name} on {key}", *out))
+    A = systems["A"]
+    b = A @ np.ones(A.shape[0])
+    out = []
+    for dev in devices:
+        T = aij_from_scipy(A, device=dev)
+        # 10 estimation steps: with the default 5, 1.1·σmax falls below
+        # λmax(M⁻¹A) and the cheap Chebyshev amplifies the top modes
+        out.append(ksp_solve(T, torch.from_numpy(b).to(dev),
+                             pc=SpecEstPC(T, make_jacobi(T), est_maxits=10),
+                             ksp_type="fgmres", rtol=1e-6, maxits=200))
+    worst = max(worst, same_solve("SpecEstPC + fgmres_host", *out))
+    n1 = 16
+    d = 2.0 * np.ones(n1)
+    d[0] = d[-1] = 1.0
+    L1 = sp.diags([-np.ones(n1 - 1), d, -np.ones(n1 - 1)], [-1, 0, 1])
+    I1 = sp.eye(n1)
+    L = (sp.kron(sp.kron(L1, I1), I1) + sp.kron(sp.kron(I1, L1), I1)
+         + sp.kron(sp.kron(I1, I1), L1)).tocsr()
+    bn = np.random.default_rng(6).standard_normal(L.shape[0])
+    bn -= bn.mean()
+    out = [ksp_solve(aij_from_scipy(L, device=dev),
+                     torch.from_numpy(bn).to(dev), ksp_type="cg",
+                     rtol=1e-6, maxits=500,
+                     nullspace=make_nullspace(L.shape[0], device=dev))
+           for dev in devices]
+    worst = max(worst, same_solve("CG + null space (Neumann)", *out))
+    xs = np.linspace(0, 1, A.shape[0])
+    ksps = []
+    for dev in devices:
+        ksp = KSP(Options({"ksp_type": "cg", "ksp_rtol": "1e-14",
+                           "ksp_atol": "1e-6", "pc_type": "jacobi"}))
+        ksp.set_operators(aij_from_scipy(A, device=dev), A)
+        ksps.append(ksp.set_use_fischer_guess(model=1, size=4))
+    for k in range(3):
+        bk = np.sin(2 * np.pi * (xs + 0.05 * k)) + 0.5
+        out = [ksp.solve(torch.from_numpy(bk).to(dev))
+               for ksp, dev in zip(ksps, devices)]
+        # the guess solves the normal equations of nearly dependent
+        # stored solutions (regularized at 1e-12)
+        worst = max(worst, same_solve(f"Fischer guess, solve {k}", *out,
+                                      rtol=1e-7))
+    # complex: W phase-rotated + 0.2i·I (on the rotated ex45 itself the
+    # unpreconditioned stream is chaotic: another dot order moves it by
+    # 0.6)
+    rng = np.random.default_rng(7)
+    ph = sp.diags(np.exp(1j * rng.uniform(0, 2 * np.pi, A.shape[0])))
+    C = (ph.getH() @ systems["W"].astype(np.complex128) @ ph
+         + 0.2j * sp.eye(A.shape[0])).tocsr()
+    bc = C @ (rng.standard_normal(C.shape[0])
+              + 1j * rng.standard_normal(C.shape[0]))
+    out = [ksp_solve(aij_from_scipy(C, dtype=np.complex128, device=dev),
+                     torch.from_numpy(bc).to(dev), ksp_type="bcgs",
+                     rtol=1e-6, maxits=500) for dev in devices]
+    worst = max(worst, same_solve("complex128 BiCGStab", *out))
+    print(f"slice6 16^3 card vs cpu: {len(SLICE6_SMALL) + 6} solves, "
+          f"worst history rel diff {worst:.2e}")
+
+
+def slice6_full_width_runs(A, b_np, M, pc):
+    """Three runs beside BiCGStab at 128³: Chebyshev + Jacobi on the
+    SELL operator (the default power-iteration bounds, and bounds from
+    the 10-step Arnoldi estimator for 300 iterations), DGMRES(30) +
+    Jacobi for three cycles with its basis on the card, and
+    mixed-precision refinement (fp64 AIJ residuals, CG + bjacobi(8) ILU
+    fp32 inner solves on the SELL operator) to 1e-10."""
+    b = torch.from_numpy(b_np.astype(np.float32)).cuda()
+    jac = make_jacobi(M)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    lam = float(estimate_lambda_max(M, jac, M.shape[0], torch.float32,
+                                    device=b.device))
+    res, secs = timed(lambda: ksp_solve(M, b, pc=jac, ksp_type="chebyshev",
+                                        maxits=CHEBY_ITS))
+    its = int(res.its)
+    print(f"slice6 chebyshev+jacobi at {GRID}^3, power-iteration bounds "
+          f"(0.1, 1.1)·{lam:.6f}: its={its} reason={int(res.reason)} "
+          f"{1e3 * secs / its:.4f} ms/it; history "
+          f"{float(res.history[0]):.6e} -> {float(res.history[its - 1]):.6e}")
+    if its < 1 or not np.isfinite(res.history[:its].numpy()).all():
+        raise AssertionError("Chebyshev with the power-iteration bounds "
+                             "gave no finite history")
+    (smin, smax), est_s = timed(lambda: estimate_extreme_singular_arnoldi(
+        M, jac, b, 10))
+    res, secs = timed(lambda: ksp_solve(M, b, pc=jac, ksp_type="chebyshev",
+                                        maxits=CHEBY_ITS,
+                                        cheby_emin=0.9 * smin,
+                                        cheby_emax=1.1 * smax))
+    its, hist = int(res.its), res.history.numpy()
+    relres = true_residual(A, b_np, res)
+    print(f"slice6 chebyshev+jacobi at {GRID}^3, Arnoldi bounds "
+          f"0.9·{smin:.6f}, 1.1·{smax:.6f} ({est_s:.3f} s): its={its} "
+          f"reason={int(res.reason)} {1e3 * secs / its:.4f} ms/it; history "
+          f"{hist[0]:.6e} -> {hist[its - 1]:.6e}; true rel residual "
+          f"{relres:.3e}")
+    if not (np.isfinite(hist[:its]).all() and hist[its - 1] < hist[0]):
+        raise AssertionError("Chebyshev with the Arnoldi bounds did not "
+                             "reduce the residual")
+    ksp = KSP(Options(dict(DGMRES_OPTS))).set_operators(M)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, secs = timed(lambda: ksp.solve(b))
+    peak = torch.cuda.max_memory_allocated() - base
+    its, hist = int(res.its), res.history.numpy()
+    cycles = -(-its // 30)
+    ends = hist[~np.isnan(hist)]
+    print(f"slice6 dgmres(30)+jacobi at {GRID}^3: its={its} reason="
+          f"{int(res.reason)} {cycles} cycles, {secs / cycles:.4f} s a cycle;"
+          f" true residual at the cycle ends {np.array2string(ends, precision=6)}"
+          f"; {peak / 2**20:.1f} MiB on the card above the start (V is "
+          f"{31 * M.shape[0] * 4 / 2**20:.1f} MiB)")
+    if GRID == 128 and cycles != 3:
+        raise AssertionError(f"DGMRES ran {cycles} cycles, not 3")
+    if not (np.isfinite(ends).all() and ends[-1] < ends[0]):
+        raise AssertionError("DGMRES did not reduce the residual")
+    if peak < 31 * M.shape[0] * 4:
+        raise AssertionError("DGMRES's basis was not on the card")
+    A64 = aij_from_scipy(A, device=b.device)
+    b64 = torch.from_numpy(b_np).to(b.device)
+    res, secs = timed(lambda: solve_ir(
+        A64, M, b64, pc32=pc, cfg=KSPConfig(rtol=1e-10),
+        inner_cfg=KSPConfig(ksp_type="cg", rtol=1e-5, maxits=2000)))
+    hist = res.history.numpy()
+    sweeps = int(np.count_nonzero(~np.isnan(hist))) - 1
+    relres = true_residual(A, b_np, res)
+    print(f"slice6 solve_ir at {GRID}^3 (fp64 AIJ residuals, CG+bjacobi(8) "
+          f"ILU fp32 inner solves on SELL): reason={int(res.reason)} "
+          f"{sweeps} sweeps, {int(res.its)} inner its, {secs:.3f} s; "
+          f"residual by sweep {np.array2string(hist[:sweeps + 1], precision=6)}"
+          f"; fp64 true rel residual {relres:.3e}")
+    if int(res.reason) <= 0 or not relres <= 1e-10:
+        raise AssertionError(f"solve_ir failed: reason {int(res.reason)}, "
+                             f"residual {relres}")
+
+
+def slice6_phases(A, b_np, M):
+    """Slice 6 on phase 4's 128³ operator: the counted BiCGStab path
+    (phase 18), every type at 16³ card against CPU (phase 19), and the
+    Chebyshev, DGMRES and refinement runs at full width (phase 20).
+    Returns the path's K2 and sptrsv_lu launches."""
+    path = drive_slice6_path(A, b_np, M)
+    check_slice6_small_against_cpu()
+    slice6_full_width_runs(A, b_np, M, path["pc"])
+    return path["k2"], path["sptrsv_lu"]
+
+
 def main():
     name, smi = device_info()
     build_kernels()
@@ -1768,6 +2113,9 @@ def main():
     print(f"CG+jacobi ms per iteration at {GRID}^3: {cg_ms_per_it:.4f} in "
           f"the main path, {warm_cg_ms_per_it(Mp, bp):.4f} repeated")
     trsv, trsv_lu = slice5_phases(A, b, Mp, stream_triad_gbs(), rng)
+    k2_s6, lu_s6 = slice6_phases(A, b, Mp)
+    launches += k2_s6
+    trsv_lu["launches"] += lu_s6
     del A, b, M, xp, Mp, bp, R
     mg = drive_mg_path()
     check_mg_small_against_cpu()

@@ -2,9 +2,8 @@
 
 The reference's KSP interface (src/ksp/ksp/interface/itfunc.c:335
 KSPSolve; registry itcreate.c/itregis.c:69-98; options itcl.c). The
-string→solver registry keeps petsctpu's aliases for the ported types
-(cg, pipecg, groppcg, gmres, pgmres, fgmres); every other type of
-petsctpu raises NotImplementedError (ROADMAP queue 1 item 7).
+string→solver registry holds every type of petsctpu's, with its
+aliases.
 """
 
 from __future__ import annotations
@@ -21,21 +20,63 @@ from petsctpu_torch.core.options import Options
 from petsctpu_torch.ksp.common import KSPConfig, SolveResult
 from petsctpu_torch.ksp.cg import solve_cg, solve_pipecg
 from petsctpu_torch.ksp.gmres import solve_gmres, solve_fgmres
+from petsctpu_torch.ksp.bcgs import solve_bcgs, solve_cgsq, solve_bicg
+from petsctpu_torch.ksp.cheby import (solve_chebyshev, solve_preonly,
+                                      solve_richardson)
+from petsctpu_torch.ksp.minres import solve_minres, solve_lsqr
+from petsctpu_torch.ksp.extra import (solve_cr, solve_tfqmr, solve_cgne,
+                                      solve_fbcgs, solve_fbcgsr)
+from petsctpu_torch.ksp.more import (solve_symmlq, solve_gcr, solve_bcgsl,
+                                     solve_stcg, solve_lgmres)
+from petsctpu_torch.ksp.lcd_tcqmr import solve_lcd, solve_tcqmr
+from petsctpu_torch.ksp.ibcgs import solve_ibcgs
+from petsctpu_torch.ksp.dgmres import solve_dgmres
+from petsctpu_torch.ksp.specest import solve_fgmres_host
+
+# the types that run LAPACK on the host between restart cycles (every
+# solver here is a host loop; these also hand m×m eigenproblems,
+# inverses or full Hessenberg solves to numpy between cycles)
+HOST_DRIVEN = {"dgmres", "agmres", "fgmres_host"}
 
 KSP_REGISTRY = {
+    "dgmres": solve_dgmres,
+    "agmres": solve_dgmres,    # augmented/deflated restart family
+    "lcd": solve_lcd,
+    "tcqmr": solve_tcqmr,
+    "ibcgs": solve_ibcgs,
+    "symmlq": solve_symmlq,
+    "gcr": solve_gcr,
+    "bcgsl": solve_bcgsl,
+    "lgmres": solve_lgmres,
+    "stcg": solve_stcg,
+    "nash": solve_stcg,        # same TR-CG interface; boundary step to sphere
+    "gltr": solve_stcg,
+    "qcg": solve_stcg,
     "pgmres": solve_gmres,     # CGS orth already fuses to ONE reduction/iter
+    "cr": solve_cr,
+    "pipecr": solve_cr,        # fused-reduction CR (same structure)
+    "tfqmr": solve_tfqmr,
+    "cgne": solve_cgne,
+    "fbcgs": solve_fbcgs,
+    "fbcgsr": solve_fbcgsr,
     "cg": solve_cg,
     "pipecg": solve_pipecg,
     "groppcg": solve_pipecg,   # same single-reduction structure
     "gmres": solve_gmres,
     "fgmres": solve_fgmres,
+    "fgmres_host": solve_fgmres_host,
+    "bcgs": solve_bcgs,
+    "cgs": solve_cgsq,
+    "bicg": solve_bicg,
+    "chebyshev": solve_chebyshev,
+    "specest": solve_chebyshev,  # one-shot functional view (auto bounds);
+                                 # the stateful two-phase KSPSPECEST is
+                                 # ksp/specest.SpecEstPC (+ fgmres_host)
+    "richardson": solve_richardson,
+    "preonly": solve_preonly,
+    "minres": solve_minres,
+    "lsqr": solve_lsqr,
 }
-
-_LATER = ("dgmres", "agmres", "lcd", "tcqmr", "ibcgs", "symmlq", "gcr",
-          "bcgsl", "lgmres", "stcg", "nash", "gltr", "qcg", "cr", "pipecr",
-          "tfqmr", "cgne", "fbcgs", "fbcgsr", "fgmres_host", "bcgs", "cgs",
-          "bicg", "chebyshev", "specest", "richardson", "preonly", "minres",
-          "lsqr")
 
 
 def register_ksp(name: str, fn) -> None:
@@ -46,9 +87,6 @@ def register_ksp(name: str, fn) -> None:
 def _solver(ksp_type: str):
     if ksp_type in KSP_REGISTRY:
         return KSP_REGISTRY[ksp_type]
-    if ksp_type in _LATER:
-        raise NotImplementedError(
-            f"ksp_type={ksp_type} is not ported yet (ROADMAP queue 1 item 7)")
     raise ValueError(f"unknown ksp_type {ksp_type!r}")
 
 
@@ -105,14 +143,24 @@ def config_from_options(opts: Options, defaults: KSPConfig = None) -> KSPConfig:
 def ksp_solve(A, b, x0=None, pc=None, axis: Optional[str] = None,
               cfg: KSPConfig = None, nullspace=None, **kw) -> SolveResult:
     """Solve A x = b on the device of b. kw overrides KSPConfig fields
-    (e.g. ksp_type="cg")."""
+    (e.g. ksp_type="cg").
+
+    nullspace: optional NullSpace of a singular-but-consistent A
+    (MatSetNullSpace + KSP_RemoveNullSpace analog): projected out of
+    b, out of every preconditioned residual, and out of x0."""
     cfg = replace(cfg or KSPConfig(), **kw) if (kw or cfg is None) else cfg
-    if nullspace is not None:
-        raise NotImplementedError(
-            "nullspace projection is not ported yet (ROADMAP queue 1 item 9)")
+    # a host-stateful PC (SpecEstPC) needs the host-driven flexible outer
+    if getattr(pc, "host_stateful", False) and cfg.ksp_type == "fgmres":
+        cfg = replace(cfg, ksp_type="fgmres_host")
     solve = _solver(cfg.ksp_type)
     if x0 is None:
         x0 = torch.zeros_like(b)
+    if nullspace is not None:
+        from petsctpu_torch.mat.nullspace import _NullSpacePC
+        from petsctpu_torch.pc.simple import NonePC
+        b = nullspace.remove(b)
+        x0 = nullspace.remove(x0)
+        pc = _NullSpacePC(pc if pc is not None else NonePC(), nullspace)
     with log_event(f"KSPSolve[{cfg.ksp_type}]"):
         res = solve(A, b, x0, pc, cfg, axis)
     _log_solve_flops(A, b, cfg, res)
@@ -145,6 +193,8 @@ class KSP:
         self.A_host = None
         self.pc = None
         self.axis = None
+        self.guess = None            # KSPFischerGuess state
+        self.nullspace = None        # MatNullSpace of the operator
         self._setup = False
 
     def set_operators(self, A, A_host=None):
@@ -178,14 +228,34 @@ class KSP:
         self._setup = True
         return self
 
+    def set_use_fischer_guess(self, model: int = 1, size: int = 10):
+        """KSPSetUseFischerGuess analog (itfunc.c:371 lifecycle: form
+        before each solve, update after)."""
+        from petsctpu_torch.ksp.guess import make_fischer_guess
+        self.guess = make_fischer_guess(self.A.shape[0], size=size,
+                                        model=model, dtype=self.A.dtype,
+                                        device=self.A.device)
+        return self
+
+    def set_nullspace(self, nullspace):
+        """MatSetNullSpace analog: projected during every solve."""
+        self.nullspace = nullspace
+        return self
+
     def solve(self, b, x0=None) -> SolveResult:
         self.set_from_options()
         self.setup()
         if self.opts.get_bool("ksp_monitor_draw", False):
             raise NotImplementedError("-ksp_monitor_draw is not ported yet "
                                       "(ROADMAP queue 1 item 15)")
+        if x0 is None and self.guess is not None:
+            x0 = self.guess.form(b)
+            if self.cfg.ksp_type not in ("preonly",):
+                self.cfg = replace(self.cfg, guess_nonzero=True)
         res = ksp_solve(self.A, b, x0=x0, pc=self.pc, axis=self.axis,
-                        cfg=self.cfg)
+                        cfg=self.cfg, nullspace=self.nullspace)
+        if self.guess is not None:
+            self.guess = self.guess.update(res.x, self.A.mult(res.x))
         if self.opts.get_bool("ksp_view", False):
             print(self.view())
         if self.opts.get_bool("help", False):

@@ -77,6 +77,7 @@ def solve_cg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         dp_t = _norm(nt, r, z, rz_new)
         beta = rz_new / rz
         dp, pw_h, beta_h = to_host(dp_t, pw, beta)
+        dp = dp.real                # one copy: a complex solve's is complex
         its += 1
         history[its] = dp
         monitor(cfg, its, dp)

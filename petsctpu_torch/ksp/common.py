@@ -139,11 +139,70 @@ def init_history(cfg: KSPConfig, dtype) -> np.ndarray:
     return np.full((cfg.maxits + 1,), np.nan, dtype=real_dtype(dtype))
 
 
-def make_result(x, its: int, reason: int, history: np.ndarray) -> SolveResult:
+def make_result(x, its: int, reason: int, history: np.ndarray,
+                rnorm=None) -> SolveResult:
+    """The solve's result; rnorm defaults to history[its]."""
     hist = torch.from_numpy(history)
+    rnorm = hist[its] if rnorm is None else torch.as_tensor(rnorm)
     return SolveResult(x, torch.tensor(its, dtype=torch.int32),
                        torch.tensor(int(reason), dtype=torch.int32),
-                       hist[its], hist)
+                       rnorm, hist)
+
+
+def record(history: np.ndarray, its: int, rnorm) -> None:
+    """history[its] = rnorm (norms are real: a complex solve's norm
+    carries a zero imaginary part in some recurrences)."""
+    history[its] = np.real(rnorm)
+
+
+def start(cfg: KSPConfig, dp: torch.Tensor, flag=None,
+          fail=ConvergedReason.DIVERGED_BREAKDOWN):
+    """The iteration-0 bookkeeping of a solve whose rnorm0 is its first
+    norm, in one copy to the host: (history, dp on the host, reason); a
+    device flag, if given, turns a still-iterating solve into `fail`."""
+    vals = to_host(dp) if flag is None else to_host(dp, flag)
+    dp = vals[0]
+    history = init_history(cfg, dp.dtype)
+    record(history, 0, dp)
+    monitor(cfg, 0, dp)
+    reason = check_convergence(dp, dp, 0, cfg)
+    if reason == ConvergedReason.ITERATING and flag is not None and vals[1]:
+        reason = fail
+    return history, dp, reason
+
+
+def advance(cfg: KSPConfig, history: np.ndarray, its: int, dp, rnorm0,
+            breakdown: bool = False, fail=ConvergedReason.DIVERGED_BREAKDOWN):
+    """Record and monitor iteration `its`'s norm, then the convergence
+    test; a breakdown flag (host) turns a still-iterating solve into
+    `fail`, as the reference's `where((reason == 0) & flag, ...)`."""
+    record(history, its, dp)
+    monitor(cfg, its, dp)
+    reason = check_convergence(dp, rnorm0, its, cfg)
+    if reason == ConvergedReason.ITERATING and breakdown:
+        return fail
+    return reason
+
+
+def preconditioned_residual(A, b, x, pc, cfg: KSPConfig):
+    """M⁻¹(b − A x), or M⁻¹b for a zero guess (the left-preconditioned
+    types' first residual)."""
+    return apply_pc(pc, b - A.mult(x) if cfg.guess_nonzero else b)
+
+
+def initial_guess(b, x0, cfg: KSPConfig):
+    """x0 with -ksp_initial_guess_nonzero, else zeros like b."""
+    return x0 if cfg.guess_nonzero else torch.zeros_like(b)
+
+
+def nonzero_or_one(t: torch.Tensor) -> torch.Tensor:
+    """t where t != 0, else 1 (the reference's guarded divisor)."""
+    return torch.where(t != 0, t, torch.ones_like(t))
+
+
+def positive_or_one(t: torch.Tensor) -> torch.Tensor:
+    """t where t > 0, else 1."""
+    return torch.where(t > 0, t, torch.ones_like(t))
 
 
 def rnorm0_reference(cfg, b, pc, nt, axis, r0norm):

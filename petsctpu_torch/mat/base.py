@@ -1,7 +1,7 @@
 """Matrix wrappers (the part of petsctpu/mat/base.py on the solve path).
 
-Ported: `Transpose` (MATTRANSPOSE, used by ksp_solve_transpose) and the
-host helper `csr_submatrix_keep_zeros` (the bjacobi/ASM subdomain
+Ported: `Transpose` (MATTRANSPOSE, used by ksp_solve_transpose),
+`Normal` (MATNORMAL, CGNE's operator) and the host helper `csr_submatrix_keep_zeros` (the bjacobi/ASM subdomain
 matrices); the other wrappers are ROADMAP queue 1 item 3.
 """
 
@@ -34,6 +34,31 @@ class Transpose:
 
     def multT(self, x):
         return self.A.mult(x)
+
+
+class Normal:
+    """Implicit AᵀA (MATNORMAL, src/mat/impls/normal)."""
+
+    def __init__(self, A):
+        self.A = A
+
+    @property
+    def shape(self):
+        n = self.A.shape[1]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.A.dtype
+
+    @property
+    def device(self):
+        return self.A.device
+
+    def mult(self, x):
+        return self.A.multT(self.A.mult(x))
+
+    multT = mult
 
 
 def csr_submatrix_keep_zeros(A, rows, cols) -> sp.csr_matrix:

@@ -34,7 +34,10 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "probes", "probes.common", "probes.gather", "probes.sell",
               "probes.__main__", "timing", "ops.sptrsv", "mat.host_factor",
               "mat.factor", "mat.order", "mat.coloring", "mat.base",
-              "pc.factor", "pc.asm", "pc.sor"):
+              "pc.factor", "pc.asm", "pc.sor", "ksp.bcgs", "ksp.cheby",
+              "ksp.minres", "ksp.extra", "ksp.more", "ksp.lcd_tcqmr",
+              "ksp.ibcgs", "ksp.dgmres", "ksp.specest", "ksp.guess",
+              "ksp.mixed", "mat.nullspace"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
@@ -74,6 +77,8 @@ def _entry_points():
     from petsctpu_torch.mat import (aij_from_scipy, mat_from_options,
                                     stencil_from_scipy)
     from petsctpu_torch.mat.sell import sell_from_scipy
+    from petsctpu_torch.ksp.guess import make_fischer_guess
+    from petsctpu_torch.mat.nullspace import make_nullspace
     from petsctpu_torch.probes.__main__ import main as probes_main
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
@@ -85,6 +90,9 @@ def _entry_points():
         "DA.create_matrix": lambda **kw: DA((40, 40)).create_matrix(**kw),
         "stencil_from_scipy": lambda **kw: stencil_from_scipy(
             A, (40, 40), **kw),
+        "make_nullspace": lambda **kw: make_nullspace(
+            10, vecs=[np.arange(10.0)], **kw).vecs,
+        "make_fischer_guess": lambda **kw: make_fischer_guess(10, **kw).X,
         "probes.__main__": lambda **kw: probes_main(
             ["probe_gather6_C", *(("--device", kw["device"]) if kw
                                   else ())])[0]["out"],
@@ -93,7 +101,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["aij_from_scipy", "mat_from_options",
                                   "sell_from_scipy", "DA.create_matrix",
-                                  "stencil_from_scipy", "probes.__main__"])
+                                  "stencil_from_scipy", "probes.__main__",
+                                  "make_nullspace", "make_fischer_guess"])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

@@ -225,10 +225,17 @@ def test_default_pc_with_host_matrix_is_ilu_and_not_ported():
 
 @pytest.mark.parametrize("ksp_type", ["bcgs", "minres", "agmres"])
 def test_unported_ksp_types_raise(ksp_type):
+    """These types raised NotImplementedError until slice 6 ported them
+    (ROADMAP queue 1 item 7): each now solves, and a name outside the
+    registry raises ValueError."""
     A, b, _ = ex2_system(4, 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tksp.ksp_solve(aij_from_scipy(A, device=CPU), torch.from_numpy(b),
-                       ksp_type=ksp_type)
+    Ad = aij_from_scipy(A, device=CPU)
+    r = tksp.ksp_solve(Ad, torch.from_numpy(b), ksp_type=ksp_type,
+                       rtol=1e-8)
+    assert int(r.reason) > 0
+    np.testing.assert_allclose(A @ r.x.numpy(), b, atol=1e-6)
+    with pytest.raises(ValueError, match="unknown ksp_type"):
+        tksp.ksp_solve(Ad, torch.from_numpy(b), ksp_type=ksp_type + "_x")
 
 
 def test_options_mapping_to_fgmres():
