@@ -171,6 +171,51 @@ Slice 6 runs right after slice 5, on the same 128³ SELL operator:
    inner solves on SELL to rtol 1e-10: the fp64 true residual ≤ 1e-10,
    sweeps and inner its printed.
 
+Slice 7 runs after phase 12, on ksp ex55 (2-D Q1 elasticity, 2 dofs a
+node, a soft inclusion, fp32 SELL in natural order):
+21. its path at ne = 1023 (1024² nodes, n = 2,097,152): -ksp_type cg
+   -pc_type gamg -pc_gamg_dof 2 -pc_gamg_coordinates (rigid-body modes)
+   -pc_gamg_coarse_eq_limit 80, rtol 1e-5, with the launch counts reset
+   just before the operator is built and read after the solve: the
+   setup seconds split into hierarchy, level operators and transfers
+   (host packing and transfer, K3's plans), Chebyshev bounds and the
+   coarse LU; each level's size and formats; its, reason, ms per
+   iteration first and repeated, the idle share of a profiled repeat,
+   K2, K3 and SpTRSV launches in the solve and the true relative
+   residual (printed, not gated: CG stops on the preconditioned norm,
+   which the soft inclusion makes a poor guide to the true residual).
+   It fails unless reason > 0, x is finite and K3 is launched once for
+   each P.multT call, at least once an iteration on every level that
+   restricts through it. K2 on the fine operator and K3 on each of
+   those prolongators are then held bit for bit against their plain
+   versions and timed (as phases 5 and 12 do). The blocked route
+   (-pc_gamg_dof 2 alone) runs once at the same size;
+22. both routes at ne = 63 on the card against the port's CPU path,
+   equal its and reason: fp32 on SELL for b and four one-ulp changes of
+   b with histories within 5e-4, and fp64 on AIJ within 1e-8. The CPU
+   first measures the fp32 history's own rounding noise: a one-ulp
+   change of b moves its NC history by up to 3.95e-4 over 40 such b
+   (RBM 1.90e-4), so no fp32 run of another rounding meets 1e-4;
+23. the device refresh: gamg_probe_plan from asa_tentatives' P0s on the
+   ne = 1023 system, refreshed on the card with D·A·D (d =
+   exp(0.2·N(0,1))), its K2 launches (12 power steps + ncp + ncc a SELL
+   level) and host reads (one) counted, one refresh timed, each level's
+   P and PᵀAP held against scipy's, in fp64 from that level's refreshed
+   operator and frozen P0 (relative 1e-4; PᵀAP on the pattern the
+   refresh keeps, the mass outside it printed), and CG on D·A·D
+   preconditioned by it (its true residual printed, not gated). Before
+   it, the case that tests/test_torch_gamg_device.py holds against
+   petsctpu, D·A·D at ne = 31: the card's CG takes the CPU's its and
+   its true residual stays within 1.1e-3 (petsctpu 0.9386e-3); then the
+   same case on the card at ne = 63, 127 and 255, printing how fp32
+   CG's true residual grows with ne; then
+   gamg_device_plan (the SpGEMM plans) on ex45 at 64³ the same way;
+24. -pc_type asa on ex55 at ne = 255: to convergence on the card (fp32
+   SELL), and 40 iterations in fp64 on AIJ on the card against the CPU
+   (equal its and reason, histories within 1e-10).
+`python3 chip_smoke.py slice7` runs the build and phases 21-24 alone
+(its last line lists their launches, not the contract's result line).
+
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
 """
@@ -202,14 +247,17 @@ from petsctpu_torch.ksp.cheby import (estimate_extreme_singular_arnoldi,
 from petsctpu_torch.ksp.common import KSPConfig
 from petsctpu_torch.ksp.mixed import solve_ir
 from petsctpu_torch.ksp.specest import SpecEstPC
-from petsctpu_torch.mat import (StencilMat, aij_from_scipy, mat_from_options,
-                                stencil_from_scipy, stencil_to_scipy)
+from petsctpu_torch.mat import (StencilMat, aij_from_scipy, aij_to_scipy,
+                                mat_from_options, stencil_from_scipy,
+                                stencil_to_scipy)
 from petsctpu_torch.mat import stencil as stencil_module
 from petsctpu_torch.mat.nullspace import make_nullspace
 from petsctpu_torch.mat.factor import (SpTRSVPlan, ilu0, lu_solve,
                                        make_sptrsv_plan, stacked_sptrsv_plan)
-from petsctpu_torch.mat.sell import sell_from_scipy, sell_pack, sell_to_scipy
+from petsctpu_torch.mat.sell import (SellMat, sell_from_scipy, sell_pack,
+                                     sell_to_scipy)
 from petsctpu_torch.models import ex45_system, laplacian_2d
+from petsctpu_torch.models.elasticity import ex55_system
 from petsctpu_torch.ops import _build
 from petsctpu_torch.ops.gather_forms import gather_forms
 from petsctpu_torch.ops.sell_pass import sell_pass, sell_pass_plain
@@ -222,6 +270,11 @@ from petsctpu_torch.ops.sptrsv import (device_shape, sptrsv, sptrsv_lu,
                                        sptrsv_lu_plain, sptrsv_plain)
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 from petsctpu_torch.ops.window_spmv import window_spmv, window_spmv_plain
+from petsctpu_torch.pc.asa import asa_tentatives
+from petsctpu_torch.pc.gamg import rigid_body_modes
+from petsctpu_torch.pc.gamg_device import (GAMGProbeLevelPlan, PPair,
+                                           csr_data_of_matching,
+                                           gamg_device_plan, gamg_probe_plan)
 from petsctpu_torch.pc.simple import make_jacobi
 from petsctpu_torch.pc.sor import make_sor
 from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
@@ -313,6 +366,23 @@ SLICE6_SMALL = {
     "pipecr": ("A", ILU), "minres": ("A", ILU), "symmlq": ("A", ILU),
     "nash": ("A", ILU), "preonly": ("A", ILU)}
 # the 16³ fp64 solves held card against CPU
+# slice 7: ksp ex55 (2-D Q1 elasticity) CG + GAMG at 1024² nodes
+EX55_NE = 1023             # n = 2,097,152 dofs
+EX55_SMALL_NE = 63         # card against CPU: n = 8,192
+REFRESH_NE = 1023          # the probe refresh's ex55 system
+DEVICE_PLAN_GRID = 64      # the SpGEMM refresh on ex45 at 64³
+ASA_NE = 255               # -pc_type asa, card against CPU: n = 131,072
+SLICE7_OPTS = {"ksp_type": "cg", "pc_type": "gamg", "pc_gamg_dof": "2",
+               "pc_gamg_coarse_eq_limit": "80", "ksp_rtol": "1e-5",
+               "ksp_max_it": "500"}
+ASA_OPTS = {"ksp_type": "cg", "pc_type": "asa", "ksp_rtol": "1e-5",
+            "ksp_max_it": "500"}
+ASA_CHECK_ITS = 40         # its of the fp64 card-against-CPU ASA solve
+EX55_SMALL_FP32_RTOL = 5e-4  # ne = 63 fp32 histories, card against CPU
+ULP_SEEDS = 40             # one-ulp changes of b the CPU's noise is read over
+REFRESH_SMALL_NE = 31      # D·A·D refresh held against petsctpu's in tests
+REFRESH_SMALL_TRUE_MAX = 1.1e-3  # its fp32 true relative residual bound
+REFRESH_TREND_NES = (63, 127, 255)  # the same case on the card, printed
 SMALL_PCS = {"bjacobi(8) ILU": {"pc_type": "bjacobi",
                                 "pc_bjacobi_blocks": "8"},
              "ASM(4, overlap 1)": {"pc_type": "asm", "pc_asm_blocks": "4",
@@ -350,6 +420,12 @@ def check_kernel(A, G, mode, dev, rng):
     """K2 against its plain version (bit for bit) and against scipy."""
     arrays, statics = sell_pack(A, G=G, mode=mode)
     M = sell_from_arrays(arrays, statics, device=dev)
+    return (M,) + check_k2(A, M, dev, rng, mode)
+
+
+def check_k2(A, M, dev, rng, label):
+    """K2 on M (the pack of A) against its plain version (bit for bit)
+    and against scipy: (the padded x, max |kernel - plain|)."""
     x = rng.standard_normal(A.shape[1]).astype(np.float32)
     xp = M.pad_operand(torch.from_numpy(x).to(dev))
     args = (M.vals, M.idx, M.qs, M.winstart, xp)
@@ -361,15 +437,15 @@ def check_kernel(A, G, mode, dev, rng):
     yv = y.reshape(-1)[:A.shape[0]].double().cpu().numpy()
     ref = A @ x.astype(np.float64)
     rel = float(np.abs(yv - ref).max() / np.abs(ref).max())
-    print(f"kernel {mode}: n={A.shape[0]} m={A.shape[1]} nnz={A.nnz} "
+    print(f"kernel {label}: n={A.shape[0]} m={A.shape[1]} nnz={A.nnz} "
           f"nt={M.nt} P={M.npass} G={M.G} S={M.S} Lp={M.Lp} "
           f"max|kernel-plain|={err} rel err vs scipy fp64={rel:.3e}")
     if not torch.equal(y, y_plain):
-        raise AssertionError(f"K2 {mode}: kernel differs from its plain "
+        raise AssertionError(f"K2 {label}: kernel differs from its plain "
                              f"version (max abs {err})")
     if not rel <= 1e-5:
-        raise AssertionError(f"K2 {mode}: relative error {rel} vs scipy")
-    return M, xp, err
+        raise AssertionError(f"K2 {label}: relative error {rel} vs scipy")
+    return xp, err
 
 
 def solve(M, b, opts):
@@ -478,8 +554,9 @@ def warm_cg_ms_per_it(M, b):
     return 1e3 * secs / int(res.its)
 
 
-def measure(A, M, xp):
-    """Times of K2, its plain version and the CSR yardstick at 128³."""
+def measure(A, M, xp, label=f"{GRID}^3", triad=True):
+    """Times of K2, its plain version and the CSR yardstick on A (the
+    128³ ex45 operator unless `label` says otherwise)."""
     args = (M.vals, M.idx, M.qs, M.winstart, xp)
     kw = dict(G=M.G, S=M.S, mode=M.mode)
     call_ms = time_ms(lambda: sell_spmv(*args, **kw))
@@ -495,14 +572,14 @@ def measure(A, M, xp):
         + M.nt * M.G * 128 * 4
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = 2.0 * A.nnz / FP32_FLOPS_PER_S * 1e3
-    triad = stream_triad_gbs()
-    print(f"K2 at {GRID}^3: {ms:.4f} ms in a CUDA graph "
+    triad = f"; STREAM triad {stream_triad_gbs():.1f} GB/s" if triad else ""
+    print(f"K2 at {label}: {ms:.4f} ms in a CUDA graph "
           f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes} compulsory "
           f"bytes, {100 * bound_bytes_ms / ms:.1f} % of the byte bound), "
           f"{call_ms:.4f} ms a call back to back; plain {plain_ms:.4f} ms; "
           f"torch.sparse CSR mv {library_ms:.4f} ms (rel diff {lib_rel:.1e}); "
           f"bound {bound_bytes_ms:.4f} ms by bytes at 3.35 TB/s "
-          f"({bound_ops_ms:.5f} ms by fp32 ops); STREAM triad {triad:.1f} GB/s")
+          f"({bound_ops_ms:.5f} ms by fp32 ops){triad}")
     if not lib_rel <= 1e-5:
         raise AssertionError(f"CSR yardstick disagrees with K2: {lib_rel}")
     return dict(ms=call_ms, device_ms=ms, plain_ms=plain_ms,
@@ -953,7 +1030,7 @@ def pack_bytes(M):
                for t in (M.vals, M.idx, M.qs, M.winstart))
 
 
-def measure_k3(l, M, P_host, rng):
+def measure_k3(l, M, P_host, rng, label=f"{GAMG_GRID}^3"):
     """Times of K3, its plan's plain version, the definition on the pack
     and the CSR yardstick on the level-l prolongator, the plan's byte
     bound (its live entries, list offsets and counts, r and y, each
@@ -991,7 +1068,7 @@ def measure_k3(l, M, P_host, rng):
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     pack_bound_ms = pack_nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = 2.0 * entries / FP32_FLOPS_PER_S * 1e3
-    print(f"K3 at {GAMG_GRID}^3 level {l}, P {M.shape}, {plan_name(plan)} "
+    print(f"K3 at {label} level {l}, P {M.shape}, {plan_name(plan)} "
           f"shape: {ms:.4f} ms in a CUDA graph ({nbytes / (ms * 1e-3) / 1e9:.1f}"
           f" GB/s of {nbytes} plan bytes, {100 * bound_bytes_ms / ms:.1f} % "
           f"of the plan bound), {call_ms:.4f} ms a call back to back; plan's "
@@ -1904,25 +1981,34 @@ def slice6_small_systems(g=16):
     return {"A": A, "N": N, "W": W}
 
 
-def same_solve(label, card, cpu, rtol=1e-10):
-    """Card against CPU: equal its and reason, the history within rtol
-    (atol rtol·1e-3·‖r0‖ for entries at rounding noise)."""
-    ci, cr = int(card.its), int(card.reason)
-    hi, hr = int(cpu.its), int(cpu.reason)
+def history_diff(card, cpu, rtol):
+    """Max relative difference of two solves' histories (atol
+    rtol·1e-3·‖r0‖ for entries at rounding noise); inf unless their
+    its, reasons and recorded entries are the same."""
     hc, hh = card.history.numpy(), cpu.history.numpy()
     live = ~np.isnan(hh)
-    diff = float("inf")
-    if (ci, cr) == (hi, hr) and np.array_equal(live, ~np.isnan(hc)):
-        a, c = hc[live], hh[live]        # preonly records no history
-        diff = float(np.max(np.abs(a - c) / (np.abs(c) + 1e-3 * rtol
-                                                * abs(c[0])))) \
-            if live.any() else 0.0
+    if ((int(card.its), int(card.reason)) != (int(cpu.its), int(cpu.reason))
+            or not np.array_equal(live, ~np.isnan(hc))):
+        return float("inf")
+    if not live.any():                   # preonly records no history
+        return 0.0
+    a, c = hc[live], hh[live]
+    return float(np.max(np.abs(a - c) / (np.abs(c) + 1e-3 * rtol
+                                          * abs(c[0]))))
+
+
+def same_solve(label, card, cpu, rtol=1e-10, size="16^3"):
+    """Card against CPU: equal its and reason, the history within rtol
+    (history_diff)."""
+    ci, cr = int(card.its), int(card.reason)
+    hi, hr = int(cpu.its), int(cpu.reason)
+    diff = history_diff(card, cpu, rtol)
     xd = float(np.abs(card.x.cpu().numpy() - cpu.x.numpy()).max())
-    print(f"16^3 {label} card vs cpu: its {ci}/{hi} reason {cr}/{hr} "
+    print(f"{size} {label} card vs cpu: its {ci}/{hi} reason {cr}/{hr} "
           f"history rel diff {diff:.2e} max|x diff| {xd:.2e}")
     if not diff <= rtol or not np.isfinite(card.x.cpu().numpy()).all():
-        raise AssertionError(f"16^3 {label} on the card disagrees with the "
-                             "CPU")
+        raise AssertionError(f"{size} {label} on the card disagrees with "
+                             "the CPU")
     return diff
 
 
@@ -2092,11 +2178,471 @@ def slice6_phases(A, b_np, M):
     slice6_full_width_runs(A, b_np, M, path["pc"])
     return path["k2"], path["sptrsv_lu"]
 
+# ---------------------------------------------------------------- slice 7
 
-def main():
+@contextlib.contextmanager
+def reads_from_device():
+    """Count the tensor methods that read a device value on the host
+    (each a synchronising copy on the card) inside the context."""
+    names = ("cpu", "item", "tolist", "__bool__", "__float__", "__int__")
+    count = [0]
+    real = {n: getattr(torch.Tensor, n) for n in names}
+
+    def spy(n):
+        def f(self, *a, **k):
+            count[0] += 1
+            return real[n](self, *a, **k)
+        return f
+
+    for n in names:
+        setattr(torch.Tensor, n, spy(n))
+    try:
+        yield count
+    finally:
+        for n in names:
+            setattr(torch.Tensor, n, real[n])
+
+
+def slice7_options(route, coords):
+    o = dict(SLICE7_OPTS)
+    if route == "rbm":
+        o["pc_gamg_coordinates"] = coords
+    return Options(o)
+
+
+def slice7_split():
+    ev = log_events()
+    return {k: ev[k].time if k in ev else 0.0
+            for k in ("PCGAMGHierarchy", "PCMGPack", "PCMGTransfer",
+                      "PCMGLevelOps", "PCMGTransposePlan", "PCMGSmoother",
+                      "PCMGCoarseLU")}
+
+
+def spy_restrictions(pc):
+    """Count each level's P.multT calls (one K3 launch each) by wrapping
+    the level's prolongator; returns the counter and an undo."""
+    calls = collections.Counter()
+    wrapped = []
+    for l, (lev, fmt) in enumerate(zip(pc.levels, pc.formats)):
+        if fmt[2] is None:
+            real = lev.P.multT
+
+            def spy(r, l=l, real=real):
+                calls[l] += 1
+                return real(r)
+            lev.P.multT = spy
+            wrapped.append(lev.P)
+
+    def undo():
+        for P in wrapped:
+            del P.multT
+    return calls, undo
+
+
+def drive_slice7_path(A, b_np, coords, route):
+    """KSP ex55 -pc_type gamg at ne = EX55_NE on the fp32 SELL operator
+    (natural order), route "rbm" (pc_gamg_coordinates) or "nc"
+    (pc_gamg_dof 2 alone), counting launches from just before the
+    operator is built to just after the solve."""
+    reset_counts()
+    log_begin()
+    t = time.perf_counter()
+    M, perm = mat_from_options(A, Options({"mat_type": "sell",
+                                           "mat_ordering_type": "natural"}),
+                               dtype=torch.float32)
+    op_s = time.perf_counter() - t
+    if not np.array_equal(perm, np.arange(A.shape[0])):
+        raise AssertionError("natural ordering gave a permutation")
+    ksp = KSP(slice7_options(route, coords)).set_operators(M, A)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    sp_ = slice7_split()
+    pc = ksp.pc
+    print(f"slice 7 {route}: ex55 ne={EX55_NE} n={A.shape[0]} nnz={A.nnz}; "
+          f"mat_from_options {op_s:.2f} s ({type(M).__name__}"
+          f"{' G=%d S=%d P=%d' % (M.G, M.S, M.npass) if hasattr(M, 'G') else ''}"
+          f"); GAMG setup {setup_s:.2f} s = hierarchy "
+          f"{sp_['PCGAMGHierarchy']:.2f} + level operators and transfers "
+          f"(host packing and transfer) {sp_['PCMGLevelOps']:.2f} (K3's "
+          f"transpose plans {sp_['PCMGTransposePlan']:.3f} of it) + "
+          f"Chebyshev bounds {sp_['PCMGSmoother']:.2f} + coarse LU "
+          f"{sp_['PCMGCoarseLU']:.2f} + packed branch {sp_['PCMGPack']:.2f}"
+          f" / {sp_['PCMGTransfer']:.2f} s")
+    for l, (lev, fmt) in enumerate(zip(pc.levels, pc.formats)):
+        print(f"  level {l}: A {lev.A.shape} {fmt[0]}, P {lev.P.shape} "
+              f"{fmt[1]}, R {fmt[2] or 'P.multT (K3)'}")
+    print(f"  coarse: {pc.coarse_A.shape[0]} rows, "
+          f"{type(pc.coarse).__name__}")
+    via_k3 = [l for l, f in enumerate(pc.formats) if f[2] is None]
+    bt = torch.from_numpy(b_np.astype(np.float32)).cuda()
+    k2_0, k3_0, lu_0 = sell_spmv.launches, sell_spmvT.launches, \
+        trsv_launches()
+    calls, undo = spy_restrictions(pc)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ksp.solve(bt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    finally:
+        undo()
+    its, reason = int(res.its), int(res.reason)
+    k2, k3 = sell_spmv.launches - k2_0, sell_spmvT.launches - k3_0
+    lu = trsv_launches() - lu_0
+    relres = true_residual(A, b_np, res)
+    print(f"slice 7 {route}: CG+GAMG its={its} reason={reason} {secs:.3f} s"
+          f" = {1e3 * secs / its:.4f} ms/it; true rel residual "
+          f"{relres:.3e}; history {float(res.history[0]):.6e} -> "
+          f"{float(res.history[its]):.6e}; in the solve K2 {k2}, K3 {k3} "
+          f"(P.multT calls by level {dict(sorted(calls.items()))}), SpTRSV "
+          f"{lu} launches; in the path K2 {sell_spmv.launches}, K3 "
+          f"{sell_spmvT.launches}")
+    if reason <= 0:
+        raise AssertionError(f"slice 7 {route}: CG+GAMG reason {reason}")
+    if k3 != sum(calls.values()) or any(calls[l] < its for l in via_k3):
+        raise AssertionError(f"slice 7 {route}: K3 launched {k3} times, "
+                             f"P.multT by level {dict(calls)}, {its} its")
+    return dict(ksp=ksp, b=bt, M=M, ms_per_it=1e3 * secs / its, its=its,
+                k2=sell_spmv.launches, k3=sell_spmvT.launches,
+                lu=sptrsv_lu.launches, via_k3=via_k3)
+
+
+def ulp_changed(b, seed):
+    """b with each entry moved one ulp up or down, by a seeded coin."""
+    down = np.random.default_rng(seed).random(b.size) < 0.5
+    return np.nextafter(b, np.where(down, -np.inf, np.inf).astype(b.dtype))
+
+
+def check_slice7_small_against_cpu(devices=("cuda", "cpu")):
+    """Both GAMG elasticity routes at ne = EX55_SMALL_NE on the card
+    against the port's CPU path, equal its and reason: fp32 on SELL (the
+    path's formats) for b and four one-ulp changes of b, histories
+    within EX55_SMALL_FP32_RTOL; fp64 on AIJ within 1e-8. First the CPU
+    alone reads the fp32 histories' rounding noise: how far one-ulp
+    changes of b (ULP_SEEDS of them) move its history."""
+    A, b, coords = ex55_system(EX55_SMALL_NE, 1e-3)
+    size = f"ne={EX55_SMALL_NE}"
+    worst = {}
+    for prec, rtol in (("fp32", EX55_SMALL_FP32_RTOL), ("fp64", 1e-8)):
+        bb = b.astype(np.float32 if prec == "fp32" else np.float64)
+        for route in ("rbm", "nc"):
+            ksps = {dev: KSP(slice7_options(route, coords)).set_operators(
+                sell_from_scipy(A.astype(np.float32), device=dev)
+                if prec == "fp32" else aij_from_scipy(A, device=dev), A)
+                for dev in devices}
+            cases = [("b", bb)]
+            if prec == "fp32":
+                cpu = ksps[devices[-1]]
+                base = cpu.solve(torch.from_numpy(bb))
+                noise = max(history_diff(cpu.solve(torch.from_numpy(
+                    ulp_changed(bb, s))), base, rtol)
+                    for s in range(ULP_SEEDS))
+                print(f"{size} ex55 {route} CG+GAMG fp32 on the CPU: one-ulp "
+                      f"changes of b move the history by up to {noise:.2e} "
+                      f"({ULP_SEEDS} such b)")
+                cases += [(f"b one ulp off (seed {s})", ulp_changed(bb, s))
+                          for s in range(4)]
+            for name, rhs in cases:
+                out = [ksps[dev].solve(torch.from_numpy(rhs).to(dev))
+                       for dev in devices]
+                worst[prec, route] = max(worst.get((prec, route), 0.0),
+                                         same_solve(
+                    f"ex55 {route} CG+GAMG {prec}, {name}", *out, rtol,
+                    size=size))
+    return worst
+
+
+def scaled_refresh_cg(ne, dev):
+    """CG to rtol 1e-5 on D·A·D (d from seed 0) of ksp ex55 at ne,
+    preconditioned by its probe refresh (asa_tentatives P0s) on dev, on
+    SELL on the card and AIJ on the CPU: (its, reason, true relative
+    residual)."""
+    A, b, coords = ex55_system(ne, 1e-3)
+    p0s = asa_tentatives(A, rigid_body_modes(coords, dof=2), coarse_n=80,
+                         bs=2)
+    A2 = scaled(A, np.random.default_rng(0))
+    pc = gamg_probe_plan(A.astype(np.float32), p0s=p0s, coarse_n=80,
+                         dtype=np.float32, device=dev).refresh(
+        torch.from_numpy(csr_data_of_matching(A2)).to(dev))
+    M = (sell_from_scipy(A2, device=dev) if dev == "cuda"
+         else aij_from_scipy(A2, dtype=np.float32, device=dev))
+    res = ksp_solve(M, torch.from_numpy(b.astype(np.float32)).to(dev),
+                    pc=pc, ksp_type="cg", rtol=1e-5, maxits=2000)
+    return int(res.its), int(res.reason), true_residual(A2, b, res)
+
+
+def check_scaled_refresh_small(devices=("cuda", "cpu")):
+    """scaled_refresh_cg at ne = REFRESH_SMALL_NE, the case that
+    tests/test_torch_gamg_device.py::
+    test_probe_refresh_of_scaled_ex55_solves_as_reference holds against
+    petsctpu's (18 its; fp32 true relative residual 0.9386e-3 there, the
+    port's CPU 0.8937e-3, 0.8692e-3-0.9852e-3 over twelve one-ulp changes
+    of b on ELL and on SELL): the card takes the CPU's its and its true
+    relative residual stays within REFRESH_SMALL_TRUE_MAX. Then the
+    card alone at REFRESH_TREND_NES, printing how the fp32 true
+    residual grows with ne (CG's drift in fp32; the full-width one is
+    printed, not gated)."""
+    (ci, cr, ct), (hi, hr, ht) = (scaled_refresh_cg(REFRESH_SMALL_NE, dev)
+                                  for dev in devices)
+    print(f"probe refresh ne={REFRESH_SMALL_NE}: CG on D·A·D card vs cpu: "
+          f"its {ci}/{hi} reason {cr}/{hr} true rel residual {ct:.4e}/"
+          f"{ht:.4e} (bound {REFRESH_SMALL_TRUE_MAX:.1e})")
+    if ci != hi or min(cr, hr) <= 0 or not ct <= REFRESH_SMALL_TRUE_MAX:
+        raise AssertionError(f"probe refresh ne={REFRESH_SMALL_NE}: the "
+                             "card's CG on D·A·D disagrees with the CPU's")
+    for ne in REFRESH_TREND_NES:
+        its, reason, rel = scaled_refresh_cg(ne, devices[0])
+        print(f"probe refresh ne={ne}: CG on D·A·D on the card its={its} "
+              f"reason={reason} true rel residual {rel:.4e}")
+
+
+def host_level(A, lp, power_its):
+    """One refreshed level recomputed in fp64 on the host from the
+    level's refreshed operator A: ω from the plan's power iteration (its
+    start vector, its steps), P = P0 − ω D⁻¹A P0 with the frozen P0,
+    and scipy's PᵀAP."""
+    P0 = aij_to_scipy(lp.p0()).astype(np.float64)
+    dinv = 1.0 / A.diagonal()
+    v = lp.v0.double().cpu().numpy()
+    for _ in range(power_its):
+        w = dinv * (A @ v)
+        lam = np.linalg.norm(w)
+        v = w / max(lam, 1e-30)
+    P = (P0 - (4.0 / (3.0 * lam)) * sp.diags(dinv) @ A @ P0).tocsr()
+    return P, (P.T @ A @ P).tocsr()
+
+
+def frozen_pattern(plan, l):
+    """The pattern (ones) that the refresh keeps for level l's operator:
+    the next level's template, or the coarse dense LU's entries."""
+    if l < len(plan.levels):
+        lp = plan.levels[l]
+        return aij_to_scipy(lp.a.ell_tmpl if isinstance(
+            lp, GAMGProbeLevelPlan) else lp.a_tmpl)
+    r = plan.coarse_rows.long().cpu().numpy()
+    c = plan.coarse_cols.long().cpu().numpy()
+    return sp.csr_matrix((np.ones(r.size), (r, c)), shape=(plan.nc,) * 2)
+
+
+def check_refreshed(label, plan, pc, tol=1e-4):
+    """Each refreshed level against host_level on its own refreshed
+    operator: P, and PᵀAP on the pattern the refresh keeps (the coarse
+    one as the LU's product), max |difference| over max |entry| ≤ tol
+    (fp32 rounding). The mass of PᵀAP outside that pattern (dropped
+    where the initial values cancelled exactly, as in petsctpu) is
+    printed."""
+    ops = [sell_to_scipy(lv.A) if isinstance(lv.A, SellMat)
+           else aij_to_scipy(lv.A) for lv in pc.levels]
+    P, L, U = torch.lu_unpack(pc.coarse.lu, pc.coarse.pivots)
+    ops.append(sp.csr_matrix((P @ L @ U).double().cpu().numpy()))
+    errs, outside = [], []
+    for l, (lp, lv) in enumerate(zip(plan.levels, pc.levels)):
+        Ph, C = host_level(ops[l].astype(np.float64), lp, plan.power_its)
+        Pg = aij_to_scipy(lv.P.P if isinstance(lv.P, PPair) else lv.P)
+        keep = C.multiply(frozen_pattern(plan, l + 1)).tocsr()
+        scale = abs(C).max()
+        errs.append(max(float(abs(Pg - Ph).max() / abs(Ph).max()),
+                        float(abs(ops[l + 1].multiply(frozen_pattern(
+                            plan, l + 1)) - keep).max() / scale)))
+        outside.append(float(abs(C - keep).max() / scale))
+    print(f"{label}: each refreshed level (P and PᵀAP) against scipy's on "
+          f"its refreshed operator, max rel err by level "
+          f"{' '.join(f'{e:.2e}' for e in errs)}; PᵀAP outside the frozen "
+          f"pattern {' '.join(f'{e:.2e}' for e in outside)}")
+    if not max(errs) <= tol:
+        raise AssertionError(f"{label}: refreshed levels disagree with the "
+                             "host's")
+    return max(errs)
+
+
+def scaled(A, rng):
+    """D·A·D, d = exp(0.2·N(0,1)): new coefficients on A's own pattern
+    (its explicit zeros kept), fp32."""
+    A2 = sp.csr_matrix(A, dtype=np.float64, copy=True)
+    A2.sort_indices()
+    d = np.exp(0.2 * rng.standard_normal(A.shape[0]))
+    rows = np.repeat(np.arange(A.shape[0]), np.diff(A2.indptr))
+    A2.data = A2.data * d[rows] * d[A2.indices]
+    return A2.astype(np.float32)
+
+
+def time_refresh(label, plan, a2):
+    """Two refreshes on the card, the K2 launches and host reads of the
+    second, its ms."""
+    pc = plan.refresh(a2)
+    torch.cuda.synchronize()
+    k2 = sell_spmv.launches
+    with reads_from_device() as reads:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pc = plan.refresh(a2)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+    k2 = sell_spmv.launches - k2
+    print(f"{label}: one refresh {ms:.2f} ms on the card, {k2} K2 launches, "
+          f"{reads[0]} host reads")
+    return pc, k2, reads[0]
+
+
+def refresh_phases(rng):
+    """The device refresh: gamg_probe_plan from asa_tentatives P0s on
+    ksp ex55 at ne = REFRESH_NE (bs = 2, rigid-body modes), refreshed
+    with D·A·D, and gamg_device_plan (SpGEMM plans) on ex45 at
+    DEVICE_PLAN_GRID³; each held against the host's Galerkin products
+    and preconditioning CG. Returns the max relative error."""
+    check_scaled_refresh_small()
+    A, b, coords = ex55_system(REFRESH_NE, 1e-3, dtype=np.float32)
+    t = time.perf_counter()
+    p0s = asa_tentatives(A, rigid_body_modes(coords, dof=2), coarse_n=80,
+                         bs=2)
+    tent_s = time.perf_counter() - t
+    t = time.perf_counter()
+    plan = gamg_probe_plan(A, p0s=p0s, coarse_n=80, dtype=np.float32)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t
+    print(f"probe refresh plan, ex55 ne={REFRESH_NE} n={A.shape[0]}: "
+          f"asa_tentatives {tent_s:.2f} s, gamg_probe_plan {plan_s:.2f} s, "
+          f"{len(plan.levels)} levels, coarse {plan.nc} rows")
+    expect = 0
+    for l, lp in enumerate(plan.levels):
+        ncp, n = lp.p0v.shape
+        ncc = lp.vc.shape[0]
+        print(f"  level {l}: n={n} ncp={ncp} ncc={ncc} p0v "
+              f"{lp.p0v.numel() * 4 / 2**20:.1f} MiB, max prod pick "
+              f"{int(lp.prod_pick.max())}, max coarse pick "
+              f"{int(lp.c_pick.max())} (< 2^31), A on "
+              f"{'SELL' if lp.a.use_sell else 'ELL'}")
+        if lp.a.use_sell:
+            expect += plan.power_its + ncp + ncc
+    A2 = scaled(A, rng)
+    a2 = torch.from_numpy(csr_data_of_matching(A2)).cuda()
+    pc, k2, reads = time_refresh(f"probe refresh ne={REFRESH_NE}", plan, a2)
+    if k2 != expect or reads != 1:
+        raise AssertionError(f"probe refresh: {k2} K2 launches (expected "
+                             f"{expect}), {reads} host reads (expected 1)")
+    err = check_refreshed(f"probe refresh ne={REFRESH_NE}", plan, pc)
+    solve_refreshed(f"probe refresh ne={REFRESH_NE}", A2, b, pc)
+    del plan, pc, A, A2, a2, p0s
+
+    g = DEVICE_PLAN_GRID
+    A, b, _ = ex45_system(g, g, g)
+    t = time.perf_counter()
+    plan = gamg_device_plan(A, coarse_n=64, dtype=np.float32)
+    torch.cuda.synchronize()
+    print(f"SpGEMM refresh plan, ex45 {g}^3: gamg_device_plan "
+          f"{time.perf_counter() - t:.2f} s, {len(plan.levels)} levels, "
+          f"coarse {plan.nc} rows")
+    A2 = scaled(A, rng)
+    a2 = torch.from_numpy(csr_data_of_matching(A2)).cuda()
+    pc, _, reads = time_refresh(f"SpGEMM refresh {g}^3", plan, a2)
+    if reads != 1:
+        raise AssertionError(f"SpGEMM refresh: {reads} host reads")
+    err = max(err, check_refreshed(f"SpGEMM refresh {g}^3", plan, pc))
+    solve_refreshed(f"SpGEMM refresh {g}^3", A2, b, pc)
+    return err
+
+
+def solve_refreshed(label, A2, b, pc):
+    """CG on the new operator (fp32 SELL) preconditioned by its refresh;
+    reason > 0, its true residual printed (check_scaled_refresh_small
+    gates it where petsctpu's is known)."""
+    M = sell_from_scipy(A2)
+    t = time.perf_counter()
+    res = ksp_solve(M, torch.from_numpy(b.astype(np.float32)).cuda(), pc=pc,
+                    ksp_type="cg", rtol=1e-5, maxits=2000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    its, reason = int(res.its), int(res.reason)
+    print(f"{label}: CG on D·A·D its={its} reason={reason} "
+          f"{1e3 * secs / max(its, 1):.4f} ms/it; true rel residual "
+          f"{true_residual(A2, b, res):.3e}")
+    if reason <= 0:
+        raise AssertionError(f"{label}: CG reason {reason}")
+
+
+def asa_phase():
+    """-pc_type asa on ksp ex55 at ne = ASA_NE: on the card on the fp32
+    SELL operator to convergence (its, reason, levels and formats
+    printed; it fails unless it converges), then in fp64 on AIJ for
+    ASA_CHECK_ITS iterations on the card against the port's CPU path
+    (equal its and reason, histories within 1e-10; the CPU's fp64 solve
+    takes half a second an iteration, too long to converge here)."""
+    A, b, _ = ex55_system(ASA_NE, 1e-3)
+    t = time.perf_counter()
+    ksp = KSP(Options(dict(ASA_OPTS))).set_operators(
+        sell_from_scipy(A.astype(np.float32)), A)
+    res = ksp.solve(torch.from_numpy(b.astype(np.float32)).cuda())
+    torch.cuda.synchronize()
+    its, reason = int(res.its), int(res.reason)
+    print(f"asa ne={ASA_NE} fp32 SELL on the card: its={its} reason={reason} "
+          f"{time.perf_counter() - t:.1f} s with the setup; levels "
+          f"{[lv.A.shape[0] for lv in ksp.pc.levels]}, formats "
+          f"{ksp.pc.formats}; true rel residual "
+          f"{true_residual(A, b, res):.3e}")
+    if reason <= 0:
+        raise AssertionError(f"asa ne={ASA_NE}: CG reason {reason}")
+    opts = {**ASA_OPTS, "ksp_max_it": str(ASA_CHECK_ITS)}
+    out = {dev: KSP(Options(opts)).set_operators(
+        aij_from_scipy(A, device=dev), A).solve(
+            torch.from_numpy(b).to(dev)) for dev in ("cuda", "cpu")}
+    same_solve(f"ex55 CG+ASA fp64, {ASA_CHECK_ITS} its", out["cuda"],
+               out["cpu"], 1e-10, size=f"ne={ASA_NE}")
+
+
+def slice7_phases(rng, kernels):
+    """Slice 7: the RBM path at full width (phase 21) with its profile
+    and K2/K3 checks and times on its operators, the NC route once,
+    both routes card against CPU at ne = 63 (phase 22), the device
+    refresh (phase 23) and PCASA (phase 24). Adds the path's launches
+    and errors to the kernels line's entries."""
+    t = time.perf_counter()
+    A, b, coords = ex55_system(EX55_NE, 1e-3)
+    print(f"ex55 ne={EX55_NE}: n={A.shape[0]} nnz={A.nnz} "
+          f"({time.perf_counter() - t:.1f} s)")
+    path = drive_slice7_path(A, b, coords, "rbm")
+    k2, k3, trsv_lu = kernels["sell_spmv"], kernels["sell_spmvT"], \
+        kernels["sptrsv_lu"]
+    k2["launches"] += path["k2"]
+    k3["launches"] += path["k3"]
+    trsv_lu["launches"] += path["lu"]
+    ksp, M = path["ksp"], path["M"]
+    print(f"slice 7 rbm: ms per iteration {path['ms_per_it']:.4f} in the "
+          f"path, {warm_gamg_ms_per_it(path):.4f} repeated")
+    profile_solve(ksp, path["b"], label="slice 7 rbm")
+    if isinstance(M, SellMat):
+        label = f"ex55 ne={EX55_NE}"
+        xp, err = check_k2(A, M, "cuda", rng, label)
+        k2["max_abs_err"] = max(k2["max_abs_err"], err)
+        measure(A, M, xp, label=label, triad=False)
+        del xp
+    pc = ksp.pc
+    for l in path["via_k3"]:
+        P = pc.levels[l].P
+        P_host = sell_to_scipy(P)
+        k3["max_abs_err"] = max(k3["max_abs_err"], check_k3(
+            f"ex55 level-{l} prolongator", P, P_host, rng))
+        measure_k3(l, P, P_host, rng, label=f"ex55 ne={EX55_NE}")
+    del path, ksp, M, pc
+    nc = drive_slice7_path(A, b, coords, "nc")
+    del nc, A, b, coords
+    check_slice7_small_against_cpu()
+    refresh_phases(rng)
+    asa_phase()
+
+
+def main(argv=()):
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
+    if list(argv) == ["slice7"]:
+        kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
+                   for k in ("sell_spmv", "sell_spmvT", "sptrsv_lu")}
+        slice7_phases(rng, kernels)
+        print(smi)
+        print(json.dumps({"slice7": list(kernels.values())}))
+        return
     t = time.perf_counter()
     A, b, _ = ex45_system(GRID, GRID, GRID)
     print(f"ex45 {GRID}^3: n={A.shape[0]} nnz={A.nnz} "
@@ -2149,6 +2695,7 @@ def main():
                     launches=gamg["launches"], max_abs_err=k3_err,
                     **k3_times[0]), trsv, trsv_lu]
     del gamg, k3_levels
+    slice7_phases(rng, {k["name"]: k for k in kernels})
     kernels += probes_phase()
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -2158,4 +2705,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

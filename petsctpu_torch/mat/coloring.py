@@ -1,15 +1,47 @@
-"""Inode detection (the part of petsctpu/mat/coloring.py on the SOR path).
+"""Inode detection and greedy column coloring (the parts of
+petsctpu/mat/coloring.py on the SOR and GAMG paths).
 
 Reference: Mat_CheckInode (src/mat/impls/aij/seq/inode.c) and the
 compressed supernode pattern of MatGetRowIJ_SeqAIJ_Inode, which
 MatSOR_SeqAIJ_Inode's block sweep (pc/sor.py::make_inode_sor) is built
-on. The colorings themselves are ROADMAP queue 1 item 11.
+on; the greedy distance-2 coloring of MatColoring (src/mat/color), which
+the GAMG probe refresh (pc/gamg_device.py::gamg_probe_plan) colors its
+product patterns with. greedy_color here is the plain Python loop; the
+setup path runs its native copy, mat/host_graph.py::greedy_color. The
+MINPACK orderings and stencil_coloring go with SNES (ROADMAP queue 1
+item 11).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+
+def greedy_color(A) -> np.ndarray:
+    """Color columns so no two columns sharing a row get one color.
+
+    Returns int32 color[ncols]; ncolors = color.max()+1. Equivalent to
+    greedy coloring of the graph of AᵀA (distance-2 in the bipartite
+    row-col graph)."""
+    A = sp.csc_matrix(A)
+    n = A.shape[1]
+    Acsr = A.tocsr()
+    color = np.full(n, -1, dtype=np.int32)
+    # column j conflicts with all columns appearing in rows of column j
+    for j in range(n):
+        rows = A.indices[A.indptr[j]:A.indptr[j + 1]]
+        used = set()
+        for r in rows:
+            cols = Acsr.indices[Acsr.indptr[r]:Acsr.indptr[r + 1]]
+            for c in cols:
+                if color[c] >= 0:
+                    used.add(color[c])
+        c = 0
+        while c in used:
+            c += 1
+        color[j] = c
+    return color
 
 
 def inode_groups(A, limit: int = 5):

@@ -15,6 +15,7 @@ TPU backend in petsctpu, and its GPU policy is later work.
 
 from __future__ import annotations
 
+import numpy as np
 import scipy.sparse as sp
 
 _LATER = {
@@ -49,7 +50,10 @@ def mat_from_options(A, opts=None, mat_type: str = None, dtype=None,
     if mat_type == "sell":
         from petsctpu_torch.mat.sell import sell_from_scipy
         perm = get_ordering(A, ordering)
-        Ap = A[perm][:, perm].tocsr()
+        if np.array_equal(perm, np.arange(A.shape[0])):
+            Ap = A if A.has_canonical_format else A.copy()
+        else:
+            Ap = A[perm][:, perm].tocsr()
         Ap.sum_duplicates()
         return sell_from_scipy(Ap, device=dev), perm
     if mat_type in _LATER:

@@ -1,0 +1,56 @@
+"""ctypes bindings of the host graph code (csrc/host_graph.cpp): the
+AMG setup's aggregation and the probe refresh's column coloring.
+
+The library is built by g++ into petsctpu_torch/_build/ at first use
+(ops/_build.py::load_host); a missing compiler or a failed build raises,
+there is no Python fallback on the setup path. The Python loops stay as
+the plain versions the tests hold these to: pc/gamg.py::aggregate and
+mat/coloring.py::greedy_color, whose signatures these take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import scipy.sparse as sp
+
+from petsctpu_torch.ops import _build
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_host("host_graph")
+    i64 = ctypes.c_int64
+    p64 = np.ctypeslib.ndpointer(np.int64, flags="C")
+    p32 = np.ctypeslib.ndpointer(np.int32, flags="C")
+    lib.greedy_color.restype = i64
+    lib.greedy_color.argtypes = [i64, i64, p64, p32, p64, p32, p32]
+    lib.aggregate.restype = i64
+    lib.aggregate.argtypes = [i64, p64, p32, p64]
+    return lib
+
+
+def aggregate(S: sp.csr_matrix) -> np.ndarray:
+    """Greedy root-based aggregation of the strength graph S: int64
+    aggregate id a row (pc/gamg.py::aggregate's three passes)."""
+    S = sp.csr_matrix(S)
+    out = np.zeros(S.shape[0], np.int64)
+    _lib().aggregate(S.shape[0], np.ascontiguousarray(S.indptr, np.int64),
+                     np.ascontiguousarray(S.indices, np.int32), out)
+    return out
+
+
+def greedy_color(A) -> np.ndarray:
+    """Distance-2 column coloring of A's pattern: int32 color a column
+    (mat/coloring.py::greedy_color's greedy order)."""
+    A = sp.csc_matrix(A)
+    Acsr = A.tocsr()
+    out = np.zeros(A.shape[1], np.int32)
+    _lib().greedy_color(A.shape[0], A.shape[1],
+                        np.ascontiguousarray(Acsr.indptr, np.int64),
+                        np.ascontiguousarray(Acsr.indices, np.int32),
+                        np.ascontiguousarray(A.indptr, np.int64),
+                        np.ascontiguousarray(A.indices, np.int32), out)
+    return out

@@ -123,6 +123,8 @@ def _plan(A: sp.csr_matrix, G: int, mode: str = "diag"):
     C = G * 128
     n = A.shape[0]
     nt = -(-n // C)
+    if not A.has_sorted_indices:
+        A = A.sorted_indices()
     coo = A.tocoo()
     rows = coo.row.astype(np.int64)
     cols = coo.col.astype(np.int64)
@@ -144,8 +146,12 @@ def _plan(A: sp.csr_matrix, G: int, mode: str = "diag"):
         q = q - g                              # in [-(G-1), ...]
     pos = (cols - wmin[t]) % 128
 
-    # order by (tile, bucket q, row) and rank within each row's bucket
-    order = np.lexsort((cols, rows, q, t))
+    # order by (tile, bucket q, row, col) and rank within each row's
+    # bucket: the entries come by (row, col), so a stable sort by
+    # (tile, q) is petsctpu's lexsort
+    q0 = int(q.min()) if len(q) else 0
+    span = int(q.max()) - q0 + 1 if len(q) else 1
+    order = np.argsort(t * span + (q - q0), kind="stable")
     ts, qs_, rs = t[order], q[order], rows[order]
     new_run = np.ones(len(order), bool)
     new_run[1:] = (ts[1:] != ts[:-1]) | (qs_[1:] != qs_[:-1]) \
@@ -192,7 +198,8 @@ def _plan(A: sp.csr_matrix, G: int, mode: str = "diag"):
 
     avg_row = A.nnz / max(n, 1)
     slop = P / max(avg_row, 1e-9) if A.nnz else 1.0
-    return dict(C=C, nt=nt, t=ts, g=g[order], lane=lane[order],
+    return dict(C=C, nt=nt, order=order, t=ts, g=g[order],
+                lane=lane[order],
                 pos=pos[order], data=data[order], q=qs_, pass_of=pass_of,
                 P=P, wmin=wmin, S=S,
                 K=int(np.diff(A.indptr).max()) if n else 0,
@@ -205,29 +212,28 @@ def sell_plan_stats(A, G: int = 16, mode: str = "diag"):
     return m["P"], m["K"], m["S"], m["slop"]
 
 
+def _viable(m, max_span_rows: int, max_slop: float) -> bool:
+    return m["S"] <= max_span_rows and m["slop"] <= max_slop
+
+
 def sell_viable(A, G: int = 16, max_span_rows: int = 8192,
                 max_slop: float = 8.0) -> bool:
     A = sp.csr_matrix(A)
     if A.shape[0] < G * 128:
         return False
-    P, K, S, slop = sell_plan_stats(A, G)
-    return S <= max_span_rows and slop <= max_slop
+    return _viable(_plan(A, G), max_span_rows, max_slop)
 
 
-def sell_pack(A, G: int = 16, max_span_rows: int = 8192,
-              force: tuple = None, mode: str = "diag"):
-    """Host-side SELL pack (no device transfers): returns
-    (arrays dict {vals f32, idx i8, qs i32, winstart i32, diag f32},
-    statics dict {shape, nnz, G, S, Lp, mode}) — the single source of
-    the layout; sell_from_scipy wraps it with transfers.
-
-    force=(npass, S, Lp) pads the static dimensions to at least these
-    values so packs of different local blocks can be stacked (the
-    MPIAIJ diag-block route)."""
+def _fp32_summed(A) -> sp.csr_matrix:
     A = sp.csr_matrix(A).astype(np.float32)
     A.sum_duplicates()
+    return A
+
+
+def _pack(A: sp.csr_matrix, m: dict, G: int, max_span_rows: int,
+          force: tuple, mode: str):
+    """sell_pack of the fp32, duplicate-free A from its plan m."""
     n = A.shape[0]
-    m = _plan(A, G, mode)
     nt, P, S = m["nt"], m["P"], m["S"]
     if S > max_span_rows:
         raise ValueError(f"window span {S} rows exceeds cap "
@@ -261,6 +267,42 @@ def sell_pack(A, G: int = 16, max_span_rows: int = 8192,
                  Lp=Lp, mode=mode))
 
 
+def sell_pack(A, G: int = 16, max_span_rows: int = 8192,
+              force: tuple = None, mode: str = "diag"):
+    """Host-side SELL pack (no device transfers): returns
+    (arrays dict {vals f32, idx i8, qs i32, winstart i32, diag f32},
+    statics dict {shape, nnz, G, S, Lp, mode}) — the single source of
+    the layout; sell_from_scipy wraps it with transfers.
+
+    force=(npass, S, Lp) pads the static dimensions to at least these
+    values so packs of different local blocks can be stacked (the
+    MPIAIJ diag-block route)."""
+    A = _fp32_summed(A)
+    return _pack(A, _plan(A, G, mode), G, max_span_rows, force, mode)
+
+
+def sell_pack_cheapest(A, candidates):
+    """The pack (sell_pack's pair) of A with the fewest padded slots
+    among `candidates` ((G, mode) pairs), or None when none keeps its
+    window within 8192 rows or the cheapest pads more than 8 slots per
+    average row — petsctpu's cost test (pc/mg.py), shared by its packed
+    and non-packed MG branches. Each candidate is planned once."""
+    A = _fp32_summed(A)
+    n = A.shape[0]
+    best = None
+    for G, mode in candidates:
+        if n < G * 128:
+            continue
+        m = _plan(A, G, mode)
+        cost = m["nt"] * m["P"] * G * 128
+        if m["S"] <= 8192 and (best is None or cost < best[0]):
+            best = (cost, G, mode, m)
+    if best is None or best[0] > 8 * max(A.nnz / max(n, 1), 1e-9) * n:
+        return None
+    _, G, mode, m = best
+    return _pack(A, m, G, 8192, None, mode)
+
+
 def sell_from_scipy(A, G: int = 16, max_span_rows: int = 8192,
                     force: tuple = None, mode: str = "diag",
                     device=None) -> SellMat:
@@ -273,6 +315,22 @@ def sell_from_scipy(A, G: int = 16, max_span_rows: int = 8192,
     arrs, st = sell_pack(A, G=G, max_span_rows=max_span_rows, force=force,
                          mode=mode)
     return sell_from_arrays(arrs, st, device=dev)
+
+
+def sell_if_viable(A, device=None):
+    """sell_from_scipy(A) when sell_viable(A), both at their defaults,
+    else None; A is planned once."""
+    from petsctpu_torch.convert import sell_from_arrays
+
+    dev = resolve_device(device)
+    A = _fp32_summed(A)
+    if A.shape[0] < 16 * 128:
+        return None
+    m = _plan(A, 16)
+    if not _viable(m, 8192, 8.0):
+        return None
+    return sell_from_arrays(*_pack(A, m, 16, 8192, None, "diag"),
+                            device=dev)
 
 
 def sell_to_scipy(M: SellMat) -> sp.csr_matrix:
@@ -289,13 +347,51 @@ def sell_to_scipy(M: SellMat) -> sp.csr_matrix:
     return sp.csr_matrix((vals[t, p, g, lane], (rows, cols)), shape=M.shape)
 
 
+# ---------------------------------------------------------------------------
+# frozen-pattern templates: numeric refill on the device
+# ---------------------------------------------------------------------------
 def sell_template(A, G: int = 16, max_span_rows: int = 8192, device=None):
-    raise NotImplementedError(
-        "sell_template serves the GAMG device refresh (pc/gamg_device.py), "
-        "not ported yet (ROADMAP queue 1 item 8)")
+    """(template SellMat, pos, diag_idx): the symbolic side of the
+    format, built once from a pattern; sell_fill(tmpl, pos, diag_idx,
+    data) then rebuilds the numeric matrix on the device from a
+    sorted-CSR data vector (the MatAssembly symbolic/numeric split the
+    GAMG device refresh needs; the reference re-runs host assembly per
+    refresh, gamg.c:533). Diag mode, as petsctpu's.
+
+    pos: int32 [nnz] flat slot of each sorted-CSR entry in the
+    [nt, P, G, 128] value array. diag_idx: int32 [n] sorted-CSR data
+    index of each diagonal entry (a missing diagonal points at an
+    appended zero)."""
+    from petsctpu_torch.convert import sell_from_arrays
+
+    A = _fp32_summed(A)
+    n = A.shape[0]
+    m = _plan(A, G)
+    tmpl = sell_from_arrays(*_pack(A, m, G, max_span_rows, None, "diag"),
+                            device=resolve_device(device))
+    # the plan's order[k] is the CSR entry of plan slot k (A is
+    # canonical), so pos maps CSR data order -> flat slots
+    flat = ((m["t"] * m["P"] + m["pass_of"]) * G + m["g"]) * 128 \
+        + m["lane"]
+    pos = np.empty(A.nnz, np.int64)
+    pos[m["order"]] = flat
+    diag_idx = np.full(n, A.nnz, np.int64)      # sentinel -> appended 0
+    rr = np.repeat(np.arange(n), np.diff(A.indptr))
+    isd = rr == A.indices
+    diag_idx[rr[isd]] = np.flatnonzero(isd)
+    dev = tmpl.device
+    return (tmpl, torch.from_numpy(pos.astype(np.int32)).to(dev),
+            torch.from_numpy(diag_idx.astype(np.int32)).to(dev))
 
 
-def sell_fill(tmpl, pos, diag_idx, data):
-    raise NotImplementedError(
-        "sell_fill serves the GAMG device refresh (pc/gamg_device.py), "
-        "not ported yet (ROADMAP queue 1 item 8)")
+def sell_fill(tmpl: SellMat, pos, diag_idx, data) -> SellMat:
+    """Numeric refill of a SELL template from sorted-CSR data, on the
+    template's device: one scatter to distinct slots (deterministic) and
+    a gather of the diagonal. The pattern arrays are the template's."""
+    d32 = data.to(torch.float32)
+    flat = d32.new_zeros(tmpl.vals.numel())
+    flat[pos] = d32
+    dpad = torch.cat([d32, d32.new_zeros(1)])
+    return SellMat(flat.view(tmpl.vals.shape), tmpl.idx, tmpl.qs,
+                   tmpl.winstart, dpad[diag_idx], tmpl.shape, tmpl.nnz,
+                   tmpl.G, tmpl.S, tmpl.Lp, tmpl.mode)

@@ -5,7 +5,9 @@ PCSetUp :805) and registry pcregis.c:90-146. A PC is an object with
 `.apply(x)`; setup happens in the factory. Ported: none, jacobi,
 pbjacobi, lu/cholesky/redundant (exact LU), ilu (ILU(k), orderings,
 ILUTP, transpose solves), icc, sor (scalar and inode), bjacobi and
-asm/gasm, geometric mg and gamg (smoothed aggregation, scalar route).
+asm/gasm, geometric mg, gamg (smoothed aggregation: the scalar route,
+and the rigid-body-mode and blocked routes for elasticity) and asa
+(adaptive smoothed aggregation).
 Every other type of petsctpu raises NotImplementedError naming its
 ROADMAP item.
 """
@@ -28,12 +30,12 @@ _LATER = {
     **dict.fromkeys(("fieldsplit", "ksp", "composite", "mat", "shell",
                      "hmpi", "nn", "bddc", "eisenstat", "galerkin",
                      "redistribute", "lsc", "svd", "cp", "supportgraph",
-                     "asa", "exotic", "wb", "tfs", "spai"), f"{_Q} 10"),
+                     "exotic", "wb", "tfs", "spai"), f"{_Q} 10"),
 }
 
 
 _PORTED = {"none", "jacobi", "pbjacobi", "lu", "cholesky", "redundant", "mg",
-           "gamg", "ilu", "icc", "sor", "bjacobi", "asm", "gasm"}
+           "gamg", "asa", "ilu", "icc", "sor", "bjacobi", "asm", "gasm"}
 
 
 def register_pc(name: str, factory) -> None:
@@ -105,6 +107,10 @@ def make_pc(pc_type: str, A=None, A_host=None, options: Options = None,
         from petsctpu_torch.pc.gamg import make_gamg
         _require_host(A_host, "gamg")
         return make_gamg(A_host, dtype=dt, options=opts, device=dev)
+    if pc_type == "asa":
+        from petsctpu_torch.pc.asa import make_asa
+        _require_host(A_host, "asa")
+        return make_asa(A_host, dtype=dt, options=opts, device=dev)
     if pc_type in _LATER:
         raise NotImplementedError(
             f"pc_type={pc_type} is not ported yet ({_LATER[pc_type]})")

@@ -10,10 +10,15 @@ Setup is host-side graph work, as in the reference: filtered strength
 graph → greedy root-based aggregation → tentative piecewise-constant
 prolongator → Jacobi-smoothed P → PᵀAP coarse operator, recursively.
 The hierarchy then runs on the device through pc/mg.py's algebraic MG.
-The aggregation is the Python loop of petsctpu's fallback (petsctpu
-runs a native C++ copy of it when built; the port has no native code,
-ROADMAP queue 1 item 8). The rigid-body-mode and blocked (dof > 1)
-routes need pc/asa.py (ROADMAP queue 1 item 8).
+The setup aggregates with the native copy of petsctpu's C++
+(mat/host_graph.py::aggregate, built at first use; no fallback);
+`aggregate` below is the plain Python loop the tests hold it to.
+
+Elasticity takes pc/asa.py's multi-candidate hierarchy, as in
+petsctpu: with pc_gamg_coordinates, the rigid-body modes of the nodes
+(PCSetCoordinates_AGG agg.c:246); with pc_gamg_dof > 1 alone, the dof
+translational vectors (the default null space of a blocked operator).
+Either way aggregation runs on the dof-collapsed node graph.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import scipy.sparse as sp
 
 from petsctpu_torch.core.logging import log_event, petsc_info
 from petsctpu_torch.core.options import Options
+from petsctpu_torch.mat import host_graph
 from petsctpu_torch.pc.mg import (_power_lambda_max,
                                   make_algebraic_mg_from_hierarchy)
 
@@ -146,7 +152,7 @@ def gamg_hierarchy(A, theta: float = 0.0, coarse_n: int = 64,
         Ac = As[-1]
         S = strength_graph(Ac, theta)
         agg = (aggregate_hem(Ac, rounds=2) if coarsen == "hem"
-               else aggregate(S))
+               else host_graph.aggregate(S))
         na = int(agg.max()) + 1
         if na >= Ac.shape[0]:        # no coarsening progress
             break
@@ -193,25 +199,39 @@ def rigid_body_modes(coords: np.ndarray, dof: int = None) -> np.ndarray:
 
 
 def make_gamg(A_host, dtype=None, options: Options = None, device=None):
-    """PCGAMG factory (PCSetUp_GAMG analog) on the scalar route. The
-    hierarchy is timed under the log event PCGAMGHierarchy."""
+    """PCGAMG factory (PCSetUp_GAMG analog). Options key
+    'pc_gamg_coordinates' (node coords array) activates rigid-body-mode
+    candidates via the multi-candidate block prolongator
+    (PCSetCoordinates_AGG agg.c:246); pc_gamg_dof > 1 alone takes the
+    dof translational vectors. The hierarchy is timed under the log
+    event PCGAMGHierarchy."""
+    from petsctpu_torch.pc.asa import asa_hierarchy
+
     opts = options or Options()
     theta = opts.get_real("pc_gamg_threshold", 0.0)
     coarse_n = opts.get_int("pc_gamg_coarse_eq_limit", 64)
     max_levels = opts.get_int("pc_mg_levels", 10)
     smooth = opts.get_int("pc_gamg_agg_nsmooths", 1) > 0
     sm_its = opts.get_int("mg_levels_ksp_max_it", 2)
-    if opts.get("pc_gamg_coordinates") is not None \
-            or opts.get_int("pc_gamg_dof", 0) > 1:
-        raise NotImplementedError(
-            "the rigid-body-mode and blocked GAMG routes (pc_gamg_coordinates"
-            ", pc_gamg_dof > 1) need pc/asa.py, not ported yet (ROADMAP "
-            "queue 1 item 8)")
+    coords = opts.get("pc_gamg_coordinates")
+    dof = opts.get_int("pc_gamg_dof", 0)
     with log_event("PCGAMGHierarchy"):
-        As, Ps = gamg_hierarchy(A_host, theta=theta, coarse_n=coarse_n,
-                                max_levels=max_levels, smooth=smooth,
-                                coarsen=opts.get_str("pc_gamg_coarsen_type",
-                                                     "mis"))
+        if coords is not None:
+            B = rigid_body_modes(np.asarray(coords), dof=dof or None)
+            As, Ps = asa_hierarchy(A_host, B, theta=theta,
+                                   coarse_n=coarse_n, max_levels=max_levels,
+                                   smooth=smooth, bs=dof or 1)
+        elif dof > 1:
+            n = sp.csr_matrix(A_host).shape[0]
+            B = np.tile(np.eye(dof), (n // dof, 1))
+            As, Ps = asa_hierarchy(A_host, B, theta=theta,
+                                   coarse_n=coarse_n, max_levels=max_levels,
+                                   smooth=smooth, bs=dof)
+        else:
+            As, Ps = gamg_hierarchy(
+                A_host, theta=theta, coarse_n=coarse_n,
+                max_levels=max_levels, smooth=smooth,
+                coarsen=opts.get_str("pc_gamg_coarsen_type", "mis"))
     petsc_info("PCSetUp_GAMG",
                "level sizes " + " -> ".join(str(a.shape[0]) for a in As))
     return make_algebraic_mg_from_hierarchy(

@@ -383,27 +383,6 @@ def op_format(op) -> tuple:
     return (type(op).__name__,)
 
 
-def _sell_choice(M, candidates):
-    """(G, mode) of the SELL pack of M with the fewest padded slots among
-    `candidates`, or None when none keeps its window within 8192 rows or
-    the cheapest pads more than 8 slots per average row — petsctpu's
-    cost test, shared by its packed and non-packed branches."""
-    from petsctpu_torch.mat.sell import sell_plan_stats
-
-    best = None
-    for G, mode in candidates:
-        if M.shape[0] < G * 128:
-            continue
-        npass, _, S, _ = sell_plan_stats(M, G=G, mode=mode)
-        cost = -(-M.shape[0] // (G * 128)) * npass * G * 128
-        if S <= 8192 and (best is None or cost < best[1]):
-            best = ((G, mode), cost)
-    avg = M.nnz / max(M.shape[0], 1)
-    if best is not None and best[1] <= 8 * max(avg, 1e-9) * M.shape[0]:
-        return best[0]
-    return None
-
-
 def pack_hierarchy(As, Ps, dtype, use_sell: bool):
     """The packed branch's host side, a copy of petsctpu/pc/mg.py's:
     every level's operator, prolongation and restriction in the format
@@ -421,7 +400,7 @@ def pack_hierarchy(As, Ps, dtype, use_sell: bool):
 
     from petsctpu_torch.mat.ell import aij_pack
     from petsctpu_torch.mat.rectband import rectband_pack
-    from petsctpu_torch.mat.sell import sell_pack
+    from petsctpu_torch.mat.sell import sell_pack_cheapest
 
     fbuf, ibuf, metas = [], [], []
     fo = io = 0
@@ -448,12 +427,10 @@ def pack_hierarchy(As, Ps, dtype, use_sell: bool):
 
     def pack_op(M):
         if use_sell:
-            Ml = sp.csr_matrix(M).astype(np.float32)
-            Ml.sum_duplicates()
-            choice = _sell_choice(Ml, ((16, "diag"), (16, "chunk"),
-                                       (8, "chunk")))
-            if choice is not None:
-                arrs, st = sell_pack(Ml, G=choice[0], mode=choice[1])
+            pack = sell_pack_cheapest(M, ((16, "diag"), (16, "chunk"),
+                                          (8, "chunk")))
+            if pack is not None:
+                arrs, st = pack
                 # the int8 idx rides the int32 buffer (4 entries a word)
                 return ("sell", putf(arrs["vals"]),
                         puti(arrs["idx"].ravel().view(np.int32)),
@@ -523,14 +500,16 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
     hierarchy is packed on the host (pack_hierarchy) and moved to the
     device in one float and one int32 buffer (convert.mg_from_packed),
     under the log events PCMGPack and PCMGTransfer; otherwise each level
-    is built on its own, with an exact sparse LU coarse solve. Either
-    way a level that restricts through P.multT builds P's transpose plan
-    (kernel K3's) under the log event PCMGTransposePlan."""
-    from petsctpu_torch.convert import mg_from_packed
+    is built on its own (its operator and transfers, packed and moved,
+    under PCMGLevelOps; its Chebyshev bounds under PCMGSmoother), with an
+    exact sparse LU coarse solve (PCMGCoarseLU). Either way a level that
+    restricts through P.multT builds P's transpose plan (kernel K3's)
+    under the log event PCMGTransposePlan."""
+    from petsctpu_torch.convert import mg_from_packed, sell_from_arrays
     from petsctpu_torch.device import resolve_device
     from petsctpu_torch.mat.dense import Dense
     from petsctpu_torch.mat.ell import aij_from_scipy
-    from petsctpu_torch.mat.sell import sell_from_scipy, sell_viable
+    from petsctpu_torch.mat.sell import sell_if_viable, sell_pack_cheapest
 
     if fmt == "band":
         raise NotImplementedError(
@@ -562,10 +541,9 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
 
     def level_op(Ah):
         if fmt in ("sell", "auto") and fp32:
-            Ah2 = sp.csr_matrix(Ah).astype(np.float32)
-            Ah2.sum_duplicates()
-            if sell_viable(Ah2):
-                return sell_from_scipy(Ah2, device=dev)
+            M = sell_if_viable(Ah, device=dev)
+            if M is not None:
+                return M
         n_ = sp.csr_matrix(Ah).shape[0]
         if fmt == "auto" and fp32 and n_ <= 4096 \
                 and n_ * n_ * 4 <= DENSE_MAX_BYTES:
@@ -582,11 +560,9 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
         Pl.sort_indices()
         m_, n_ = Pl.shape
         if fp32:
-            P32 = Pl.astype(np.float32)
-            choice = _sell_choice(P32, ((8, "chunk"), (16, "chunk")))
-            if choice is not None:
-                P = sell_from_scipy(P32, G=choice[0], mode="chunk",
-                                    device=dev)
+            pack = sell_pack_cheapest(Pl, ((8, "chunk"), (16, "chunk")))
+            if pack is not None:
+                P = sell_from_arrays(*pack, device=dev)
                 with log_event("PCMGTransposePlan"):
                     P.transpose_plan()
                 return P, None
@@ -599,11 +575,14 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
 
     levels = []
     for l in range(len(Ps)):
-        Pd, Rd = transfer_ops(Ps[l])
-        levels.append(MGLevel(level_op(As[l]), Pd,
-                              _cheby_smoother(As[l], dtype, sm_its, sm_pc,
-                                              dev), Rd))
-    coarse_pc = make_lu(As[-1], dtype=dtype, device=dev)
-    coarse_A = aij_from_scipy(As[-1], dtype=dtype, device=dev)
+        with log_event("PCMGLevelOps"):
+            Pd, Rd = transfer_ops(Ps[l])
+            Ad = level_op(As[l])
+        with log_event("PCMGSmoother"):
+            sm = _cheby_smoother(As[l], dtype, sm_its, sm_pc, dev)
+        levels.append(MGLevel(Ad, Pd, sm, Rd))
+    with log_event("PCMGCoarseLU"):
+        coarse_pc = make_lu(As[-1], dtype=dtype, device=dev)
+        coarse_A = aij_from_scipy(As[-1], dtype=dtype, device=dev)
     return permuted(MGPC(tuple(levels), coarse_pc, coarse_A, cycles,
                          mg_type))

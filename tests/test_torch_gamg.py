@@ -19,7 +19,7 @@ restriction through kernel K3) against petsctpu's, on the CPU.
 * CG+GAMG through KSP: equal its and reason, history within 1e-3
   relative (fp32; the reference's reductions run on XLA:CPU).
 * DenseLUPC against scipy on a matrix that pivots; Dense and
-  RectBandMat against petsctpu's; the options that are not ported raise.
+  RectBandMat against petsctpu's; the option that is not ported raises.
 """
 
 from dataclasses import replace
@@ -357,9 +357,6 @@ def test_dense_and_rectband_match_petsctpu():
 
 
 @pytest.mark.parametrize("opts,exc,match", [
-    ({"pc_gamg_coordinates": np.zeros((16, 2))}, NotImplementedError,
-     "queue 1 item 8"),
-    ({"pc_gamg_dof": "2"}, NotImplementedError, "queue 1 item 8"),
     ({"pc_gamg_mat_type": "band"}, NotImplementedError, "queue 1 item 9"),
 ])
 def test_gamg_routes_not_ported_raise(opts, exc, match):

@@ -37,7 +37,8 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "pc.factor", "pc.asm", "pc.sor", "ksp.bcgs", "ksp.cheby",
               "ksp.minres", "ksp.extra", "ksp.more", "ksp.lcd_tcqmr",
               "ksp.ibcgs", "ksp.dgmres", "ksp.specest", "ksp.guess",
-              "ksp.mixed", "mat.nullspace"):
+              "ksp.mixed", "mat.nullspace", "mat.host_graph", "mat.spgemm",
+              "models.elasticity", "pc.asa", "pc.gamg_device"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
@@ -80,6 +81,10 @@ def _entry_points():
     from petsctpu_torch.ksp.guess import make_fischer_guess
     from petsctpu_torch.mat.nullspace import make_nullspace
     from petsctpu_torch.probes.__main__ import main as probes_main
+    from petsctpu_torch.mat.sell import sell_template
+    from petsctpu_torch.mat.spgemm import SpGEMMPlan
+    from petsctpu_torch.pc.gamg_device import gamg_device_plan, \
+        gamg_probe_plan
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
     return {
@@ -93,6 +98,12 @@ def _entry_points():
         "make_nullspace": lambda **kw: make_nullspace(
             10, vecs=[np.arange(10.0)], **kw).vecs,
         "make_fischer_guess": lambda **kw: make_fischer_guess(10, **kw).X,
+        "sell_template": lambda **kw: sell_template(A, G=8, **kw),
+        "SpGEMMPlan.plan": lambda **kw: SpGEMMPlan.plan(A, A, **kw).template,
+        "gamg_device_plan": lambda **kw: gamg_device_plan(
+            A, coarse_n=200, **kw).csr_from_ell,
+        "gamg_probe_plan": lambda **kw: gamg_probe_plan(
+            A, coarse_n=200, **kw).csr_from_ell,
         "probes.__main__": lambda **kw: probes_main(
             ["probe_gather6_C", *(("--device", kw["device"]) if kw
                                   else ())])[0]["out"],
@@ -102,7 +113,9 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["aij_from_scipy", "mat_from_options",
                                   "sell_from_scipy", "DA.create_matrix",
                                   "stencil_from_scipy", "probes.__main__",
-                                  "make_nullspace", "make_fischer_guess"])
+                                  "make_nullspace", "make_fischer_guess",
+                                  "sell_template", "SpGEMMPlan.plan",
+                                  "gamg_device_plan", "gamg_probe_plan"])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

@@ -153,6 +153,89 @@ def test_ex1_1_gmres_jacobi_golden():
     assert float(r.history[5]) < 1e-11
 
 
+def _golden_ex2(m, n, pc_type, options=None):
+    """ksp ex2 on an m×n grid with an ex2.c rtol of 1e-2/((m+1)(n+1))."""
+    A, b, u = ex2_system(m, n)
+    Ad = aij_from_scipy(A, device=CPU)
+    pc = make_pc(pc_type, A=Ad, A_host=A, options=options)
+    return A, torch.from_numpy(b), u, Ad, pc, 1e-2 / ((m + 1) * (n + 1))
+
+
+def test_ex2_1_gmres_ilu_golden():
+    """output/ex2_1.out (tests/test_golden.py:30): -m 5 -n 5, GMRES +
+    ILU(0), refine_always."""
+    _, b, u, Ad, pc, rtol = _golden_ex2(5, 5, "ilu")
+    r = tksp.ksp_solve(Ad, b, pc=pc, ksp_type="gmres", rtol=rtol,
+                       atol=1e-50, cgs_refine="always")
+    golden = [3.21109, 0.93268, 0.103515, 0.00787798, 0.000387275]
+    assert int(r.its) == 4
+    np.testing.assert_allclose(r.history[:5].numpy(), golden, rtol=2e-5)
+    np.testing.assert_allclose(np.linalg.norm(r.x.numpy() - u), 0.000392701,
+                               rtol=1e-4)
+
+
+def test_ex2_3_gmres_ssor_golden():
+    """output/ex2_3.out (tests/test_golden.py:44): the default 8×7 grid,
+    -pc_type sor -pc_sor_symmetric."""
+    _, b, _, Ad, pc, rtol = _golden_ex2(8, 7, "sor", Options(
+        {"pc_sor_symmetric": None}))
+    r = tksp.ksp_solve(Ad, b, pc=pc, ksp_type="gmres", rtol=rtol,
+                       atol=1e-50, cgs_refine="always")
+    golden = [2.98499, 1.13133, 0.575925, 0.108871, 0.0213225,
+              0.00325239, 0.000874208, 0.000179613]
+    assert int(r.its) == 7
+    np.testing.assert_allclose(r.history[:8].numpy(), golden, rtol=2e-5)
+
+
+def test_ex1_2_gmres_ssor_golden():
+    """output/ex1_2.out (tests/test_golden.py:73): tridiagonal n=10,
+    GMRES + symmetric SOR, rtol 1e-5."""
+    import scipy.sparse as sp
+    n = 10
+    A = sp.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)],
+                 [-1, 0, 1]).tocsr()
+    u = np.ones(n)
+    Ad = aij_from_scipy(A, device=CPU)
+    pc = make_pc("sor", A=Ad, A_host=A,
+                 options=Options({"pc_sor_symmetric": None}))
+    r = tksp.ksp_solve(Ad, torch.from_numpy(A @ u), pc=pc, ksp_type="gmres",
+                       rtol=1e-5, atol=1e-50, cgs_refine="always")
+    golden = [0.968764, 0.361001, 0.247329, 0.0808915, 0.01289,
+              0.00375064, 0.000294092, 1.40861e-05, 3.48863e-07]
+    assert int(r.its) == 8
+    np.testing.assert_allclose(r.history[:9].numpy(), golden, rtol=2e-5)
+    np.testing.assert_allclose(np.linalg.norm(r.x.numpy() - u), 4.10316e-07,
+                               rtol=1e-3)
+
+
+def test_ex2_fbcgs_ilu_golden():
+    """output/ex2_fbcgs.out (tests/test_golden.py:90): -ksp_type fbcgs
+    -pc_type ilu on the default 8×7 grid, 4 its, error 0.000319503."""
+    _, b, u, Ad, pc, rtol = _golden_ex2(8, 7, "ilu")
+    r = tksp.ksp_solve(Ad, b, pc=pc, ksp_type="fbcgs", rtol=rtol,
+                       atol=1e-50)
+    assert int(r.its) == 4
+    np.testing.assert_allclose(np.linalg.norm(r.x.numpy() - u), 0.000319503,
+                               rtol=1e-3)
+
+
+def test_ex2_1_exact_output_text_golden(capsys):
+    """A character-level diff of the monitor stream against
+    output/ex2_1.out (tests/test_golden.py:102)."""
+    _, b, u, Ad, pc, rtol = _golden_ex2(5, 5, "ilu")
+    r = tksp.ksp_solve(Ad, b, pc=pc, ksp_type="gmres", rtol=rtol,
+                       atol=1e-50, cgs_refine="always", monitor=True)
+    out = capsys.readouterr().out
+    out += (f"Norm of error {np.linalg.norm(r.x.numpy() - u):g} "
+            f"iterations {int(r.its)}\n")
+    assert out == ("  0 KSP Residual norm 3.21109 \n"
+                   "  1 KSP Residual norm 0.93268 \n"
+                   "  2 KSP Residual norm 0.103515 \n"
+                   "  3 KSP Residual norm 0.00787798 \n"
+                   "  4 KSP Residual norm 0.000387275 \n"
+                   "Norm of error 0.000392701 iterations 4\n")
+
+
 def _sell_ops(route):
     A, b, _ = ex45_system(16, 16, 16)
     if route == "mat_from_options":

@@ -192,16 +192,11 @@ def test_aij_and_jacobi_from_arrays():
 
 
 def test_sell_multT_is_k3():
-    """multT runs K3 in chunk mode only; the GAMG device refresh's
-    templates are not ported yet."""
+    """multT runs K3 in chunk mode only."""
     T = tsell.sell_from_scipy(banded_random(4 * 4 * 128, 60, 5), G=4,
                               mode="diag", device=CPU)
     with pytest.raises(NotImplementedError, match="chunk mode only"):
         T.multT(torch.ones(T.shape[0]))
-    for fn in (lambda: tsell.sell_template(None), lambda: tsell.sell_fill(
-            None, None, None, None)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            fn()
 
 
 def _prolongator_like(G, seed=5, wide=False, empty_tile=False):
@@ -507,3 +502,28 @@ def test_rcm_fast_and_bandwidth_match_jax():
     assert bandwidth(Ap) == jbandwidth(Ap) <= bandwidth(A)
     with pytest.raises(ValueError, match="unknown ordering"):
         get_ordering(A, "amd")
+
+
+@pytest.mark.parametrize("G,mode", [(16, "diag"), (8, "chunk")])
+def test_plan_of_unsorted_rows_with_duplicates_equals_reference(G, mode):
+    """A CSR whose rows list their columns out of order, some twice:
+    _plan sorts it first, and its plan (each slot's tile, pass, row,
+    window position; the stats) equals petsctpu's lexsorted one."""
+    rng = np.random.default_rng(5)
+    A = banded_random(3 * G * 128 + 77, 900, 9)
+    rows = np.repeat(np.arange(A.shape[0]), np.diff(A.indptr))
+    dup = rng.random(A.nnz) < 0.1
+    perm = np.lexsort((rng.random(A.nnz + dup.sum()),
+                       np.concatenate([rows, rows[dup]])))
+    cols = np.concatenate([A.indices, A.indices[dup]])[perm]
+    data = np.concatenate([A.data, A.data[dup]])[perm]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        rows[np.r_[np.arange(A.nnz), np.flatnonzero(dup)]],
+        minlength=A.shape[0]))])
+    B = sp.csr_matrix((data, cols, indptr), shape=A.shape)
+    assert not B.has_sorted_indices
+    ours, ref = tsell._plan(B, G, mode), jsell._plan(B, G, mode)
+    for k in ("t", "g", "lane", "pos", "q", "pass_of", "wmin"):
+        np.testing.assert_array_equal(ours[k], ref[k])
+    assert tsell.sell_plan_stats(B, G, mode) == jsell.sell_plan_stats(
+        B, G, mode)

@@ -4,7 +4,8 @@ Replays, on the CPU in fp64, each case of tests/sweep_cases.py whose
 ksp type (cg, groppcg, gmres, fgmres by mapping; every other type since
 slice 6), pc type (none, jacobi; lu and redundant since slice 2; ilu,
 icc, sor, bjacobi and asm since slice 5) and matrix type (aij) the port
-has, and holds it to its oracle stream in tests/data/oracle_sweep/
+has, -ksp_diagonal_scale solving the scaled system as
+tests/test_sweep.py does, and holds it to its oracle stream in tests/data/oracle_sweep/
 exactly as tests/test_sweep.py::run_serial does: the exact iteration
 count (TFQMR's stream has two entries an iteration, Chebyshev's first
 comes after its first correction), and the stream within the case's
@@ -34,7 +35,7 @@ from test_sweep import oracle_stream, parse_args
 
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.ksp import ksp_solve
-from petsctpu_torch.ksp.api import config_from_options
+from petsctpu_torch.ksp.api import config_from_options, diagonal_scale_system
 from petsctpu_torch.ksp.common import KSPConfig
 from petsctpu_torch.mat import aij_from_scipy
 from petsctpu_torch.models import ex2_system
@@ -47,8 +48,10 @@ SLICE1 = ("sw_ex2_cg_none", "sw_ex2_gmres_restart10", "sw_ex2_gmres_mgs",
           "sw_ex23b_gmres_jacobi", "sw2_ex2_cg_natural",
           "sw6_ex2_gmres_restart45", "sw10_ex2_cg_sr_natural")
 SLICE2 = ("sw_ex2_cg_lu", "sw7_ex2_cg_redundant")
-# every serial case with pc ilu, icc, sor, bjacobi or asm (ilu the
-# default) on a system build_system makes, with a ksp type the port has
+# every serial AIJ case with pc ilu, icc, sor, bjacobi or asm (ilu the
+# default), or with -ksp_diagonal_scale and a pc the port has, on a
+# system build_system makes (ex1/ex2/ex23 or an ex10 datafile), with a
+# slice-1 ksp type
 SLICE5 = ("sw_ex2_cg_sor15", "sw_ex2_cg_icc", "sw_ex2_cg_bjacobi4",
           "sw_ex2_gmres_cgs_always", "sw_ex2_gmres_rcm_ilu",
           "sw_ex2_cg_asm4", "sw_ex1_gmres_ilu", "sw_ex23_cg_icc",
@@ -60,7 +63,14 @@ SLICE5 = ("sw_ex2_cg_sor15", "sw_ex2_cg_icc", "sw_ex2_cg_bjacobi4",
           "sw2_ex23_cg_sor120", "sw6_ex2_cg_icc1", "sw6_ex2_cg_icc2",
           "sw6_ex2_groppcg_sor", "sw7_ex2_gmres_ilu_nd",
           "sw7_ex2_gmres_ilu_qmd", "sw7_ex2_gmres_ilu_1wd",
-          "sw7_ex2_cg_icc_rcm", "sw7_ex2_gmres_ilu3", "sw10_ex2_cg_sr_icc")
+          "sw7_ex2_cg_icc_rcm", "sw7_ex2_gmres_ilu3", "sw10_ex2_cg_sr_icc",
+          # the ex10 datafiles of tests/data
+          "sw_ex10p_groppcg_icc", "sw_ex10p_cg_ilu_rcm", "sw_ex10n_gmres_sor",
+          "sw_ex10b_gmres_icc", "sw_ex10p_cg_sor12", "sw_ex10p_gmres_icc1",
+          "sw_ex10n_fgmres_ilu1", "sw7_ex10p_cg_icc3",
+          "sw2_ex10b_gmres_inodesor", "sw6_ex10b_gmres_inodesor2",
+          # -ksp_diagonal_scale: the symmetrically scaled system
+          "sw10_ex2_gmres_dscale", "sw10_ex10n_gmres_dscale_ilu")
 # every serial case whose ksp type is one of ROADMAP queue 1 item 7's,
 # on an ex1/ex2/ex23 system (70) or an ex10 datafile (14)
 SLICE6 = (
@@ -166,15 +176,27 @@ def test_slice6_is_every_serial_case_of_its_ksp_types():
 
 
 def test_slice5_is_every_case_of_its_pcs_the_port_runs():
-    """SLICE5 is the whole rule: serial, pc ilu/icc/sor/bjacobi/asm,
-    an ex1/ex2/ex23 system and a ksp type the port had then (slice 1's;
-    the other types' cases are SLICE6)."""
-    rule = [c.tag for c in CASES
-            if c.np == 1 and c.sys.split(":")[0] in ("ex1", "ex2", "ex23")
-            and parse_args(c.args).get("pc_type", "ilu") in (
-                "ilu", "icc", "sor", "bjacobi", "asm")
-            and parse_args(c.args).get("ksp_type", "gmres") in SLICE1_TYPES]
+    """SLICE5 is the whole rule: serial, AIJ, an ex1/ex2/ex23 system or
+    an ex10 datafile, a slice-1 ksp type (the other types' cases are
+    SLICE6), and pc ilu/icc/sor/bjacobi/asm, or -ksp_diagonal_scale
+    with one of those or none/jacobi. The replay then holds 140 serial
+    cases."""
+    slice5_pcs = ("ilu", "icc", "sor", "bjacobi", "asm")
+
+    def in_rule(c):
+        f = parse_args(c.args)
+        pc = f.get("pc_type", "ilu")
+        return (c.np == 1 and f.get("mat_type", "aij") == "aij"
+                and (c.sys.split(":")[0] in ("ex1", "ex2", "ex23")
+                     or c.sys.startswith("file:ex10"))
+                and f.get("ksp_type", "gmres") in SLICE1_TYPES
+                and (pc in slice5_pcs or "ksp_diagonal_scale" in f
+                     and pc in slice5_pcs + ("none", "jacobi")))
+
+    rule = [c.tag for c in CASES if in_rule(c)]
     assert sorted(rule) == sorted(SLICE5)
+    assert sum(BY_TAG[t].sys.startswith("file:") for t in SLICE5) == 11
+    assert len(set(SLICE1 + SLICE2 + SLICE5 + SLICE6)) == 140
 
 
 def test_petsc_order_dot_sums_left_to_right():
@@ -244,6 +266,10 @@ def test_sweep_case_through_port(tag, monkeypatch):
         flags = {**flags, "ksp_rtol":
                  repr(1e-2 / ((int(p["m"]) + 1) * (int(p["n"]) + 1)))}
     A, b = build_system(case.sys)
+    if "ksp_diagonal_scale" in flags:
+        # as tests/test_sweep.py::run_serial: solve the symmetrically
+        # scaled system (the monitor shows the scaled norms)
+        A, b, _ = diagonal_scale_system(A, b)
     opts, cfg = port_options(flags)
     Ad = aij_from_scipy(A, device="cpu")
     pc = make_pc(flags.get("pc_type", "ilu"), A=Ad, A_host=A, options=opts)
