@@ -189,7 +189,8 @@ node, a soft inclusion, fp32 SELL in natural order):
    restricts through it. K2 on the fine operator and K3 on each of
    those prolongators are then held bit for bit against their plain
    versions and timed (as phases 5 and 12 do). The blocked route
-   (-pc_gamg_dof 2 alone) runs once at the same size;
+   (-pc_gamg_dof 2 alone) runs once at ne = 511 (since slice 8; the
+   script's time: it ran at ne = 1023 before);
 22. both routes at ne = 63 on the card against the port's CPU path,
    equal its and reason: fp32 on SELL for b and four one-ulp changes of
    b with histories within 5e-4, and fp64 on AIJ within 1e-8. The CPU
@@ -197,7 +198,7 @@ node, a soft inclusion, fp32 SELL in natural order):
    change of b moves its NC history by up to 3.95e-4 over 40 such b
    (RBM 1.90e-4), so no fp32 run of another rounding meets 1e-4;
 23. the device refresh: gamg_probe_plan from asa_tentatives' P0s on the
-   ne = 1023 system, refreshed on the card with D·A·D (d =
+   ne = 511 system (ne = 1023 before slice 8; the script's time), refreshed on the card with D·A·D (d =
    exp(0.2·N(0,1))), its K2 launches (12 power steps + ncp + ncc a SELL
    level) and host reads (one) counted, one refresh timed, each level's
    P and PᵀAP held against scipy's, in fp64 from that level's refreshed
@@ -216,6 +217,45 @@ node, a soft inclusion, fp32 SELL in natural order):
 `python3 chip_smoke.py slice7` runs the build and phases 21-24 alone
 (its last line lists their launches, not the contract's result line).
 
+Slice 8 runs after slice 7, on ksp ex43 (Q1-Q1 Stokes, 3 dofs a node,
+SolCx with η₁/η₀ = 1e6, xc = 0.5, nz = 2), fp64 on AIJ:
+25. its path at mx = my = 1023 (n = 3,145,728, 2,097,152 velocity):
+   make_fieldsplit on the PC matrix B with the operator A's rows
+   (Amat_host), fields {0,1} and {2} by dof % 3, -pc_fieldsplit_type
+   symmetric_multiplicative -fieldsplit_0_pc_type gamg
+   -fieldsplit_0_pc_gamg_dof 2 -fieldsplit_1_pc_type jacobi, and
+   FGMRES(30) on A to rtol 1e-8: its, reason and the true relative
+   residual (≤ 1e-8, or it fails), the error line (h, p L2, u L2, u H1)
+   against SolCx, ms per iteration first and repeated, the profiled
+   repeat's idle share and its top kernels with their launches an
+   iteration, the setup split (assembly, submatrix extraction and device
+   blocks, GAMG hierarchy, level operators, coarse solve), the GAMG
+   levels' sizes and formats, every hand kernel's launches an iteration
+   (K1-K3, SpTRSV, H1-H3, even at zero) and the host reads; then
+   AIJ.mult on A timed (a call and 20 from a CUDA graph) beside its
+   byte bound at the measured STREAM triad and torch.mv on CSR;
+26. the ex43 golden at mx = 20 (LU on the velocity) on the card and on
+   the CPU: the monitor stream and the error line digit for digit, 8
+   its;
+27. -pc_fieldsplit_type schur (fact full) with GAMG(dof 2) at mx = 255,
+   card against CPU: equal its and reason, histories within 5e-7 (at
+   least 30 times the CPU's own change under a 1e-15 change of b,
+   measured there), the inner Schur GMRES's host reads counted;
+28. every other slice-8 PC type once, at its reference test's size, card
+   against CPU (composite both modes, ksp with and without specest,
+   shell, mat, eisenstat and its transformed system, galerkin,
+   redistribute, lsc, svd, cp, spai, supportgraph, exotic both spaces,
+   tfs, additive on the MAC Stokes model with its null space, three
+   fields): equal its and reason, histories within each case's bound
+   (1e-10 to 1e-7, at least 30 times the CPU's own difference under a
+   1e-15 change of b), or, for the exact solvers and galerkin, one apply
+   within 1e-12; then SpTRSV against its plain version, bit for
+   bit, on the golden's velocity LU pair (sptrsv_lu, 10 more solves the
+   same bits, its fused apply timed) and on the Eisenstat triangles.
+The kernels line's SpTRSV launches gain the card's solves of phases 26
+and 28 (phase 25 launches none). `python3 chip_smoke.py slice8` runs the
+build and phases 25-28 alone.
+
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
 """
@@ -224,11 +264,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import scipy.sparse as sp
@@ -251,13 +293,19 @@ from petsctpu_torch.mat import (StencilMat, aij_from_scipy, aij_to_scipy,
                                 mat_from_options, stencil_from_scipy,
                                 stencil_to_scipy)
 from petsctpu_torch.mat import stencil as stencil_module
+from petsctpu_torch.mat.dense import Dense
 from petsctpu_torch.mat.nullspace import make_nullspace
 from petsctpu_torch.mat.factor import (SpTRSVPlan, ilu0, lu_solve,
                                        make_sptrsv_plan, stacked_sptrsv_plan)
 from petsctpu_torch.mat.sell import (SellMat, sell_from_scipy, sell_pack,
                                      sell_to_scipy)
-from petsctpu_torch.models import ex45_system, laplacian_2d
+from petsctpu_torch.models import (ex2_system, ex45_system, laplacian_2d,
+                                   poisson_3d)
 from petsctpu_torch.models.elasticity import ex55_system
+from petsctpu_torch.models.q1stokes import (integrate_errors,
+                                            q1q1_stokes_system,
+                                            solcx_nodal_solution)
+from petsctpu_torch.models.stokes import stokes_mac
 from petsctpu_torch.ops import _build
 from petsctpu_torch.ops.gather_forms import gather_forms
 from petsctpu_torch.ops.sell_pass import sell_pass, sell_pass_plain
@@ -270,7 +318,10 @@ from petsctpu_torch.ops.sptrsv import (device_shape, sptrsv, sptrsv_lu,
                                        sptrsv_lu_plain, sptrsv_plain)
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 from petsctpu_torch.ops.window_spmv import window_spmv, window_spmv_plain
+from petsctpu_torch.pc import make_pc
 from petsctpu_torch.pc.asa import asa_tentatives
+from petsctpu_torch.pc.extra import make_eisenstat_system
+from petsctpu_torch.pc.fieldsplit import make_fieldsplit
 from petsctpu_torch.pc.gamg import rigid_body_modes
 from petsctpu_torch.pc.gamg_device import (GAMGProbeLevelPlan, PPair,
                                            csr_data_of_matching,
@@ -279,6 +330,7 @@ from petsctpu_torch.pc.simple import make_jacobi
 from petsctpu_torch.pc.sor import make_sor
 from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
                                    HBM_BYTES_PER_S, graph_ms, time_ms)
+from petsctpu_torch.vec.indexset import IS
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "scripts"))
@@ -369,7 +421,8 @@ SLICE6_SMALL = {
 # slice 7: ksp ex55 (2-D Q1 elasticity) CG + GAMG at 1024² nodes
 EX55_NE = 1023             # n = 2,097,152 dofs
 EX55_SMALL_NE = 63         # card against CPU: n = 8,192
-REFRESH_NE = 1023          # the probe refresh's ex55 system
+EX55_NC_NE = 511           # the blocked route, once: n = 524,288
+REFRESH_NE = 511           # the probe refresh's ex55 system
 DEVICE_PLAN_GRID = 64      # the SpGEMM refresh on ex45 at 64³
 ASA_NE = 255               # -pc_type asa, card against CPU: n = 131,072
 SLICE7_OPTS = {"ksp_type": "cg", "pc_type": "gamg", "pc_gamg_dof": "2",
@@ -383,6 +436,35 @@ ULP_SEEDS = 40             # one-ulp changes of b the CPU's noise is read over
 REFRESH_SMALL_NE = 31      # D·A·D refresh held against petsctpu's in tests
 REFRESH_SMALL_TRUE_MAX = 1.1e-3  # its fp32 true relative residual bound
 REFRESH_TREND_NES = (63, 127, 255)  # the same case on the card, printed
+EX43_MX = 1023            # n = 3,145,728 dofs, 2,097,152 of them velocity
+EX43_SCHUR_MX = 255       # schur full card against CPU: n = 196,608
+SOLCX = dict(c_str=0, eta0=1.0, eta1=1.0e6, xc=0.5, nz=2)
+EX43_OPTS = {"pc_fieldsplit_type": "symmetric_multiplicative",
+             "fieldsplit_0_pc_type": "gamg", "fieldsplit_0_pc_gamg_dof": "2",
+             "fieldsplit_1_pc_type": "jacobi"}
+EX43_GOLDEN_OPTS = {"pc_fieldsplit_type": "symmetric_multiplicative",
+                    "fieldsplit_0_pc_type": "lu",
+                    "fieldsplit_1_pc_type": "jacobi"}
+EX43_SCHUR_OPTS = {"pc_fieldsplit_type": "schur",
+                   "pc_fieldsplit_schur_fact_type": "full",
+                   "fieldsplit_0_pc_type": "gamg",
+                   "fieldsplit_0_pc_gamg_dof": "2",
+                   "fieldsplit_1_pc_type": "jacobi"}
+SCHUR_RTOL = 5e-7          # its history card against CPU; phase 27
+                           # requires 30 times the CPU's own change under
+                           # a 1e-15 change of b (1.25e-8 on a CPU)
+# the ex43 golden (output/ex43_1.out) and its DMDAIntegrateErrors line
+EX43_GOLDEN = (
+    "  0 KSP Residual norm 0.0239928 \n"
+    "  1 KSP Residual norm 0.00018525 \n"
+    "  2 KSP Residual norm 3.95184e-05 \n"
+    "  3 KSP Residual norm 8.60318e-07 \n"
+    "  4 KSP Residual norm 9.54453e-08 \n"
+    "  5 KSP Residual norm 1.07793e-08 \n"
+    "  6 KSP Residual norm 9.097e-10 \n"
+    "  7 KSP Residual norm 2.479e-10 \n"
+    "  8 KSP Residual norm 4.583e-11 \n")
+EX43_GOLDEN_ERRORS = "4.7619e-02   1.2519e-03   7.1432e-05   2.3330e-03 "
 SMALL_PCS = {"bjacobi(8) ILU": {"pc_type": "bjacobi",
                                 "pc_bjacobi_blocks": "8"},
              "ASM(4, overlap 1)": {"pc_type": "asm", "pc_asm_blocks": "4",
@@ -472,15 +554,15 @@ def check_gmres_history(hist, restart):
     return len(rises)
 
 
+HAND_KERNELS = {"stencil_mult": stencil_mult, "sell_spmv": sell_spmv,
+                "sell_spmvT": sell_spmvT, "sptrsv": sptrsv,
+                "sptrsv_lu": sptrsv_lu, "sell_pass": sell_pass,
+                "window_spmv": window_spmv, "gather_forms": gather_forms}
+
+
 def reset_counts():
-    sell_spmv.launches = 0
-    stencil_mult.launches = 0
-    sell_spmvT.launches = 0
-    sell_pass.launches = 0
-    window_spmv.launches = 0
-    gather_forms.launches = 0
-    sptrsv.launches = 0
-    sptrsv_lu.launches = 0
+    for k in HAND_KERNELS.values():
+        k.launches = 0
 
 
 def drive_main_path(A, b_np):
@@ -1172,10 +1254,11 @@ def setup_split():
             t["MatSolvePlan"] - t["MatSolveLevels"], t["MatSolveSegments"])
 
 
-def profile_solve(ksp, b, label="slice5"):
+def profile_solve(ksp, b, label="slice5", top=6):
     """The device's busy and idle shares of a repeat of the solve under
-    torch.profiler, its top kernels by device time, and SpTRSV's and
-    K2's shares of the busy time."""
+    torch.profiler, its `top` kernels by device time (with their
+    launches an iteration), and SpTRSV's and K2's shares of the busy
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1199,7 +1282,8 @@ def profile_solve(ksp, b, label="slice5"):
           f"{busy / n / 1e3:.4f} ms/it, idle share "
           f"{1 - busy / (wall * 1e6):.3f}; SpTRSV {share['sptrsv']:.3f} "
           f"and K2 {share['sell_spmv']:.3f} of the busy time")
-    for name, (count, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:6]:
+    for name, (count, us) in sorted(per.items(),
+                                    key=lambda kv: -kv[1][1])[:top]:
         print(f"  {us / n / 1e3:9.5f} ms  {count / n:5.1f}/it  {name[:80]}")
 
 
@@ -2239,8 +2323,8 @@ def spy_restrictions(pc):
     return calls, undo
 
 
-def drive_slice7_path(A, b_np, coords, route):
-    """KSP ex55 -pc_type gamg at ne = EX55_NE on the fp32 SELL operator
+def drive_slice7_path(A, b_np, coords, route, ne=EX55_NE):
+    """KSP ex55 -pc_type gamg at ne (EX55_NE) on the fp32 SELL operator
     (natural order), route "rbm" (pc_gamg_coordinates) or "nc"
     (pc_gamg_dof 2 alone), counting launches from just before the
     operator is built to just after the solve."""
@@ -2260,7 +2344,7 @@ def drive_slice7_path(A, b_np, coords, route):
     setup_s = time.perf_counter() - t
     sp_ = slice7_split()
     pc = ksp.pc
-    print(f"slice 7 {route}: ex55 ne={EX55_NE} n={A.shape[0]} nnz={A.nnz}; "
+    print(f"slice 7 {route}: ex55 ne={ne} n={A.shape[0]} nnz={A.nnz}; "
           f"mat_from_options {op_s:.2f} s ({type(M).__name__}"
           f"{' G=%d S=%d P=%d' % (M.G, M.S, M.npass) if hasattr(M, 'G') else ''}"
           f"); GAMG setup {setup_s:.2f} s = hierarchy "
@@ -2625,23 +2709,464 @@ def slice7_phases(rng, kernels):
             f"ex55 level-{l} prolongator", P, P_host, rng))
         measure_k3(l, P, P_host, rng, label=f"ex55 ne={EX55_NE}")
     del path, ksp, M, pc
-    nc = drive_slice7_path(A, b, coords, "nc")
+    del A, b, coords
+    A, b, coords = ex55_system(EX55_NC_NE, 1e-3)
+    nc = drive_slice7_path(A, b, coords, "nc", ne=EX55_NC_NE)
     del nc, A, b, coords
     check_slice7_small_against_cpu()
     refresh_phases(rng)
     asa_phase()
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the remaining PCs, as ksp ex43 SolCx Stokes (phases 25-28)
+# ---------------------------------------------------------------------------
+
+def ex43_system(mx):
+    """ksp ex43's SolCx system at mx = my (A, B, f), its fields {0,1} and
+    {2} by dof % 3, and the assembly's seconds."""
+    t = time.perf_counter()
+    A, B, f = q1q1_stokes_system(mx, mx, **SOLCX)
+    c = np.arange(A.shape[0]) % 3
+    return (A, B, f, [np.flatnonzero(c != 2), np.flatnonzero(c == 2)],
+            time.perf_counter() - t)
+
+
+def fieldsplit_solve(A, B, f, fields, opts, dev, monitor=False):
+    """ex43's solve: make_fieldsplit(B, fields, Amat_host=A) (the PC
+    matrix B, the operator A) and FGMRES(30) to rtol 1e-8 on A, on dev;
+    (result, PC, seconds of the solve)."""
+    pc = make_fieldsplit(B, fields, options=Options(dict(opts)), Amat_host=A,
+                         device=dev)
+    Ad = aij_from_scipy(A, device=dev)
+    fd = torch.from_numpy(f).to(dev)
+    sync(dev)
+    t = time.perf_counter()
+    res = ksp_solve(Ad, fd, pc=pc, ksp_type="fgmres", rtol=1e-8,
+                    maxits=10000, monitor=monitor)
+    sync(dev)
+    return res, pc, time.perf_counter() - t
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def launch_counts():
+    return {name: k.launches for name, k in HAND_KERNELS.items()}
+
+
+def error_line(mx, x):
+    """DMDAIntegrateErrors' line (h, p L2, u L2, u H1) against SolCx."""
+    Xa = solcx_nodal_solution(mx, mx, eta0=SOLCX["eta0"],
+                              eta1=SOLCX["eta1"], xc=SOLCX["xc"],
+                              nz=SOLCX["nz"])
+    h, pL2, uL2, uH1 = integrate_errors(mx, mx, x, Xa)
+    return f"{h:1.4e}   {pL2:1.4e}   {uL2:1.4e}   {uH1:1.4e} ", uL2
+
+
+def ex43_split():
+    ev = log_events()
+    return {k: ev[k].time if k in ev else 0.0
+            for k in ("PCFieldSplitBlocks", "PCFieldSplitSubPC",
+                      "PCGAMGHierarchy", "PCMGPack", "PCMGTransfer",
+                      "PCMGLevelOps", "PCMGSmoother", "PCMGCoarseLU")}
+
+
+def measure_aij(A, Ad, x, triad_gbs, label):
+    """AIJ.mult (ELL: gather, multiply, row sum; XLA-coded in petsctpu,
+    plain PyTorch here, ROADMAP queue 2 item 1) on A: a call back to
+    back, 20 calls from a CUDA graph, torch.mv on CSR, and the bound:
+    the ELL arrays, x and y moved once at the measured STREAM triad (and
+    at 3.35 TB/s), beside CSR's bytes of the same product."""
+    call_ms = time_ms(lambda: Ad.mult(x), runs=20, inner=5)
+    device_ms = graph_ms(lambda: Ad.mult(x))
+    csr = csr_tensor(A, np.float64)
+    y, y_lib = Ad.mult(x), torch.mv(csr, x)
+    rel = float((y - y_lib).abs().max() / y_lib.abs().max())
+    library_ms = time_ms(lambda: torch.mv(csr, x), runs=20, inner=5)
+    m, K = Ad.cols.shape
+    es = Ad.vals.element_size()
+    ell = m * K * (es + Ad.cols.element_size()) + (A.shape[1] + m) * es
+    csr_b = A.nnz * (es + 4) + (m + 1) * 4 + (A.shape[1] + m) * es
+    bound_ms = ell / (triad_gbs * 1e9) * 1e3
+    print(f"AIJ.mult at {label}: m={m} K={K} nnz={A.nnz} ({A.nnz / m:.1f} a "
+          f"row, {100 * (1 - A.nnz / (m * K)):.1f} % ELL padding), "
+          f"{Ad.cols.dtype} cols; {device_ms:.4f} ms in a CUDA graph, "
+          f"{call_ms:.4f} ms a call back to back; torch.mv CSR "
+          f"{library_ms:.4f} ms (rel diff {rel:.1e}); bound {bound_ms:.4f} ms"
+          f" by the ELL arrays' {ell} B at the STREAM triad "
+          f"{triad_gbs:.1f} GB/s ({ell / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"3.35 TB/s; CSR's {csr_b} B {csr_b / (triad_gbs * 1e6):.4f} ms); "
+          f"the product at {100 * bound_ms / device_ms:.1f} % of its bound")
+    if not rel <= 1e-12:
+        raise AssertionError(f"AIJ.mult disagrees with CSR mv: {rel}")
+    return dict(ms=call_ms, device_ms=device_ms, library_ms=library_ms,
+                bound_ms=bound_ms)
+
+
+def drive_slice8_path(triad_gbs):
+    """Phase 25: ksp ex43 SolCx at mx = my = EX43_MX in fp64 on AIJ,
+    FGMRES + symmetric_multiplicative fieldsplit with GAMG(dof 2) on the
+    velocity and Jacobi on the pressure, counting every hand kernel's
+    launches and the host reads in the solve. Returns the launches."""
+    A, B, f, fields, asm_s = ex43_system(EX43_MX)
+    n = A.shape[0]
+    print(f"slice 8: ex43 SolCx mx=my={EX43_MX}: n={n} ({fields[0].size} "
+          f"velocity) nnz(A)={A.nnz} nnz(B)={B.nnz}; assembly {asm_s:.2f} s")
+    reset_counts()
+    log_begin()
+    t = time.perf_counter()
+    Ad = aij_from_scipy(A)
+    op_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pc = make_fieldsplit(B, fields, options=Options(dict(EX43_OPTS)),
+                         Amat_host=A)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    s = ex43_split()
+    mg = pc.pc0
+    print(f"slice 8 setup: operator A to the device {op_s:.2f} s; "
+          f"fieldsplit {setup_s:.2f} s = submatrix extraction and device "
+          f"blocks {s['PCFieldSplitBlocks']:.2f} + sub-PCs "
+          f"{s['PCFieldSplitSubPC']:.2f} (GAMG hierarchy "
+          f"{s['PCGAMGHierarchy']:.2f}, level operators: packed "
+          f"{s['PCMGPack']:.2f} + transfer {s['PCMGTransfer']:.2f}, or "
+          f"per level {s['PCMGLevelOps']:.2f} + Chebyshev bounds "
+          f"{s['PCMGSmoother']:.2f}; coarse solve: sparse LU "
+          f"{s['PCMGCoarseLU']:.2f} or the packed dense LU)")
+    for l, (lev, fmt) in enumerate(zip(mg.levels, mg.formats)):
+        print(f"  level {l}: A {lev.A.shape} {fmt[0]}, P {lev.P.shape} "
+              f"{fmt[1]}, R {fmt[2] or 'P.multT'}")
+    print(f"  coarse: {mg.coarse_A.shape[0]} rows, "
+          f"{type(mg.coarse).__name__}")
+    b = torch.from_numpy(f).cuda()
+
+    def solve_once():
+        return ksp_solve(Ad, b, pc=pc, ksp_type="fgmres", rtol=1e-8,
+                         maxits=10000)
+
+    before = launch_counts()
+    with reads_from_device() as reads:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = solve_once()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    its, reason = int(res.its), int(res.reason)
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    relres = true_residual(A, f, res)
+    line, uL2 = error_line(EX43_MX, res.x.cpu().numpy())
+    print(f"slice 8: FGMRES + fieldsplit its={its} reason={reason} "
+          f"{secs:.3f} s = {1e3 * secs / max(its, 1):.4f} ms/it; true rel "
+          f"residual {relres:.3e}; history {float(res.history[0]):.6e} -> "
+          f"{float(res.history[its]):.6e}; host reads {reads[0]} "
+          f"({reads[0] / max(its, 1):.2f} an iteration)")
+    print(f"slice 8: error line (h, p L2, u L2, u H1) {line}")
+    print("slice 8: hand-kernel launches an iteration: " + ", ".join(
+        f"{k} {v / max(its, 1):.2f}" for k, v in launched.items()))
+    if reason <= 0 or not relres <= 1e-8:
+        raise AssertionError(f"slice 8: reason {reason}, true residual "
+                             f"{relres}")
+    t = time.perf_counter()
+    warm = solve_once()
+    torch.cuda.synchronize()
+    print(f"slice 8: ms per iteration {1e3 * secs / its:.4f} first, "
+          f"{1e3 * (time.perf_counter() - t) / int(warm.its):.4f} repeated")
+    profile_solve(types.SimpleNamespace(solve=lambda b_: solve_once()), b,
+                  label="slice 8", top=12)
+    measure_aij(A, Ad, b, triad_gbs, f"ex43 mx={EX43_MX}")
+    return launched
+
+
+def check_ex43_golden(devices=("cuda", "cpu")):
+    """Phase 26: the ex43 golden at mx = 20 (LU on the velocity, Jacobi
+    on the pressure) on each device: the monitor stream and the error
+    line digit for digit, 8 its. Returns the card's PC and its launches
+    by kernel."""
+    A, B, f, fields, _ = ex43_system(20)
+    pcs, launched = {}, None
+    for dev in devices:
+        buf = io.StringIO()
+        before = launch_counts()
+        with contextlib.redirect_stdout(buf):
+            res, pc, _ = fieldsplit_solve(A, B, f, fields, EX43_GOLDEN_OPTS,
+                                          dev, monitor=True)
+        now = {k: v - before[k] for k, v in launch_counts().items()}
+        launched = launched or now
+        line, _ = error_line(20, res.x.cpu().numpy())
+        ok = (buf.getvalue() == EX43_GOLDEN and int(res.its) == 8
+              and line == EX43_GOLDEN_ERRORS)
+        print(f"ex43 golden mx=20 on {dev}: its {int(res.its)}, stream "
+              f"{'digit for digit' if buf.getvalue() == EX43_GOLDEN else 'DIFFERS'}"
+              f", errors {line!r}; sptrsv_lu launches {now['sptrsv_lu']}, "
+              f"sptrsv {now['sptrsv']}")
+        if not ok:
+            raise AssertionError(f"ex43 golden on {dev}:\n{buf.getvalue()}"
+                                 f"{line}")
+        pcs[dev] = pc
+    return pcs[devices[0]], launched
+
+
+def b_changed(b, seed=1):
+    """b·(1 + 1e-15·N(0,1)): the change whose effect on the CPU's own
+    history a card-against-CPU bound must exceed 30 times."""
+    return b * (1 + 1e-15 * np.random.default_rng(seed).standard_normal(
+        b.size))
+
+
+def check_bound_over_noise(label, bound, noise):
+    print(f"  {label}: the CPU's own history change under a 1e-15 change "
+          f"of b {noise:.2e}, the bound {bound:.0e}")
+    if not bound >= 30 * noise:
+        raise AssertionError(f"{label}: bound {bound} is not 30 times the "
+                             f"CPU's own change {noise}")
+
+
+def check_ex43_schur(devices=("cuda", "cpu")):
+    """Phase 27: -pc_fieldsplit_type schur (fact full) with GAMG(dof 2)
+    on the velocity and the inner Schur GMRES at mx = EX43_SCHUR_MX, on
+    the card against the CPU: equal its and reason, the history within
+    SCHUR_RTOL, itself at least 30 times the CPU's own change under a
+    1e-15 change of b. Its inner solves read the host once an inner
+    iteration: counted."""
+    A, B, f, fields, _ = ex43_system(EX43_SCHUR_MX)
+    out = []
+    for dev in devices:
+        with reads_from_device() as reads:
+            res, _, secs = fieldsplit_solve(A, B, f, fields, EX43_SCHUR_OPTS,
+                                            dev)
+        its = int(res.its)
+        print(f"ex43 mx={EX43_SCHUR_MX} schur full + GAMG(dof 2) on {dev}: "
+              f"its {its} reason {int(res.reason)} {secs:.2f} s = "
+              f"{1e3 * secs / max(its, 1):.2f} ms/it; host reads "
+              f"{reads[0]} ({reads[0] / max(its, 1):.1f} an outer "
+              f"iteration); true rel residual {true_residual(A, f, res):.3e}")
+        out.append(res)
+    same_solve("schur full + GAMG(dof 2)", *out, rtol=SCHUR_RTOL,
+               size=f"mx={EX43_SCHUR_MX}")
+    changed, _, _ = fieldsplit_solve(A, B, b_changed(f), fields,
+                                     EX43_SCHUR_OPTS, devices[-1])
+    check_bound_over_noise(f"mx={EX43_SCHUR_MX} schur full", SCHUR_RTOL,
+                           history_diff(out[-1], changed, SCHUR_RTOL))
+
+
+def _lap3d(m):
+    return poisson_3d(m, m, m).tocsr()
+
+
+def _dirichlet_laplacian(n=7):
+    A = laplacian_2d(n, n).tolil()
+    idx = np.arange(n * n).reshape(n, n)
+    for k in np.concatenate([idx[0], idx[-1], idx[:, 0], idx[:, -1]]):
+        A.rows[k], A.data[k] = [k], [1.0]
+    return A.tocsr()
+
+
+def _nonsym(m=6):
+    A = laplacian_2d(m, m).tolil()
+    for i in range(m * m - 1):
+        A[i, i + 1] += 0.3
+    return A.tocsr()
+
+
+def slice8_pc_cases():
+    """Each slice-8 PC type once, at its reference test's size: (label,
+    host matrix, b, ksp type, make(dev) -> make_pc's options, or
+    "eisenstat_system", bound). A solve's bound is at least 30 times the
+    history difference that a 1e-15 relative change of b makes in the
+    CPU's own solve (check_slice8_pcs_against_cpu measures it). ksp type
+    None compares one apply instead: the exact solvers (svd, tfs,
+    redistribute's LU) end at rounding noise in one iteration, and
+    galerkin alone is a singular PC."""
+    E, _, _ = ex2_system(8, 7)
+    E = sp.csr_matrix(E)
+    N = _nonsym()
+    D = _dirichlet_laplacian()
+    S = sp.csr_matrix(ex2_system(6, 6)[0])
+    m = 12
+    ex1 = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (m, m))
+    W = (sp.kron(sp.eye(m), ex1) + 1e-2 * sp.kron(ex1, sp.eye(m))).tocsr()
+    L8, L5 = _lap3d(8), _lap3d(5)
+    K, bk, (vi, pi), _ = stokes_mac(8)
+    Q, _, fq, _, _ = ex43_system(8)
+    q = np.arange(Q.shape[0]) % 3
+    G = sp.csr_matrix(ex2_system(9, 9)[0])
+    da = DA((9, 9))
+    dac = da.coarsen()
+    rng = np.random.default_rng(8)
+    A00 = (laplacian_2d(6, 4) + 0.5 * sp.eye(24)).tocsr()
+    Bl = sp.csr_matrix(rng.standard_normal((8, 24)) * 0.5)
+    Sl = Bl @ np.linalg.inv(A00.toarray()) @ Bl.T
+    dN = 1.0 / N.diagonal()
+
+    def one(M):
+        return M @ np.ones(M.shape[0])
+
+    def opts(name, **o):
+        return lambda dev: dict(pc_type=name, **o)
+
+    return [
+        ("composite additive", E, one(E), "gmres",
+         opts("composite", pc_composite_pcs="jacobi,sor"), 1e-9),
+        ("composite multiplicative", E, one(E), "gmres",
+         opts("composite", pc_composite_pcs="jacobi,sor",
+              pc_composite_type="multiplicative"), 1e-9),
+        ("ksp (gmres + ilu)", E, one(E), "fgmres", opts("ksp"), 1e-8),
+        ("ksp (specest)", E, one(E), "fgmres",
+         opts("ksp", ksp_ksp_type="specest"), 1e-8),
+        ("shell (1/diag)", N, np.ones(N.shape[0]), "gmres", lambda dev: dict(
+            pc_type="shell", pc_shell_apply=lambda ctx, x: ctx * x,
+            pc_shell_ctx=torch.from_numpy(dN).to(dev)), 1e-8),
+        ("mat (diag(1/d))", N, np.ones(N.shape[0]), "gmres",
+         lambda dev: dict(pc_type="mat", pc_mat_operator=aij_from_scipy(
+             sp.diags(dN).tocsr(), device=dev)), 1e-8),
+        ("eisenstat", E, one(E), "cg", opts("eisenstat"), 1e-10),
+        ("eisenstat system (omega 1.4)", E, one(E), "gmres",
+         "eisenstat_system", 1e-10),
+        ("galerkin (Q1 9x9 -> 5x5)", G, rng.standard_normal(81), None,
+         lambda dev: dict(
+             pc_type="galerkin", pc_galerkin_interpolation=da.interpolation(
+                 dac), pc_galerkin_interpolation_host=da.interpolation_scipy(
+                 dac)), 1e-12),
+        ("redistribute", D, rng.standard_normal(D.shape[0]), None,
+         opts("redistribute"), 1e-12),
+        ("lsc (dense Schur)", Sl, rng.standard_normal(8), "fgmres",
+         lambda dev: dict(pc_type="lsc", pc_lsc_a00=A00, pc_lsc_b=Bl),
+         1e-8),
+        ("svd", S, rng.standard_normal(S.shape[0]), None, opts("svd"),
+         1e-12),
+        ("cp", N, np.ones(N.shape[0]), "fgmres", opts("cp"), 2e-8),
+        ("spai", N, np.ones(N.shape[0]), "gmres", opts("spai"), 1e-8),
+        ("supportgraph", W, np.ones(W.shape[0]), "cg",
+         opts("supportgraph"), 1e-10),
+        ("exotic wirebasket (direct)", L8, one(L8), "cg", opts(
+            "exotic", pc_exotic_grid=(8, 8, 8), pc_exotic_type="wirebasket",
+            pc_exotic_direct_solver="true"), 1e-10),
+        ("wb face (inexact interior solves)", L8, one(L8), "cg",
+         opts("wb", pc_exotic_grid=(8, 8, 8)), 1e-10),
+        ("tfs", L5, rng.standard_normal(L5.shape[0]), None, opts("tfs"),
+         1e-12),
+        ("fieldsplit additive (MAC, null space)", K, bk, "fgmres",
+         opts("fieldsplit", pc_fieldsplit_type="additive",
+              fieldsplit_1_pc_type="jacobi",
+              pc_fieldsplit_fields=[IS.general(vi), IS.general(pi)]), 1e-8),
+        ("fieldsplit 3 fields multiplicative (ex43 mx=8)", Q, fq, "fgmres",
+         opts("fieldsplit", pc_fieldsplit_type="multiplicative",
+              fieldsplit_2_pc_type="jacobi",
+              pc_fieldsplit_fields=[np.flatnonzero(q == k)
+                                    for k in range(3)]), 1e-7),
+    ]
+
+
+def build_case(M, make, dev):
+    """(operator, PC, b transform) of a slice8_pc_cases entry on dev."""
+    if make == "eisenstat_system":
+        op, pc, pre, _ = make_eisenstat_system(M, omega=1.4, device=dev)
+        return op, pc, pre
+    o = make(dev)
+    op = (Dense(torch.from_numpy(M).to(dev)) if isinstance(M, np.ndarray)
+          else aij_from_scipy(M, device=dev))
+    return (op, make_pc(o.pop("pc_type"), A=op, A_host=M,
+                        options=Options(o)), lambda b: b)
+
+
+def check_slice8_pcs_against_cpu(devices=("cuda", "cpu")):
+    """Phase 28: each slice-8 PC type once on the card against the CPU,
+    fp64 on AIJ (lsc on the dense Schur complement): equal its and
+    reason and histories within each case's bound, or one apply within
+    it (slice8_pc_cases); a solve's bound must be at least 30 times the
+    CPU's own history change under a 1e-15 change of b (one more CPU
+    solve). Returns the launches of the card's solves by kernel."""
+    worst, launched = 0.0, collections.Counter()
+    for label, M, b, ksp_type, make, bound in slice8_pc_cases():
+        out = []
+        for dev, bb in [(d, b) for d in devices] + (
+                [] if ksp_type is None else [(devices[-1], b_changed(b))]):
+            before = launch_counts()
+            op, pc, pre = build_case(M, make, dev)
+            bd = pre(torch.from_numpy(bb).to(dev))
+            nsp = None
+            if "null space" in label:
+                v = np.zeros(M.shape[0])
+                v[M.shape[0] - 64:] = 1.0          # the MAC pressures
+                nsp = make_nullspace(M.shape[0], has_constant=False,
+                                     vecs=[v], device=dev)
+            out.append(pc.apply(bd).cpu().numpy() if ksp_type is None else
+                       ksp_solve(op, bd, pc=pc, ksp_type=ksp_type,
+                                 rtol=1e-8, maxits=600, nullspace=nsp))
+            if dev == devices[0]:
+                launched.update({k: v - before[k]
+                                 for k, v in launch_counts().items()})
+        if ksp_type is None:
+            diff = float(np.abs(out[0] - out[1]).max()
+                         / np.abs(out[1]).max())
+            print(f"small {label} card vs cpu: one apply, rel diff "
+                  f"{diff:.2e}")
+            if not diff <= bound:
+                raise AssertionError(f"small {label}: apply on the card "
+                                     "disagrees with the CPU")
+        else:
+            diff = same_solve(label, *out[:2], rtol=bound, size="small")
+            check_bound_over_noise(label, bound,
+                                   history_diff(out[1], out[2], bound))
+        worst = max(worst, diff / bound)
+    print(f"slice 8 PCs card vs cpu: {len(slice8_pc_cases())} cases, worst "
+          f"difference {worst:.2e} of its bound; launches on the card "
+          f"{dict(launched)}")
+    return launched
+
+
+def slice8_phases(rng, kernels, triad_gbs):
+    """Slice 8: the full-width path (phase 25), the golden (26), Schur
+    at mx = 255 (27) and every other new PC type (28), each against the
+    CPU; then SpTRSV against its plain version on the golden's LU pair
+    and the Eisenstat triangles, and the golden LU's fused apply timed.
+    Adds the path's launches to the kernels line's entries."""
+    launched = drive_slice8_path(triad_gbs)
+    for name in ("sptrsv", "sptrsv_lu", "sell_spmv", "sell_spmvT",
+                 "stencil_mult"):
+        kernels[name]["launches"] += launched[name]
+    golden_pc, golden = check_ex43_golden()
+    check_ex43_schur()
+    small = check_slice8_pcs_against_cpu()
+    for name in ("sptrsv", "sptrsv_lu"):
+        kernels[name]["launches"] += golden[name] + small[name]
+    L, U = golden_pc.pc0.Lplan, golden_pc.pc0.Uplan
+    kernels["sptrsv_lu"]["max_abs_err"] = max(
+        kernels["sptrsv_lu"]["max_abs_err"],
+        check_sptrsv_lu("ex43 mx=20 velocity LU", L, U, rng, repeat=10))
+    b = torch.from_numpy(rng.standard_normal(L.n)).cuda()
+    lead = (L.order, U.order, b[None])
+    print(f"sptrsv_lu ex43 mx=20 velocity LU ({shape_of(L, U)} shape, "
+          f"K {L.order[2].shape[-1]}/{U.order[2].shape[-1]}, levels "
+          f"{int(L.nlevs.max())}+{int(U.nlevs.max())}): "
+          f"{graph_ms(lambda: lu_solve(L, U, b)):.4f} ms in a CUDA graph, "
+          f"{time_ms(lambda: lu_solve(L, U, b), runs=20, inner=5):.4f} ms a "
+          f"call; plain {time_ms(lambda: sptrsv_lu_plain(*lead), runs=3, inner=1, warmup=1):.4f} ms")
+    shell, _, _, _ = make_eisenstat_system(
+        sp.csr_matrix(ex2_system(20, 20)[0]), device="cuda")
+    for tri, label in ((shell.ctx[0], "E+L"), (shell.ctx[1], "E+U")):
+        err, _ = check_sptrsv(f"eisenstat ex2 20x20 {label}", tri, rng)
+        kernels["sptrsv"]["max_abs_err"] = max(
+            kernels["sptrsv"]["max_abs_err"], err)
+
+
 def main(argv=()):
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
-    if list(argv) == ["slice7"]:
+    if list(argv) in (["slice7"], ["slice8"]):
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
-                   for k in ("sell_spmv", "sell_spmvT", "sptrsv_lu")}
-        slice7_phases(rng, kernels)
+                   for k in ("sell_spmv", "sell_spmvT", "stencil_mult",
+                             "sptrsv", "sptrsv_lu")}
+        if argv[0] == "slice7":
+            slice7_phases(rng, kernels)
+        else:
+            slice8_phases(rng, kernels, stream_triad_gbs(1 << 28))
         print(smi)
-        print(json.dumps({"slice7": list(kernels.values())}))
+        print(json.dumps({argv[0]: list(kernels.values())}))
         return
     t = time.perf_counter()
     A, b, _ = ex45_system(GRID, GRID, GRID)
@@ -2696,6 +3221,8 @@ def main(argv=()):
                     **k3_times[0]), trsv, trsv_lu]
     del gamg, k3_levels
     slice7_phases(rng, {k["name"]: k for k in kernels})
+    slice8_phases(rng, {k["name"]: k for k in kernels},
+                  stream_triad_gbs(1 << 28))
     kernels += probes_phase()
     print(smi)
     print(json.dumps({"kernels": kernels}))

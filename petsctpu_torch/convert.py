@@ -232,3 +232,49 @@ def asm_from_arrays(idx, own, valid, L: dict, U: dict, perm_r, perm_c,
                  _tensor(perm_r, dev, torch.int64),
                  _tensor(perm_c, dev, torch.int64), int(n),
                  bool(restricted), bool(use_perm), bool(contiguous))
+
+
+def svd_from_arrays(U, sinv, Vt, device=None):
+    """An SVDPC from petsctpu's U, Σ⁺ (sinv) and Vᵀ."""
+    from petsctpu_torch.pc.extra import SVDPC
+
+    dev = resolve_device(device)
+    return SVDPC(_tensor(U, dev), _tensor(sinv, dev), _tensor(Vt, dev))
+
+
+def tfs_from_arrays(X, device=None):
+    """A TFSPC from petsctpu's XXT factor X."""
+    from petsctpu_torch.pc.exotic import TFSPC
+
+    return TFSPC(_tensor(X, resolve_device(device)))
+
+
+def eisenstat_from_arrays(L: dict, U: dict, d, omega: float = 1.0,
+                          device=None):
+    """The Eisenstat system (shell, pc, presolve, postsolve) from
+    petsctpu's plans of E+L and E+U (each a dict of its arrays and
+    statics) and the diagonal d."""
+    from petsctpu_torch.pc.extra import eisenstat_system
+
+    dev = resolve_device(device)
+    return eisenstat_system(_plan(L, dev), _plan(U, dev), _tensor(d, dev),
+                            omega)
+
+
+def fieldsplit_from_arrays(isa, isb, blocks, pc0, pc1, n: int,
+                           fs_type: str, schur_fact: str = "full",
+                           amat_blocks=None, device=None):
+    """A FieldSplitPC from petsctpu's field indices, its pmat blocks
+    A00, A01, A10, A11 (each the ELL (cols, vals, shape, nnz) of an AIJ),
+    the port's sub-PCs pc0 and pc1 (built from their own state), and,
+    for an (Amat, Pmat) split, the amat blocks A00a, A01a, A10a."""
+    from petsctpu_torch.pc.fieldsplit import FieldSplitPC
+
+    dev = resolve_device(device)
+    ops = [aij_from_arrays(*b, device=dev) for b in blocks]
+    amat = ([None] * 3 if amat_blocks is None else
+            [aij_from_arrays(*b, device=dev) for b in amat_blocks])
+    return FieldSplitPC(_tensor(isa, dev, torch.int64),
+                        _tensor(isb, dev, torch.int64), *ops, pc0, pc1,
+                        int(n), fs_type=fs_type, schur_fact=schur_fact,
+                        A00a=amat[0], A01a=amat[1], A10a=amat[2])

@@ -1,14 +1,29 @@
 """Matrix wrappers (the part of petsctpu/mat/base.py on the solve path).
 
-Ported: `Transpose` (MATTRANSPOSE, used by ksp_solve_transpose),
-`Normal` (MATNORMAL, CGNE's operator) and the host helper `csr_submatrix_keep_zeros` (the bjacobi/ASM subdomain
-matrices); the other wrappers are ROADMAP queue 1 item 3.
+Ported: `Shell` (MATSHELL, the Eisenstat system's operator),
+`Transpose` (MATTRANSPOSE, used by ksp_solve_transpose), `Normal`
+(MATNORMAL, CGNE's operator) and the host helper
+`csr_submatrix_keep_zeros` (the bjacobi/ASM subdomain matrices and
+fieldsplit's blocks); the other wrappers are ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+
+class Shell:
+    """User-callback operator (MATSHELL, src/mat/impls/shell): y =
+    mult_fn(ctx, x), ctx any object (the tensors the callback reads)."""
+
+    def __init__(self, ctx, mult_fn, shape):
+        self.ctx = ctx
+        self.mult_fn = mult_fn
+        self.shape = tuple(shape)
+
+    def mult(self, x):
+        return self.mult_fn(self.ctx, x)
 
 
 class Transpose:

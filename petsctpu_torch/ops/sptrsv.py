@@ -143,7 +143,10 @@ def sptrsv_plain(lstart, lrows, lcols, lvals, ldinv, b) -> torch.Tensor:
     """x [nb, n] with, for each plan, level after level, every row r of
     the level set to (b[r] − Σ_k vals[r,k]·x[cols[r,k]])·dinv[r], the
     sum a left fold over k from 0, over the plans in level order
-    (level_order's arrays; x[n] = 0 is the sentinel)."""
+    (level_order's arrays; x[n] = 0 is the sentinel). A padding slot is
+    col n, val 0, so a level folds only up to the last slot that one of
+    its rows uses: the fold starts at +0.0 and so never holds −0.0, and
+    adding a padding slot's +0.0 to it is exact."""
     nb, n = ldinv.shape
     x = b.new_zeros((nb, n + 1))
 
@@ -156,13 +159,25 @@ def sptrsv_plain(lstart, lrows, lcols, lvals, ldinv, b) -> torch.Tensor:
     width = int((ls[:, 1:] - ls[:, :-1]).max()) if ls.shape[1] > 1 else 0
     i = torch.arange(max(width, 1), device=b.device)
     plan = torch.arange(nb, device=b.device)[:, None]
+    # each row's last slot in use + 1, read once; a level's widest
+    used = ((lcols != n) * torch.arange(1, lcols.shape[-1] + 1,
+                                        device=b.device)).amax(-1) \
+        .cpu().numpy() if lcols.shape[-1] else np.zeros((nb, n), np.int64)
+    starts = ls.cpu().numpy()
+    kmax = [max((int(used[q, starts[q, lev]:starts[q, lev + 1]].max())
+                 if starts[q, lev + 1] > starts[q, lev] else 0)
+                for q in range(nb)) for lev in range(ls.shape[1] - 1)]
     for lev in range(ls.shape[1] - 1):
         p = ls[:, lev, None] + i                  # [nb, width] positions
         p = torch.where(p < ls[:, lev + 1, None], p, n)
-        rows, c, v = lr[plan, p], lc[plan, p], lv[plan, p]
+        km = kmax[lev]
+        rows, c, v = lr[plan, p], lc[plan, p, :km], lv[plan, p, :km]
+        # every product first (one gather), then the fold over k: the
+        # same roundings as multiplying and adding slot by slot
+        prod = v * torch.gather(x, 1, c.reshape(nb, -1)).view(c.shape)
         acc = torch.zeros_like(rows, dtype=b.dtype)
-        for k in range(c.shape[-1]):
-            acc = acc + v[..., k] * torch.gather(x, 1, c[..., k])
+        for k in range(km):
+            acc = acc + prod[..., k]
         x.scatter_(1, rows, (torch.gather(bp, 1, rows) - acc) * ld[plan, p])
     return x[:, :n].contiguous()
 

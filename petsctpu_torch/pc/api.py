@@ -6,8 +6,10 @@ PCSetUp :805) and registry pcregis.c:90-146. A PC is an object with
 pbjacobi, lu/cholesky/redundant (exact LU), ilu (ILU(k), orderings,
 ILUTP, transpose solves), icc, sor (scalar and inode), bjacobi and
 asm/gasm, geometric mg, gamg (smoothed aggregation: the scalar route,
-and the rigid-body-mode and blocked routes for elasticity) and asa
-(adaptive smoothed aggregation).
+and the rigid-body-mode and blocked routes for elasticity), asa
+(adaptive smoothed aggregation), and the compositional and specialty
+PCs: fieldsplit, ksp, composite, mat, shell, eisenstat, galerkin,
+redistribute, lsc, svd, cp, spai, supportgraph, exotic/wb and tfs.
 Every other type of petsctpu raises NotImplementedError naming its
 ROADMAP item.
 """
@@ -26,11 +28,10 @@ PC_REGISTRY = {}
 
 _Q = "ROADMAP queue 1 item"
 _LATER = {
-    "fft": f"{_Q} 9",
-    **dict.fromkeys(("fieldsplit", "ksp", "composite", "mat", "shell",
-                     "hmpi", "nn", "bddc", "eisenstat", "galerkin",
-                     "redistribute", "lsc", "svd", "cp", "supportgraph",
-                     "exotic", "wb", "tfs", "spai"), f"{_Q} 10"),
+    # fft needs mat/fft.py; nn and bddc take a MatIS (mat/matis.py)
+    **dict.fromkeys(("fft", "nn", "bddc"), f"{_Q} 9"),
+    # HMPI partitions over a device mesh (sharded AIJ)
+    "hmpi": f"{_Q} 14",
 }
 
 
@@ -111,11 +112,13 @@ def make_pc(pc_type: str, A=None, A_host=None, options: Options = None,
         from petsctpu_torch.pc.asa import make_asa
         _require_host(A_host, "asa")
         return make_asa(A_host, dtype=dt, options=opts, device=dev)
+    if pc_type in _SLICE8:
+        return _SLICE8[pc_type](A, A_host, opts, axis, dt, dev)
     if pc_type in _LATER:
         raise NotImplementedError(
             f"pc_type={pc_type} is not ported yet ({_LATER[pc_type]})")
-    raise ValueError(f"unknown pc_type {pc_type!r}; known: "
-                     f"{sorted(set(PC_REGISTRY) | set(_LATER) | _PORTED)}")
+    known = set(PC_REGISTRY) | set(_LATER) | _PORTED | set(_SLICE8)
+    raise ValueError(f"unknown pc_type {pc_type!r}; known: {sorted(known)}")
 
 
 def _require_host(A_host, pc_type: str) -> None:
@@ -188,3 +191,179 @@ def _make_mg(A, A_host, opts: Options, dt):
     _require_host(A_host, "mg")
     return make_geometric_mg(A_host, da, dtype=dt, options=opts,
                              device=getattr(A, "device", None))
+
+
+def _make_fieldsplit(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.fieldsplit import (make_fieldsplit,
+                                              make_multi_fieldsplit)
+
+    _require_host(A_host, "fieldsplit")
+    fields = opts.get("pc_fieldsplit_fields")
+    if fields is None:
+        raise ValueError("pc_type=fieldsplit needs options key "
+                         "'pc_fieldsplit_fields' (list of IS)")
+    if len(fields) != 2:
+        return make_multi_fieldsplit(A_host, fields, options=opts, dtype=dt,
+                                     device=dev)
+    return make_fieldsplit(A_host, fields, options=opts, dtype=dt,
+                           device=dev)
+
+
+def _make_ksp(A, A_host, opts: Options, axis, dt, dev):
+    """-pc_type ksp: the inner KSP from the ksp_ prefix (default GMRES,
+    rtol 1e-2, 20 its) with inner PC ilu given the host matrix, else
+    jacobi; -ksp_ksp_type specest takes the stateful SpecEstPC."""
+    from petsctpu_torch.ksp.api import config_from_options
+    from petsctpu_torch.ksp.common import KSPConfig
+    from petsctpu_torch.pc.composite import KSPPC
+
+    inner = opts.prefixed("ksp_")
+    icfg = config_from_options(inner, KSPConfig(ksp_type="gmres", rtol=1e-2,
+                                                maxits=20))
+    ipc = make_pc(inner.get_str("pc_type", "ilu" if A_host is not None
+                                else "jacobi"),
+                  A=A, A_host=A_host, options=inner, axis=axis)
+    if icfg.ksp_type == "specest":
+        # the stateful two-phase estimator (specest.c); ksp_solve then
+        # takes the host-driven flexible outer (fgmres_host)
+        from petsctpu_torch.ksp.specest import SpecEstPC
+
+        spec, cheap = inner.prefixed("specest_"), inner.prefixed("speccheap_")
+        return SpecEstPC(
+            A, pc=ipc, est_type=spec.get_str("ksp_type", "gmres"),
+            cheap_type=cheap.get_str("ksp_type", "chebyshev"),
+            est_maxits=spec.get_int("ksp_max_it", 5),
+            cheap_maxits=cheap.get_int("ksp_max_it", 5),
+            minfactor=inner.get_real("ksp_specest_minfactor", 0.9),
+            maxfactor=inner.get_real("ksp_specest_maxfactor", 1.1),
+            richfactor=inner.get_real("ksp_specest_richfactor", 1.0))
+    return KSPPC(A, ipc, icfg, axis)
+
+
+def _make_composite(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.composite import CompositePC
+
+    names = opts.get_str("pc_composite_pcs", "jacobi,sor").split(",")
+    pcs = [make_pc(nm.strip(), A=A, A_host=A_host,
+                   options=opts.prefixed(f"sub_{i}_"), axis=axis)
+           for i, nm in enumerate(names)]
+    return CompositePC(pcs, A, opts.get_str("pc_composite_type", "additive"))
+
+
+def _make_mat(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.composite import MatPC
+
+    return MatPC(opts.get("pc_mat_operator") or A)
+
+
+def _make_shell(A, A_host, opts: Options, axis, dt, dev):
+    # PCShell: the callable rides the Options object, as
+    # pc_mat_operator does: apply_fn(ctx, x) -> z
+    from petsctpu_torch.pc.composite import ShellPC
+
+    ap = opts.get("pc_shell_apply")
+    if ap is None:
+        raise ValueError("pc_type=shell needs pc_shell_apply "
+                         "(a callable (ctx, x) -> z) in options")
+    return ShellPC(opts.get("pc_shell_ctx"), ap)
+
+
+def _make_eisenstat(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.extra import make_eisenstat
+
+    _require_host(A_host, "eisenstat")
+    return make_eisenstat(A_host, omega=opts.get_real("pc_eisenstat_omega",
+                                                      1.0),
+                          dtype=dt, device=dev)
+
+
+def _make_galerkin(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.extra import make_galerkin
+
+    _require_host(A_host, "galerkin")
+    P = opts.get("pc_galerkin_interpolation")
+    if P is None:
+        raise ValueError("pc_type=galerkin needs options key "
+                         "'pc_galerkin_interpolation' (device op) and "
+                         "'pc_galerkin_interpolation_host' (scipy)")
+    return make_galerkin(A_host, P,
+                         P_host=opts.get("pc_galerkin_interpolation_host"),
+                         dtype=dt, device=dev)
+
+
+def _make_redistribute(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.extra import make_redistribute
+
+    _require_host(A_host, "redistribute")
+    return make_redistribute(A_host, dtype=dt, device=dev)
+
+
+def _make_lsc(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.extra import make_lsc
+
+    A00, B = opts.get("pc_lsc_a00"), opts.get("pc_lsc_b")
+    if A00 is None or B is None:
+        raise ValueError("pc_type=lsc needs options keys 'pc_lsc_a00' "
+                         "and 'pc_lsc_b' (scipy blocks)")
+    return make_lsc(A00, B, dtype=dt, device=dev)
+
+
+def _make_svd(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.extra import make_svd
+
+    _require_host(A_host, "svd")
+    return make_svd(A_host, dtype=dt,
+                    rtol=opts.get_real("pc_svd_monitor_rtol", 1e-12),
+                    device=dev)
+
+
+def _make_cp(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.extra import make_cp
+
+    _require_host(A_host, "cp")
+    return make_cp(A_host, dtype=dt, device=dev)
+
+
+def _make_supportgraph(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.supportgraph import make_supportgraph
+
+    _require_host(A_host, "supportgraph")
+    return make_supportgraph(A_host, dtype=dt, options=opts, device=dev)
+
+
+def _make_exotic(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.exotic import make_exotic_from_options
+
+    _require_host(A_host, "exotic")
+    return make_exotic_from_options(A, A_host, opts)
+
+
+def _make_tfs(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.exotic import make_tfs
+
+    _require_host(A_host, "tfs")
+    return make_tfs(A_host, dtype=dt,
+                    drop_tol=opts.get_real("pc_tfs_drop_tolerance", 0.0),
+                    device=dev)
+
+
+def _make_spai(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.spai import make_spai
+
+    _require_host(A_host, "spai")
+    return make_spai(A_host, dtype=dt,
+                     pattern_power=opts.get_int("pc_spai_nbsteps", 1),
+                     max_pattern=opts.get_int("pc_spai_max", 64), device=dev)
+
+
+# the slice-8 types, under petsctpu's option names and defaults
+# (petsctpu/pc/api.py:131-286)
+_SLICE8 = {
+    "fieldsplit": _make_fieldsplit, "ksp": _make_ksp,
+    "composite": _make_composite, "mat": _make_mat, "shell": _make_shell,
+    "eisenstat": _make_eisenstat, "galerkin": _make_galerkin,
+    "redistribute": _make_redistribute, "lsc": _make_lsc, "svd": _make_svd,
+    "cp": _make_cp, "supportgraph": _make_supportgraph,
+    "exotic": _make_exotic, "wb": _make_exotic, "tfs": _make_tfs,
+    "spai": _make_spai,
+}

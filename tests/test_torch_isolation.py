@@ -38,7 +38,10 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "ksp.minres", "ksp.extra", "ksp.more", "ksp.lcd_tcqmr",
               "ksp.ibcgs", "ksp.dgmres", "ksp.specest", "ksp.guess",
               "ksp.mixed", "mat.nullspace", "mat.host_graph", "mat.spgemm",
-              "models.elasticity", "pc.asa", "pc.gamg_device"):
+              "models.elasticity", "pc.asa", "pc.gamg_device",
+              "vec.indexset", "pc.composite", "pc.fieldsplit", "pc.extra",
+              "pc.spai", "pc.supportgraph", "pc.exotic", "models.q1stokes",
+              "models.solcx", "models.stokes", "ex43_study"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
@@ -86,8 +89,19 @@ def _entry_points():
     from petsctpu_torch.pc.gamg_device import gamg_device_plan, \
         gamg_probe_plan
 
+    from petsctpu_torch.pc.exotic import make_tfs
+    from petsctpu_torch.pc.extra import make_eisenstat_system, make_svd
+    from petsctpu_torch.pc.fieldsplit import make_fieldsplit
+
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
+    halves = [np.arange(800), np.arange(800, 1600)]
     return {
+        "make_fieldsplit": lambda **kw: make_fieldsplit(
+            A, halves, **kw).isa,
+        "make_eisenstat_system": lambda **kw: make_eisenstat_system(
+            A, **kw)[1].d,
+        "make_svd": lambda **kw: make_svd(A[:50, :50], **kw).U,
+        "make_tfs": lambda **kw: make_tfs(A[:50, :50], **kw).X,
         "aij_from_scipy": lambda **kw: aij_from_scipy(A, **kw),
         "mat_from_options": lambda **kw: mat_from_options(
             A, mat_type="sell", **kw),
@@ -115,7 +129,9 @@ def _entry_points():
                                   "stencil_from_scipy", "probes.__main__",
                                   "make_nullspace", "make_fischer_guess",
                                   "sell_template", "SpGEMMPlan.plan",
-                                  "gamg_device_plan", "gamg_probe_plan"])
+                                  "gamg_device_plan", "gamg_probe_plan",
+                                  "make_fieldsplit", "make_eisenstat_system",
+                                  "make_svd", "make_tfs"])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

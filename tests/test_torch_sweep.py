@@ -3,9 +3,12 @@
 Replays, on the CPU in fp64, each case of tests/sweep_cases.py whose
 ksp type (cg, groppcg, gmres, fgmres by mapping; every other type since
 slice 6), pc type (none, jacobi; lu and redundant since slice 2; ilu,
-icc, sor, bjacobi and asm since slice 5) and matrix type (aij) the port
-has, -ksp_diagonal_scale solving the scaled system as
-tests/test_sweep.py does, and holds it to its oracle stream in tests/data/oracle_sweep/
+icc, sor, bjacobi and asm since slice 5; ROADMAP queue 1 item 10's
+eisenstat, composite, ksp and svd since slice 8) and matrix type (aij)
+the port has, -ksp_diagonal_scale solving the scaled system as
+tests/test_sweep.py does, and -pc_type eisenstat solving the
+transformed system of make_eisenstat_system as run_serial does, and
+holds it to its oracle stream in tests/data/oracle_sweep/
 exactly as tests/test_sweep.py::run_serial does: the exact iteration
 count (TFQMR's stream has two entries an iteration, Chebyshev's first
 comes after its first correction), and the stream within the case's
@@ -40,6 +43,7 @@ from petsctpu_torch.ksp.common import KSPConfig
 from petsctpu_torch.mat import aij_from_scipy
 from petsctpu_torch.models import ex2_system
 from petsctpu_torch.pc import make_pc
+from petsctpu_torch.pc.extra import make_eisenstat_system
 from petsctpu_torch.vec import ops
 
 SLICE1 = ("sw_ex2_cg_none", "sw_ex2_gmres_restart10", "sw_ex2_gmres_mgs",
@@ -106,7 +110,16 @@ SLICE6 = (
     "sw_ex10n_rich_sor", "sw_ex10b_bcgs_sor", "sw_ex10p_bicg_jacobi",
     "sw_ex10n_bcgsl_ilu2", "sw_ex10n_cgs_sor", "sw2_ex10b_bcgs_inodesor",
     "sw6_ex10b_rich_inodesor2", "sw8_ex10n_bicg_ilu")
+# every serial case whose pc type is one of ROADMAP queue 1 item 10's:
+# eisenstat 5, composite 2, ksp 3 (two with specest), svd 1
+SLICE10 = ("sw_ex2_cg_eisenstat", "sw2_ex2_cg_eisenstat24",
+           "sw2_ex2_gmres_eisenstat_om14", "sw10_ex10p_cg_eisen_sr",
+           "sw10_ex2_cg_dscale_eisen", "sw7_ex2_cg_composite_add",
+           "sw7_ex2_gmres_composite_mult", "sw7_ex2_fgmres_ksppc",
+           "sw9_ex2_fgmres_ksppc_specest",
+           "sw9_ex2_fgmres_ksppc_specest_cg", "sw7_ex2_gmres_svd")
 SLICE1_TYPES = ("cg", "pipecg", "groppcg", "gmres", "pgmres", "fgmres")
+ALL = SLICE1 + SLICE2 + SLICE5 + SLICE6 + SLICE10
 BY_TAG = {c.tag: c for c in CASES}
 # CG+SSOR on the 1-D 120-row operator, 51 its to rtol 1e-7; BiCGStab +
 # SOR on the 1-D 120-row operator, 31 its to rtol 1e-5; TFQMR + Jacobi
@@ -156,8 +169,7 @@ def build_system(spec):
 
 
 def test_slice1_cases_exist():
-    assert all(tag in BY_TAG and BY_TAG[tag].np == 1
-               for tag in SLICE1 + SLICE2 + SLICE5 + SLICE6)
+    assert all(tag in BY_TAG and BY_TAG[tag].np == 1 for tag in ALL)
 
 
 def test_slice6_is_every_serial_case_of_its_ksp_types():
@@ -179,8 +191,8 @@ def test_slice5_is_every_case_of_its_pcs_the_port_runs():
     """SLICE5 is the whole rule: serial, AIJ, an ex1/ex2/ex23 system or
     an ex10 datafile, a slice-1 ksp type (the other types' cases are
     SLICE6), and pc ilu/icc/sor/bjacobi/asm, or -ksp_diagonal_scale
-    with one of those or none/jacobi. The replay then holds 140 serial
-    cases."""
+    with one of those or none/jacobi. The replay then holds 151 serial
+    cases with SLICE10's."""
     slice5_pcs = ("ilu", "icc", "sor", "bjacobi", "asm")
 
     def in_rule(c):
@@ -196,7 +208,19 @@ def test_slice5_is_every_case_of_its_pcs_the_port_runs():
     rule = [c.tag for c in CASES if in_rule(c)]
     assert sorted(rule) == sorted(SLICE5)
     assert sum(BY_TAG[t].sys.startswith("file:") for t in SLICE5) == 11
-    assert len(set(SLICE1 + SLICE2 + SLICE5 + SLICE6)) == 140
+    assert len(set(ALL)) == len(ALL) == 151
+
+
+def test_slice10_is_every_serial_case_of_its_pcs():
+    """SLICE10 is the whole rule: serial, a pc type of ROADMAP queue 1
+    item 10 (the port's slice-8 types, and bddc, nn and hmpi, which
+    moved to items 9 and 14: no serial case has them)."""
+    from petsctpu_torch.pc.api import _SLICE8
+
+    item10 = set(_SLICE8) | {"bddc", "nn", "hmpi"}
+    rule = [c.tag for c in CASES
+            if c.np == 1 and parse_args(c.args).get("pc_type") in item10]
+    assert sorted(rule) == sorted(SLICE10)
 
 
 def test_petsc_order_dot_sums_left_to_right():
@@ -245,7 +269,7 @@ def port_options(flags):
     return opts, config_from_options(opts, KSPConfig(maxits=2000))
 
 
-@pytest.mark.parametrize("tag", SLICE1 + SLICE2 + SLICE5 + SLICE6)
+@pytest.mark.parametrize("tag", ALL)
 def test_sweep_case_through_port(tag, monkeypatch):
     case = BY_TAG[tag]
     if tag in PETSC_DOT_ORDER:
@@ -271,9 +295,18 @@ def test_sweep_case_through_port(tag, monkeypatch):
         # scaled system (the monitor shows the scaled norms)
         A, b, _ = diagonal_scale_system(A, b)
     opts, cfg = port_options(flags)
-    Ad = aij_from_scipy(A, device="cpu")
-    pc = make_pc(flags.get("pc_type", "ilu"), A=Ad, A_host=A, options=opts)
-    r = ksp_solve(Ad, torch.from_numpy(b), pc=pc, cfg=cfg)
+    if flags.get("pc_type") == "eisenstat":
+        # as run_serial: the KSP runs on the transformed system's shell
+        # operator (PCPreSolve/PostSolve_Eisenstat, eisen.c:55/:91)
+        shell, pc, pre, _ = make_eisenstat_system(
+            A, omega=float(flags.get("pc_eisenstat_omega", 1.0)),
+            device="cpu")
+        r = ksp_solve(shell, pre(torch.from_numpy(b)), pc=pc, cfg=cfg)
+    else:
+        Ad = aij_from_scipy(A, device="cpu")
+        pc = make_pc(flags.get("pc_type", "ilu"), A=Ad, A_host=A,
+                     options=opts)
+        r = ksp_solve(Ad, torch.from_numpy(b), pc=pc, cfg=cfg)
     # the reference's monitor labels: tfqmr logs two entries an
     # iteration; chebyshev's first comes after its first correction
     expected_its = {"tfqmr": len(monit) // 2, "chebyshev": len(monit)}.get(
