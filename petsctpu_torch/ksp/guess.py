@@ -16,10 +16,17 @@ solutions:
 
 The stored pairs are a ring buffer of fixed-shape tensors on the
 operator's device; the count and the ring's head are host integers.
+The m×m normal equations are solved on the host with LAPACK's
+getrf/getrs (scipy), as ksp/gmres.py solves its small triangle: G's
+condition reaches 1e12 (the regularization), where torch.linalg.solve
+moves c by up to 1e-4 relative against the reference's CPU solve
+(LAPACK getrf/getrs) on the same G; scipy's getrf/getrs agrees with
+it to 1e-16 relative.
 """
 
 from __future__ import annotations
 
+import scipy.linalg
 import torch
 
 from petsctpu_torch.device import resolve_device
@@ -47,8 +54,9 @@ class FischerGuess:
         # regularized normal equations: empty slots get identity rows
         G = G + torch.diag(1.0 - mask) \
             + 1e-12 * torch.eye(m, dtype=b.dtype, device=b.device)
-        c = torch.linalg.solve_ex(G, rhs)[0]
-        return (mask * c) @ self.X
+        lu = scipy.linalg.lu_factor(G.cpu().numpy(), check_finite=False)
+        c = scipy.linalg.lu_solve(lu, rhs.cpu().numpy(), check_finite=False)
+        return (mask * torch.from_numpy(c).to(b.device)) @ self.X
 
     def update(self, x, Ax):
         """Insert a converged solution into the ring (FischerGuessUpdate)."""

@@ -15,15 +15,22 @@ import scipy.sparse as sp
 
 class Shell:
     """User-callback operator (MATSHELL, src/mat/impls/shell): y =
-    mult_fn(ctx, x), ctx any object (the tensors the callback reads)."""
+    mult_fn(ctx, x), ctx any object (the tensors the callback reads);
+    multT_fn, when given, is the transpose product."""
 
-    def __init__(self, ctx, mult_fn, shape):
+    def __init__(self, ctx, mult_fn, shape, multT_fn=None):
         self.ctx = ctx
         self.mult_fn = mult_fn
+        self.multT_fn = multT_fn
         self.shape = tuple(shape)
 
     def mult(self, x):
         return self.mult_fn(self.ctx, x)
+
+    def multT(self, x):
+        if self.multT_fn is None:
+            raise NotImplementedError("this Shell has no transpose product")
+        return self.multT_fn(self.ctx, x)
 
 
 class Transpose:

@@ -4,8 +4,10 @@ The reference's foundational format is CSR ("SeqAIJ",
 src/mat/impls/aij/seq/aij.c — MatMult_SeqAIJ :1173). The layout is
 petsctpu's: every row padded to a fixed width K (cols[m,K],
 vals[m,K]), so SpMV is a gather, a multiply and a row sum. That keeps
-the two packages on the same packed arrays; on the card it is plain
-PyTorch (the JAX package leaves it to XLA, not to a kernel).
+the two packages on the same packed arrays. The JAX package leaves the
+product to XLA; here it is ops/ell_spmv.py, a CUDA kernel on the card
+and its plain version on the CPU, each row folded over its slots in
+order from +0.0 (MatMult_SeqAIJ's order).
 
 Padding convention: col = 0, val = 0 (padding contributes 0·x[0]).
 """
@@ -17,6 +19,7 @@ import scipy.sparse as sp
 import torch
 
 from petsctpu_torch.device import np_dtype, resolve_device
+from petsctpu_torch.ops.ell_spmv import ell_spmv
 
 
 class AIJ:
@@ -45,8 +48,10 @@ class AIJ:
 
     # -- core ops -------------------------------------------------------
     def mult(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x  (MatMult analog). Gather + multiply + row reduce."""
-        return torch.sum(self.vals * x[self.cols], dim=1)
+        """y = A x  (MatMult analog): the ELL kernel on the card, its
+        plain version on the CPU, each row summed over its slots in
+        order."""
+        return ell_spmv(self.cols, self.vals, x.contiguous())
 
     def multT(self, x: torch.Tensor) -> torch.Tensor:
         """y = Aᵀ x (MatMultTranspose): scatter-add into columns."""

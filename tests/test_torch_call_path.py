@@ -328,7 +328,8 @@ def test_no_wrapper_opens_a_device_context_or_builds_a_stream_object():
 
 @pytest.mark.parametrize("module", ["gather_forms", "sell_pass",
                                     "window_spmv", "stencil_mult",
-                                    "sell_spmv", "sell_spmvT", "sptrsv"])
+                                    "sell_spmv", "sell_spmvT", "sptrsv",
+                                    "ell_spmv"])
 def test_every_wrapper_launches_through_build_launch(module):
     """Each wrapper calls its kernel only through _build.launch, counts
     through _build.counted, and catches nothing around a build or a
@@ -368,8 +369,13 @@ def _k3_call():
 def _launch_case(kernel):
     """(ops module, wrapper args, kwargs, output shape) of one well-formed
     call of each wrapper."""
+    from petsctpu_torch.ops import ell_spmv as ell
     from petsctpu_torch.ops import sell_spmv as k2
     from petsctpu_torch.ops import sell_spmvT as k3
+    if kernel == "ell_spmv":
+        return ell, (torch.zeros((5, 3), dtype=torch.int64),
+                     torch.zeros((5, 3), dtype=torch.float64),
+                     torch.zeros(7, dtype=torch.float64)), {}
     if kernel in ("sell_spmv", "sell_spmvT"):
         mod = k2 if kernel == "sell_spmv" else k3
         args, kw = _k2_call() if kernel == "sell_spmv" else _k3_call()
@@ -397,7 +403,7 @@ ENTRIES = {"sptrsv_lu": ("_lu_launcher", "LU_ARGTYPES")}
 @pytest.mark.parametrize("kernel", ["sell_pass", "gather_forms",
                                     "window_spmv", "stencil_mult",
                                     "sell_spmv", "sell_spmvT", "sptrsv",
-                                    "sptrsv_lu"])
+                                    "sptrsv_lu", "ell_spmv"])
 def test_cuda_path_arguments_convert_to_the_entry_points_types(kernel,
                                                                monkeypatch):
     """The wrapper's CUDA path, run on tensors that report the card: the

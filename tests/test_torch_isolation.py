@@ -41,7 +41,12 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "models.elasticity", "pc.asa", "pc.gamg_device",
               "vec.indexset", "pc.composite", "pc.fieldsplit", "pc.extra",
               "pc.spai", "pc.supportgraph", "pc.exotic", "models.q1stokes",
-              "models.solcx", "models.stokes", "ex43_study"):
+              "models.solcx", "models.stokes", "ex43_study",
+              "ops.ell_spmv", "snes", "snes.api", "snes.fdjac",
+              "snes.variants", "snes.fas", "snes.vi", "snes.nasm",
+              "models.bratu", "models.cavity", "models.pbratu",
+              "models.radiative", "models.adr1d", "models.laplin",
+              "core.random"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
@@ -92,6 +97,8 @@ def _entry_points():
     from petsctpu_torch.pc.exotic import make_tfs
     from petsctpu_torch.pc.extra import make_eisenstat_system, make_svd
     from petsctpu_torch.pc.fieldsplit import make_fieldsplit
+    from petsctpu_torch.models import (adr1d, bratu, cavity, pbratu,
+                                       radiative)
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
     halves = [np.arange(800), np.arange(800, 1600)]
@@ -118,6 +125,21 @@ def _entry_points():
             A, coarse_n=200, **kw).csr_from_ell,
         "gamg_probe_plan": lambda **kw: gamg_probe_plan(
             A, coarse_n=200, **kw).csr_from_ell,
+        "bratu_initial_guess": lambda **kw: bratu.bratu_initial_guess(
+            DA((6, 6)), **kw),
+        "bratu_jacobian_template": lambda **kw:
+            bratu.bratu_jacobian_template(DA((6, 6)), **kw).coeffs,
+        "bratu3d_initial_guess": lambda **kw: bratu.bratu3d_initial_guess(
+            5, **kw),
+        "bratu3d_fd_jacobian": lambda **kw: bratu.bratu3d_fd_jacobian(
+            5, **kw).template.vals,
+        "cavity_initial_guess": lambda **kw: cavity.cavity_initial_guess(
+            5, 5, **kw),
+        "pbratu_initial_guess": lambda **kw: pbratu.pbratu_initial_guess(
+            5, 5, 1.0, **kw),
+        "radiative_initial_guess": lambda **kw:
+            radiative.radiative_initial_guess(5, 5, **kw),
+        "adr_initial": lambda **kw: adr1d.adr_initial(6, **kw),
         "probes.__main__": lambda **kw: probes_main(
             ["probe_gather6_C", *(("--device", kw["device"]) if kw
                                   else ())])[0]["out"],
@@ -131,7 +153,14 @@ def _entry_points():
                                   "sell_template", "SpGEMMPlan.plan",
                                   "gamg_device_plan", "gamg_probe_plan",
                                   "make_fieldsplit", "make_eisenstat_system",
-                                  "make_svd", "make_tfs"])
+                                  "make_svd", "make_tfs",
+                                  "bratu_initial_guess",
+                                  "bratu_jacobian_template",
+                                  "bratu3d_initial_guess",
+                                  "bratu3d_fd_jacobian",
+                                  "cavity_initial_guess",
+                                  "pbratu_initial_guess",
+                                  "radiative_initial_guess", "adr_initial"])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

@@ -23,9 +23,24 @@ an early inner product grows past the case's rtol by its last
 iterations. It is replayed with its inner products summed in the order
 of PETSc's VecDot (a BLAS dot: left to right), the order the oracle was
 recorded with (ROADMAP queue 3); every other case runs the port's own
-dot and norm. A case in PETSC_ROW_ORDER also sums each row of its AIJ
-product left to right, as PETSc's MatMult_SeqAIJ does.
+dot and norm. Every AIJ product sums each row over its slots left to
+right, as PETSc's MatMult_SeqAIJ does: the port's AIJ.mult (the ELL
+kernel's plain version) folds in that order, which the one case that
+needed it (PETSC_ROW_ORDER) once took from a monkeypatch.
+
+SNES holds the 13 serial snes ex5 and ex14 cases (ROADMAP queue 1 item
+11) to their oracle -snes_monitor streams with the bounds of
+tests/test_sweep.py::run_snes_ex5 and ::run_snes_ex14: ex5 through the
+stencil-colored FD Jacobian and tight FGMRES steps (the head of the
+stream within 6e-4, the quadratic tail within 3.5×); ex14 through the
+SNES object with the 27-color 'ds' FD Jacobian and GMRES(30) + ILU(0)
+rebuilt on each Jacobian (every entry within 3e-5, the last within
+5e-3, "< 1.e-11" entries below 1e-11), the path chip_smoke.py drives
+at 128³.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -34,7 +49,7 @@ import torch
 
 from sweep_cases import CASES
 from test_sweep import build_system as build_file_system
-from test_sweep import oracle_stream, parse_args
+from test_sweep import ORACLE, oracle_stream, parse_args
 
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.ksp import ksp_solve
@@ -120,6 +135,11 @@ SLICE10 = ("sw_ex2_cg_eisenstat", "sw2_ex2_cg_eisenstat24",
            "sw9_ex2_fgmres_ksppc_specest_cg", "sw7_ex2_gmres_svd")
 SLICE1_TYPES = ("cg", "pipecg", "groppcg", "gmres", "pgmres", "fgmres")
 ALL = SLICE1 + SLICE2 + SLICE5 + SLICE6 + SLICE10
+SNES = ("sw_snes5_l2_m10", "sw_snes5_l4_m10", "sw_snes5_l5_m16",
+        "sw_snes5_l6_m12", "sw_snes5_l3_m16_basic", "sw_snes5_l45_m12_basic",
+        "sw3_snes5_l2_m14", "sw3_snes5_l55_m20", "sw3_snes5_l1_m8",
+        "sw_snes14_fdcolor_l5", "sw_snes14_fdcolor_l3",
+        "sw3_snes14_fdcolor_l4", "sw3_snes14_fdcolor_l2")
 BY_TAG = {c.tag: c for c in CASES}
 # CG+SSOR on the 1-D 120-row operator, 51 its to rtol 1e-7; BiCGStab +
 # SOR on the 1-D 120-row operator, 31 its to rtol 1e-5; TFQMR + Jacobi
@@ -253,6 +273,9 @@ def test_petsc_order_mult_sums_rows_left_to_right():
         assert y[i] == s
     np.testing.assert_allclose(y, A @ x, rtol=1e-13)
     assert PETSC_ROW_ORDER <= PETSC_DOT_ORDER
+    # the port's own product now folds in this order: the same bits
+    # (up to the sign of a zero row sum, which folds from +0.0)
+    np.testing.assert_array_equal(Ad.mult(torch.from_numpy(x)).numpy(), y)
 
 
 def port_options(flags):
@@ -275,9 +298,6 @@ def test_sweep_case_through_port(tag, monkeypatch):
     if tag in PETSC_DOT_ORDER:
         monkeypatch.setattr(ops, "dot", petsc_order_dot)
         monkeypatch.setattr(ops, "norm", petsc_order_norm)
-    if tag in PETSC_ROW_ORDER:
-        from petsctpu_torch.mat.ell import AIJ
-        monkeypatch.setattr(AIJ, "mult", petsc_order_mult)
     flags = parse_args(case.args)
     if flags.get("pc_type") == "asm" and flags.get("pc_asm_type") == "basic":
         # as run_serial: serial multiblock ASM is restricted whatever
@@ -325,3 +345,87 @@ def test_sweep_case_through_port(tag, monkeypatch):
     vals = np.array([monit[i] for i in idx])
     np.testing.assert_allclose(hist[idx], vals, rtol=case.rtol,
                                atol=1e-11 * vals.max())
+
+
+def test_snes_is_every_serial_snes_case():
+    rule = [c.tag for c in CASES
+            if c.np == 1 and c.check in ("snes", "snes14")]
+    assert sorted(rule) == sorted(SNES) and len(SNES) == 13
+
+
+def _snes_monitor(tag):
+    """-snes_monitor(_short) entries; "< 1.e-11" becomes None."""
+    txt = open(os.path.join(ORACLE, tag + ".txt")).read()
+    return [None if "<" in m.group(1) else float(m.group(1))
+            for m in re.finditer(r"SNES Function norm (\S+)", txt)]
+
+
+def _snes5(case, flags, monit):
+    from petsctpu_torch.dm import DA
+    from petsctpu_torch.models.bratu import (bratu_initial_guess,
+                                             bratu_jacobian_template,
+                                             bratu_residual)
+    from petsctpu_torch.snes import ColoredJacobian, snes_solve
+    from petsctpu_torch.snes.api import SNESConfig
+
+    p = dict(kv.split("=") for kv in case.sys.split(":")[1].split(","))
+    m, lam = int(p["m"]), float(p["par"])
+    da = DA((m, m))
+    r = snes_solve(
+        bratu_residual(da, lam), bratu_initial_guess(da, lam, device="cpu"),
+        jac=ColoredJacobian.from_stencil(bratu_jacobian_template(
+            da, device="cpu")),
+        cfg=SNESConfig(rtol=float(flags.get("snes_rtol", 1e-8)), atol=1e-50,
+                       linesearch="basic" if flags.get("snes_ls") == "basic"
+                       else "bt"),
+        ksp_cfg=KSPConfig(ksp_type="fgmres", rtol=1e-10, maxits=1000,
+                          restart=200))
+    monit = [v for v in monit if v is not None]
+    assert int(r.its) >= len(monit) - 1, (int(r.its), len(monit) - 1)
+    # the oracle's Newton is inexact (gmres + ilu, rtol 1e-5): the head
+    # agrees to ~6e-4, the quadratic-limit tail is bounded, not matched
+    head = max(len(monit) - 2, 1)
+    np.testing.assert_allclose(r.history[:head].numpy(), monit[:head],
+                               rtol=6e-4)
+    for k in range(head, len(monit)):
+        assert float(r.history[k]) <= 3.5 * monit[k] + 1e-11, \
+            (k, float(r.history[k]), monit[k])
+
+
+def _snes14(case, flags, monit):
+    from petsctpu_torch.mat.ell import aij_to_scipy
+    from petsctpu_torch.models.bratu import (bratu3d_fd_jacobian,
+                                             bratu3d_initial_guess,
+                                             bratu3d_residual)
+    from petsctpu_torch.pc.factor import make_ilu
+    from petsctpu_torch.snes import SNES as SNESObject
+
+    p = dict(kv.split("=") for kv in case.sys.split(":")[1].split(","))
+    m, lam = int(p["m"]), float(p["par"])
+    snes = SNESObject(Options({
+        "snes_rtol": flags.get("snes_rtol", "1e-8"), "ksp_type": "gmres",
+        "ksp_rtol": "1e-5", "ksp_max_it": "10000"}))
+    snes.set_function(bratu3d_residual(m, lam))
+    snes.set_jacobian(bratu3d_fd_jacobian(m, device="cpu"))
+    snes.set_pc_builder(lambda J: make_ilu(aij_to_scipy(J), levels=0,
+                                           device="cpu"))
+    r = snes.solve(bratu3d_initial_guess(m, lam, device="cpu"))
+    hist = r.history[:int(r.its) + 1].numpy()
+    assert len(hist) == len(monit), (len(hist), len(monit))
+    for i, (hv, mv) in enumerate(zip(hist, monit)):
+        if mv is None:                      # printed as "< 1.e-11"
+            assert hv < 1e-11, (i, hv)
+        elif i == len(hist) - 1:
+            # the last entry sits at the quadratic limit, where the FD
+            # Jacobian's own O(√eps) error dominates
+            np.testing.assert_allclose(hv, mv, rtol=5e-3)
+        else:
+            np.testing.assert_allclose(hv, mv, rtol=3e-5)
+
+
+@pytest.mark.parametrize("tag", SNES)
+def test_snes_sweep_case_through_port(tag):
+    case = BY_TAG[tag]
+    flags = parse_args(case.args)
+    monit = _snes_monitor(tag)
+    (_snes5 if case.check == "snes" else _snes14)(case, flags, monit)
