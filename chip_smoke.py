@@ -257,8 +257,12 @@ and 28 (phase 25 launches none). `python3 chip_smoke.py slice8` runs the
 build and phases 25-28 alone. Since slice 9, AIJ.mult is the ELL kernel
 (ell_spmv): phase 25 holds it bit for bit against its plain version on
 ex43's A and times it there (a call, 20 calls from a CUDA graph, the
-plain version, torch.mv on CSR, the byte bound at 3.35 TB/s and at the
-STREAM triad), and the slice's ms per iteration are with the kernel.
+plain version, torch.mv on CSR, the kernel and CSR again in turns, the
+byte bound of the int32 pack at 3.35 TB/s and at the STREAM triad), the
+slice's ms per iteration are with the kernel, and the AIJ products of
+one more, untimed solve are broken down by operator (m, K, dtype:
+launches an iteration, device ms of one on its own pack, their product,
+the shape's bound).
 
 Slice 9 runs after slice 8, SNES in fp64 through the SNES object
 (-snes_type newtonls -snes_linesearch_type bt -snes_rtol 1e-8 -ksp_type
@@ -287,9 +291,14 @@ before each path and read just after:
    1e-7 of the first norm), at least 30 times the CPU's own change under
    a 1e-15 change of x0, measured in the run;
 32. ell_spmv against its plain version, bit for bit, and scipy: K = 1,
-   m = 12345 with an all-padding row, rows wider than a tile (K = 300,
-   fp64 and fp32: the chunked path), an fp32 7-point operator,
-   rectangular both ways, complex128 and complex64, m = 0.
+   m = 12345 with an all-padding row, rows wider than a stage (K = 300,
+   fp64 and fp32, one row of K = 6000, 37 rows of 4001: the chunked
+   kernel), an fp32 7-point operator, rectangular both ways, complex128
+   and complex64, m = 0; the ring kernel's edges: m not a multiple of 4,
+   m under one tile, a last tile of 3 rows whose bytes are not a
+   multiple of 16, rows of 52 and 20 + 80 bytes (copies end mid-row),
+   even K in fp64, fp32, complex64 and complex128 (products at stride
+   K + 1), odd K in each dtype, K = 96 at 32 rows a tile.
 `python3 chip_smoke.py slice9` runs the build and phases 29-32 alone, and
 then ex43's A at mx = 1023 as phase 25 does.
 
@@ -351,8 +360,9 @@ from petsctpu_torch.models.q1stokes import (integrate_errors,
                                             solcx_nodal_solution)
 from petsctpu_torch.models.stokes import stokes_mac
 from petsctpu_torch.ops import _build
+from petsctpu_torch.mat import ell as ell_module
 from petsctpu_torch.ops.ell_spmv import ell_spmv, ell_spmv_plain
-from petsctpu_torch.ops.ell_spmv import tile as ell_tile
+from petsctpu_torch.ops.ell_spmv import launch_plan as ell_plan
 from petsctpu_torch.ops.gather_forms import gather_forms
 from petsctpu_torch.ops.sell_pass import sell_pass, sell_pass_plain
 from petsctpu_torch.ops.sell_spmv import sell_spmv, sell_spmv_plain
@@ -2917,6 +2927,9 @@ def drive_slice8_path(triad_gbs):
           f"{1e3 * (time.perf_counter() - t) / int(warm.its):.4f} repeated")
     profile_solve(types.SimpleNamespace(solve=lambda b_: solve_once()), b,
                   label="slice 8", top=12)
+    with ell_shapes() as shapes:         # an untimed solve
+        ell_its = int(solve_once().its)
+    ell_breakdown("slice 8", shapes, ell_its)
     measure_aij(A, Ad, b, triad_gbs, f"ex43 mx={EX43_MX}")
     return launched
 
@@ -3231,10 +3244,12 @@ def ell_check(label, A, Ad, rng, x=None):
            if ref.size else 0.0)
     tol = 1e-5 if Ad.vals.dtype in (torch.float32, torch.complex64) \
         else 1e-12
-    print(f"ell_spmv {label}: m={Ad.shape[0]} n={Ad.shape[1]} "
-          f"K={Ad.cols.shape[1]} {str(Ad.vals.dtype)[6:]} tile "
-          f"{ell_tile(Ad.cols.shape[1], Ad.vals.element_size())}: "
-          f"max|kernel-plain|={err} rel err vs scipy {rel:.2e}")
+    m, K = Ad.cols.shape
+    plan = ell_plan(m, K, Ad.vals.element_size(),
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"ell_spmv {label}: m={m} n={Ad.shape[1]} K={K} "
+          f"{str(Ad.vals.dtype)[6:]} {plan}: max|kernel-plain|={err} rel "
+          f"err vs scipy {rel:.2e}")
     if not torch.equal(y, y_plain) or y.shape != (Ad.shape[0],):
         raise AssertionError(f"ell_spmv {label}: kernel differs from its "
                              f"plain version (max abs {err})")
@@ -3243,12 +3258,34 @@ def ell_check(label, A, Ad, rng, x=None):
     return err
 
 
+def ell_rows(m, n, K, dtype=np.float64, seed=0, short=0):
+    """An m × n matrix of K distinct columns a row (`short` rows with
+    fewer, so that some slots are padding), values from the seed."""
+    rng = np.random.default_rng(seed)
+    step = max(1, n // K)
+    cols = (rng.integers(0, n, m)[:, None] + step * np.arange(K)) % n
+    keep = np.ones((m, K), bool)
+    keep[rng.integers(0, m, short), -1] = False
+    rows = np.repeat(np.arange(m), K).reshape(m, K)
+    vals = rng.standard_normal((m, K))
+    if np.issubdtype(dtype, np.complexfloating):
+        vals = vals + 1j * rng.standard_normal((m, K))
+    return sp.csr_matrix((vals[keep].astype(dtype),
+                          (rows[keep], cols[keep])), shape=(m, n))
+
+
 def ell_edge_cases(rng):
     """ell_spmv's edge cases and operator kinds (phase 32), each against
     its plain version bit for bit: K = 1, m off a multiple of the tile,
-    an all-padding row, rows wider than one tile (the chunked path, fp64
-    and fp32), m = 0, fp32, complex64 and complex128 (phase 19's complex
-    BiCGStab reaches AIJ.mult), rectangular both ways."""
+    an all-padding row, rows wider than one stage (the chunked kernel,
+    fp64 and fp32), m = 0, fp32, complex64 and complex128 (phase 19's
+    complex BiCGStab reaches AIJ.mult), rectangular both ways; and the
+    ring kernel's edges: m not a multiple of 4, m under one tile, a last
+    tile whose bytes are not a multiple of 16 (its tail by plain loads),
+    rows whose bytes are no multiple of 16 (a bulk copy's 16-byte units
+    and a stage's end fall mid-row), an even K (the products at row
+    stride K + 1) in each dtype, an odd K in each dtype, and a single row
+    wider than a stage."""
     def rand(m, n, density, dtype=np.float64, seed=0):
         return sp.random(m, n, density=density, random_state=seed,
                          format="csr", dtype=dtype)
@@ -3258,6 +3295,7 @@ def ell_edge_cases(rng):
         A[r, :] = 0
         return sp.csr_matrix(A)
 
+    R27 = ell_plan(10 ** 6, 27, 8).rows      # fp64 K 27's rows a tile
     C = rand(5000, 5000, 5e-4) + 1j * rand(5000, 5000, 5e-4, seed=1)
     cases = [
         ("K=1 diagonal", sp.diags(rng.standard_normal(1000)).tocsr(), None),
@@ -3273,6 +3311,35 @@ def ell_edge_cases(rng):
         ("complex128", C.tocsr(), np.complex128),
         ("complex64", C.tocsr(), np.complex64),
         ("m=0", sp.csr_matrix((0, 10)), None),
+        ("m=1001 (not a multiple of 4), K=27",
+         ell_rows(1001, 4000, 27, seed=6, short=50), None),
+        ("m=3 (under one tile), K=7", ell_rows(3, 50, 7, seed=7), None),
+        ("last tile of 3 rows, K=27 (cols 324 B, vals 648 B: off 16)",
+         ell_rows(5 * R27 + 3, 9000, 27, seed=8, short=40), None),
+        ("K=13 fp32 (52-byte rows: copies end mid-row)",
+         ell_rows(20001, 30000, 13, np.float32, 9, short=100), None),
+        ("K=5 complex128 (20-byte cols, 80-byte vals a row)",
+         ell_rows(7777, 7000, 5, np.complex128, 10, short=30), None),
+        ("K=6 fp64, even (products at stride 7), m off the tile",
+         ell_rows(40003, 50000, 6, seed=11, short=200), None),
+        ("K=8 fp32, even", ell_rows(30001, 30000, 8, np.float32, 12, 99),
+         None),
+        ("K=10 complex64, even",
+         ell_rows(9999, 12000, 10, np.complex64, 13, 17), None),
+        ("K=10 complex128, even",
+         ell_rows(9999, 12000, 10, np.complex128, 14, 17), None),
+        ("K=9 complex64, odd", ell_rows(5003, 6000, 9, np.complex64, 15),
+         None),
+        ("K=96 fp64, even, 32 rows a tile",
+         ell_rows(1000, 20000, 96, seed=16, short=10), None),
+        ("one row wider than a stage (K=6000, the chunked kernel)",
+         ell_rows(1, 100000, 6000, seed=17), None),
+        ("37 rows wider than a stage (K=4001 fp32)",
+         ell_rows(37, 50000, 4001, np.float32, 18, short=5), None),
+        ("K=120 complex128 (the chunked kernel), m off 32",
+         ell_rows(500, 3000, 120, np.complex128, 19, short=9), None),
+        ("K=469 fp64 (the chunked kernel: slice 8's coarse level's K)",
+         ell_rows(2888, 2888, 469, seed=20, short=40), None),
     ]
     worst = 0.0
     for label, A, dtype in cases:
@@ -3284,10 +3351,12 @@ def ell_edge_cases(rng):
 
 def measure_ell(label, A, Ad, x, triad_gbs):
     """ell_spmv (AIJ.mult) on the pack Ad of A: a call back to back, 20
-    calls from a CUDA graph, its plain version, torch.mv on CSR, and the
-    bound: the ELL arrays, x and y moved once at 3.35 TB/s (and at the
-    measured STREAM triad) against 2 flops a slot at the fp64 or fp32
-    peak."""
+    calls from a CUDA graph, its plain version, torch.mv on CSR, the
+    kernel and CSR again in turns (kernel, CSR, CSR, kernel, each 20
+    calls from a CUDA graph), and the bound: the ELL arrays (int32
+    columns), x and y moved once at 3.35 TB/s (and at the measured STREAM
+    triad; beside it the bound of the int64 columns the port stored
+    before) against 2 flops a slot at the fp64 or fp32 peak."""
     call_ms = time_ms(lambda: Ad.mult(x), runs=20, inner=5)
     device_ms = graph_ms(lambda: Ad.mult(x))
     plain_ms = time_ms(lambda: ell_spmv_plain(Ad.cols, Ad.vals, x),
@@ -3297,9 +3366,14 @@ def measure_ell(label, A, Ad, x, triad_gbs):
     y, y_lib = Ad.mult(x), torch.mv(csr, x)
     rel = float((y - y_lib).abs().max() / y_lib.abs().max())
     library_ms = time_ms(lambda: torch.mv(csr, x), runs=20, inner=5)
+    turns = [graph_ms(fn) for fn in (lambda: Ad.mult(x),
+                                     lambda: torch.mv(csr, x),
+                                     lambda: torch.mv(csr, x),
+                                     lambda: Ad.mult(x))]
     m, K = Ad.cols.shape
     es = Ad.vals.element_size()
     ell = m * K * (es + Ad.cols.element_size()) + (A.shape[1] + m) * es
+    ell64 = m * K * (es + 8) + (A.shape[1] + m) * es
     csr_b = A.nnz * (es + 4) + (m + 1) * 4 + (A.shape[1] + m) * es
     bytes_ms = ell / HBM_BYTES_PER_S * 1e3
     ops_ms = 2.0 * m * K / (FP64_FLOPS_PER_S if es == 8
@@ -3313,13 +3387,66 @@ def measure_ell(label, A, Ad, x, triad_gbs):
           f"bound {bytes_ms:.4f} ms by the ELL arrays' {ell} B at 3.35 TB/s "
           f"({triad_ms:.4f} ms at the STREAM triad {triad_gbs:.1f} GB/s; "
           f"{ops_ms:.5f} ms by ops; CSR's {csr_b} B {csr_b / (triad_gbs * 1e6):.4f} "
-          f"ms at the triad); {100 * bytes_ms / device_ms:.1f} % of the "
-          f"byte bound, {100 * triad_ms / device_ms:.1f} % at the triad")
+          f"ms at the triad; with int64 columns {ell64} B, "
+          f"{ell64 / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+          f"{100 * bytes_ms / device_ms:.1f} % of the byte bound, "
+          f"{100 * triad_ms / device_ms:.1f} % at the triad")
+    kernel_ms, csr_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"ell_spmv at {label} in turns (kernel, CSR, CSR, kernel; ms in a "
+          f"CUDA graph): {', '.join(f'{t:.4f}' for t in turns)}; kernel "
+          f"{kernel_ms:.4f} against CSR {csr_ms:.4f} "
+          f"({kernel_ms / csr_ms:.3f}×): {100 * bytes_ms / kernel_ms:.1f} % "
+          f"of the byte bound, {100 * triad_ms / kernel_ms:.1f} % at the triad")
     if not rel <= 1e-12 * (1e7 if es == 4 else 1):
         raise AssertionError(f"ell_spmv disagrees with CSR mv: {rel}")
     return dict(ms=call_ms, device_ms=device_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+@contextlib.contextmanager
+def ell_shapes():
+    """AIJ.mult's products by operator while the context is open:
+    {(m, K, dtype, len(x), cols' address): [calls, (cols, vals, x) of the
+    first]}."""
+    real = ell_module.ell_spmv
+    seen = {}
+
+    def spy(cols, vals, x):
+        key = (cols.shape[0], cols.shape[1], vals.dtype, x.shape[0],
+               cols.data_ptr())
+        if key in seen:
+            seen[key][0] += 1
+        else:
+            seen[key] = [1, (cols, vals, x.clone())]
+        return real(cols, vals, x)
+
+    ell_module.ell_spmv = spy
+    try:
+        yield seen
+    finally:
+        ell_module.ell_spmv = real
+
+
+def ell_breakdown(label, seen, its):
+    """ell_spmv's time an iteration by operator: launches an iteration ×
+    the device ms of one on its own pack (20 calls from a CUDA graph),
+    beside its shape's byte bound."""
+    rows, total = [], 0.0
+    for (m, K, dtype, n, _), (calls, (cols, vals, x)) in seen.items():
+        ms = graph_ms(lambda: ell_spmv(cols, vals, x))
+        es = vals.element_size()
+        bound = (m * K * (4 + es) + (n + m) * es) / HBM_BYTES_PER_S * 1e3
+        rows.append((calls / its * ms, m, K, dtype, calls / its, ms, bound))
+        total += calls / its * ms
+    print(f"{label}: ell_spmv by operator ({len(rows)} operators, "
+          f"{total:.4f} ms an iteration):")
+    for per_it, m, K, dtype, launches, ms, bound in sorted(rows,
+                                                           reverse=True):
+        print(f"  m={m:>8} K={K:>3} {str(dtype)[6:]:>10}: {launches:6.2f} "
+              f"an iteration × {ms:.4f} ms = {per_it:.4f} ms an iteration "
+              f"({100 * bound / ms:.1f} % of its {bound:.5f} ms bound)")
+    return total
 
 
 class TimedJacobian:

@@ -40,9 +40,9 @@ def sell_from_arrays(arrays: dict, statics: dict, device=None) -> SellMat:
 
 
 def aij_from_arrays(cols, vals, shape, nnz, device=None) -> AIJ:
-    """An AIJ from ELL arrays cols [m,K] and vals [m,K]."""
+    """An AIJ from ELL arrays cols [m,K] (stored int32) and vals [m,K]."""
     dev = resolve_device(device)
-    return AIJ(_tensor(cols, dev, torch.int64), _tensor(vals, dev),
+    return AIJ(_tensor(cols, dev, torch.int32), _tensor(vals, dev),
                tuple(shape), int(nnz))
 
 
@@ -103,7 +103,9 @@ def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
     view of it, carved at the metas' offsets as PackedMGPC.unpack
     carves them: "sell" (the int8 idx read from its int32 words; vals
     copied out when its offset is not 16-byte aligned, as K2 needs),
-    "dense", "rectband" and "ell" operators, Chebyshev+Jacobi smoothers
+    "dense", "rectband" and "ell" operators (an ELL operator's int32
+    cols and its vals copied out likewise, for the ELL kernel's bulk
+    copies), Chebyshev+Jacobi smoothers
     with bounds 0.1·λ and 1.1·λ rounded in the buffer's dtype, an ELL
     coarsest operator and its dense LU (DenseLUPC). A level that
     restricts through P.multT (no restriction meta) builds P's transpose
@@ -126,11 +128,14 @@ def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
         off, shape = off_shape
         return ib[off:off + int(np.prod(shape))].view(tuple(shape))
 
+    def aligned(t):                       # K2's float4, ELL's bulk copies
+        return t.clone() if t.data_ptr() % 16 else t
+
     def op(ref):
         kind = ref[0]
         if kind == "ell":
             _, ci, vi, sha, nza = ref
-            return AIJ(geti(ci).long(), getf(vi), sha, nza)
+            return AIJ(aligned(geti(ci)), aligned(getf(vi)), sha, nza)
         if kind == "rectband":
             _, bref, s_, off_, sha, nnz, bshape = ref
             return RectBandMat(getf((bref[0], bshape)), s_, off_, sha, nnz)
@@ -140,12 +145,9 @@ def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
         (_, vi, ii, qi, wi, di, sha, nnz, G, S, Lp, vshape, mode) = ref
         words = int(np.prod(vshape)) // 4
         idx = geti((ii[0], (words,))).view(torch.int8).view(tuple(vshape))
-        vals = getf((vi[0], vshape))
-        if vals.data_ptr() % 16:          # K2 reads vals as float4
-            vals = vals.clone()
-        return SellMat(vals, idx, geti((qi[0], vshape[:2])),
-                       geti((wi[0], (vshape[0],))), getf((di[0], (sha[0],))),
-                       sha, nnz, G, S, Lp, mode)
+        return SellMat(aligned(getf((vi[0], vshape))), idx,
+                       geti((qi[0], vshape[:2])), geti((wi[0], (vshape[0],))),
+                       getf((di[0], (sha[0],))), sha, nnz, G, S, Lp, mode)
 
     levels = []
     for amref, pref, rref, do, lam in metas:
@@ -158,7 +160,7 @@ def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
             dinv, sdt(0.1 * lam), sdt(1.1 * lam), sm_its),
             None if rref is None else op(rref)))
     ci, vi, shc, nzc, lum, pivo = coarse_meta
-    coarse_A = AIJ(geti(ci).long(), getf(vi), shc, nzc)
+    coarse_A = AIJ(aligned(geti(ci)), aligned(getf(vi)), shc, nzc)
     coarse = DenseLUPC(getf(lum), geti((pivo, (shc[0],))))
     return MGPC(tuple(levels), coarse, coarse_A, cycles, mg_type)
 

@@ -10,6 +10,8 @@ and its plain version on the CPU, each row folded over its slots in
 order from +0.0 (MatMult_SeqAIJ's order).
 
 Padding convention: col = 0, val = 0 (padding contributes 0·x[0]).
+Columns are int32, the reference's pack (petsctpu/mat/ell.py::aij_pack),
+which the kernel reads: 4 bytes a slot.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from petsctpu_torch.ops.ell_spmv import ell_spmv
 class AIJ:
     """ELL-packed general sparse matrix (device-resident).
 
-    cols : int64 [m, K]  column index per slot (0 for padding)
+    cols : int32 [m, K]  column index per slot (0 for padding)
     vals : float [m, K]  value per slot (0 for padding)
     shape: (m, n)
     nnz  : true nonzero count (for flop accounting)
@@ -123,8 +125,8 @@ def aij_from_scipy(A, dtype=None, min_width: int = 1, device=None) -> AIJ:
     """Build a device AIJ from any scipy.sparse matrix."""
     dev = resolve_device(device)
     cols, vals, shape, nnz = aij_pack(A, dtype=dtype, min_width=min_width)
-    return AIJ(torch.from_numpy(cols).to(dev, torch.int64),
-               torch.from_numpy(vals).to(dev), shape, nnz)
+    return AIJ(torch.from_numpy(cols).to(dev), torch.from_numpy(vals).to(dev),
+               shape, nnz)
 
 
 def aij_to_scipy(A: AIJ):

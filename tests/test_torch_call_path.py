@@ -373,7 +373,7 @@ def _launch_case(kernel):
     from petsctpu_torch.ops import sell_spmv as k2
     from petsctpu_torch.ops import sell_spmvT as k3
     if kernel == "ell_spmv":
-        return ell, (torch.zeros((5, 3), dtype=torch.int64),
+        return ell, (torch.zeros((5, 3), dtype=torch.int32),
                      torch.zeros((5, 3), dtype=torch.float64),
                      torch.zeros(7, dtype=torch.float64)), {}
     if kernel in ("sell_spmv", "sell_spmvT"):
@@ -422,6 +422,8 @@ def test_cuda_path_arguments_convert_to_the_entry_points_types(kernel,
     monkeypatch.setattr(mod, launcher, lambda: entry)
     if hasattr(mod, "_smem_optin"):
         monkeypatch.setattr(mod, "_smem_optin", lambda index: 232448)
+    if hasattr(mod, "_num_sms"):
+        monkeypatch.setattr(mod, "_num_sms", lambda index: 132)
     monkeypatch.setattr(_build, "launch",
                         lambda fn, index, a: fn(*a, None))
     monkeypatch.setattr(_build, "counted",

@@ -1,7 +1,9 @@
 """The port's matrices against petsctpu's, on the CPU.
 
 * AIJ: every op against petsctpu.mat.ell, fp64, rtol 1e-13 (a row sum
-  of a few terms may round in another order).
+  of a few terms may round in another order). The ELL pack's int32
+  columns equal petsctpu's byte for byte, and the product's plain version
+  equals petsctpu's AIJ.mult bit for bit.
 * SELL: the port's host pack must EQUAL petsctpu's, array for array, in
   both modes; its mult (the kernel's plain version) must match the JAX
   SellMat.mult (Pallas interpret mode, as tests/test_sell.py runs it)
@@ -12,6 +14,7 @@
 """
 
 from dataclasses import replace
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +85,91 @@ def test_aij_pack_and_flops_match_jax():
     np.testing.assert_array_equal(T.vals.numpy(), np.asarray(J.vals))
     assert T.flops_per_mult() == J.flops_per_mult()
     assert (tell.aij_to_scipy(T) != A).nnz == 0
+
+
+def _pack_matrix(name):
+    """ex45's 3-D Poisson (8³), ksp ex43's golden system at mx = 20, a
+    random rectangular matrix."""
+    if name == "ex45":
+        return poisson_3d(8, 8, 8, np.float64)
+    if name == "ex43_golden":
+        from petsctpu_torch.models.q1stokes import q1q1_stokes_system
+        return q1q1_stokes_system(20, 20, c_str=0, eta0=1.0, eta1=1.0e6,
+                                  xc=0.5, nz=2)[0]
+    return sp.random(70, 130, density=0.06, random_state=8, format="csr")
+
+
+@pytest.mark.parametrize("name", ["ex45", "ex43_golden", "rectangular"])
+def test_aij_pack_is_the_reference_int32_pack(name):
+    A = _pack_matrix(name)
+    ref = jell.aij_pack(A)[0]
+    port = tell.aij_pack(A)[0]
+    T = tell.aij_from_scipy(A, device=CPU)
+    assert ref.dtype == port.dtype == np.int32 and T.cols.dtype == torch.int32
+    assert port.shape == ref.shape and port.tobytes() == ref.tobytes()
+    assert T.cols.numpy().tobytes() == ref.tobytes()
+
+
+def _fma(a, b, c):
+    """a·b + c rounded once: exact in Fractions, rounded to the nearest
+    double; an exact zero takes IEEE's sign, which a·b + c then gives."""
+    s = Fraction(a) * Fraction(b) + Fraction(c)
+    return float(s) if s else a * b + c
+
+
+def _fused_complex_mult(cols, vals, x):
+    """Σ_k vals[i,k]·x[cols[i,k]] folded in slot order from +0.0, each
+    complex product formed as XLA:CPU forms it: re = fma(ar, br, −ai·bi),
+    im = fma(ai, br, ar·bi)."""
+    v, g = vals.ravel(), x[cols].ravel()
+    p = np.array([complex(_fma(a.real, b.real, -(a.imag * b.imag)),
+                          _fma(a.imag, b.real, a.real * b.imag))
+                  for a, b in zip(v.tolist(), g.tolist())]).reshape(vals.shape)
+    y = np.zeros(vals.shape[0], np.complex128)
+    for k in range(vals.shape[1]):
+        y = y + p[:, k]
+    return y
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex128])
+def test_ell_plain_is_the_reference_mult(dtype):
+    """ell_spmv_plain on the int32 pack against petsctpu's AIJ.mult on the
+    CPU: bit for bit in fp32 and fp64 (each row folded over its slots from
+    +0.0). In complex128 XLA:CPU contracts each product's multiply-add,
+    re = fma(ar, br, −ai·bi) and im = fma(ai, br, ar·bi), where the port
+    rounds all four products (the kernel's arithmetic): petsctpu's bits
+    are rebuilt here in that form, folded in the same slot order, byte
+    for byte; the port's products then differ by at most eps·|v||x|, and
+    each of the two folds of K terms lies within K·eps·Σ|v||x| of its
+    exact sum, so a row differs by at most (2K + 1)·eps·Σ|v||x|.
+    XLA:CPU folds a row left to right only up to 32 slots (wider rows it
+    reduces in another order), so every dtype takes the golden's own
+    pattern, K 27; the complex values' imaginary parts lie on it."""
+    from petsctpu_torch.ops.ell_spmv import ell_spmv_plain
+    A = _pack_matrix("ex43_golden").astype(dtype)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(A.shape[1])
+    if np.iscomplexobj(A):
+        Ai = A.copy()
+        Ai.data = rng.standard_normal(A.nnz).astype(dtype)
+        A = (A + 1j * Ai).tocsr()
+        x = x + 1j * rng.standard_normal(A.shape[1])
+    x = x.astype(dtype)
+    J = jell.aij_from_scipy(A)
+    T = tell.aij_from_scipy(A, device=CPU)
+    assert T.cols.shape[1] == 27
+    got = ell_spmv_plain(T.cols, T.vals, torch.from_numpy(x)).numpy()
+    ref = np.asarray(J.mult(jnp.asarray(x)))
+    assert got.dtype == ref.dtype
+    if not np.iscomplexobj(A):
+        assert got.tobytes() == ref.tobytes()
+        return
+    fused = _fused_complex_mult(T.cols.numpy(), T.vals.numpy(), x)
+    assert fused.tobytes() == ref.tobytes()
+    K = T.cols.shape[1]
+    scale = (abs(A) @ np.abs(x)) * (2 * K + 1) * np.finfo(np.float64).eps
+    assert np.all(np.abs(got.real - ref.real) <= scale)
+    assert np.all(np.abs(got.imag - ref.imag) <= scale)
 
 
 # -------------------------------------------------------------- SELL ----
