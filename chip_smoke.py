@@ -301,6 +301,29 @@ before each path and read just after:
    K + 1), odd K in each dtype, K = 96 at 32 rows a tile.
 `python3 chip_smoke.py slice9` runs the build and phases 29-32 alone, and
 then ex43's A at mx = 1023 as phase 25 does.
+33. ts ex15's 2-D heat DAE at 2049² (n = 4,198,401, fp64; Dirichlet rows
+   weighted 4/h²) by backward Euler, dt = 0.01, 10 steps through
+   ts_solve: the port's Newton with GMRES(30) on the 9-color FD
+   Jacobian (a 5-point StencilMat), preconditioned by the device MG
+   rebuilt on each Jacobian, the launch counts reset just before and
+   read just after; each step's max, min, Newton and GMRES its and
+   seconds, a Newton step's setup split into coloring assembly and MG
+   setup, ms a linear iteration, peak memory, a profiled linear solve
+   and a profiled time step; checks that every Newton and GMRES solve
+   converges, max(u) falls every step, min(u) ≥ −1e-6·max(u0) and K1
+   is launched at least once a linear iteration; then K1 against its
+   plain version and timed (beside its bound and CSR `mv`) at every
+   level shape of the hierarchy;
+34. the TS goldens on the card: ex15_1's max column at M = 20 through
+   the golden test's route (AD products, no PC) within 2e-5, ts ex1's
+   pseudo-Bratu fnorms within 2e-3, ts ex3's SSP errors within 2e-4;
+35. seven small TS cases on the card against the CPU (ex15 at M = 33
+   with the colored Jacobian and device MG, ex22_3 by RosW ra34pw2,
+   ARKIMEX 4, GL p = 3, alpha, rk dp45 with the basic adaptor, a
+   periodic characteristic rotation): equal step counts, final times,
+   Newton and linear its and reasons, states within each case's bound,
+   at least 30 times the CPU's own change under a 1e-15 change of u0.
+`python3 chip_smoke.py slice11` runs the build and phases 33-35 alone.
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -333,7 +356,7 @@ from petsctpu_torch.ksp import bcgs as ksp_bcgs
 from petsctpu_torch.ksp import common as ksp_common
 from petsctpu_torch.ksp.cheby import (estimate_extreme_singular_arnoldi,
                                       estimate_lambda_max)
-from petsctpu_torch.ksp.common import KSPConfig
+from petsctpu_torch.ksp.common import KSPConfig, to_host
 from petsctpu_torch.ksp.mixed import solve_ir
 from petsctpu_torch.ksp.specest import SpecEstPC
 from petsctpu_torch.mat import (StencilMat, aij_from_scipy, aij_to_scipy,
@@ -354,7 +377,11 @@ from petsctpu_torch.models.bratu import (bratu3d_fd_jacobian,
                                          bratu_initial_guess,
                                          bratu_jacobian_template,
                                          bratu_residual)
+from petsctpu_torch.models.adr1d import (adr_initial, adr_rhs_advection,
+                                         adr_rhs_reaction)
 from petsctpu_torch.models.elasticity import ex55_system
+from petsctpu_torch.models.heat import (heat2d_ifunc, heat2d_initial,
+                                        heat2d_jacobian_template)
 from petsctpu_torch.models.q1stokes import (integrate_errors,
                                             q1q1_stokes_system,
                                             solcx_nodal_solution)
@@ -390,6 +417,12 @@ from petsctpu_torch.snes import (SNES, ColoredJacobian, fas_levels_from_da,
                                  snes_fas, snes_nasm, snes_ncg, snes_ngmres,
                                  snes_qn, snes_solve, snes_vinewtonrsls)
 from petsctpu_torch.snes.api import SNESConfig
+from petsctpu_torch.ts import (TSConfig, ts_alpha, ts_arkimex,
+                               ts_characteristic, ts_gl, ts_pseudo, ts_rosw,
+                               ts_solve)
+from petsctpu_torch.ts import gl as ts_gl_module
+from petsctpu_torch.ts import imex as ts_imex
+from petsctpu_torch.ts import steppers as ts_steppers
 from petsctpu_torch.timing import (FP32_FLOPS_PER_S, FP64_FLOPS_PER_S,
                                    HBM_BYTES_PER_S, graph_ms, time_ms)
 from petsctpu_torch.vec.indexset import IS
@@ -3789,6 +3822,430 @@ def slice9_phases(rng, kernels, triad_gbs):
                 launches=launched["ell_spmv"], max_abs_err=err, **times)
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: TS (phases 33-35)
+# ---------------------------------------------------------------------------
+
+EX15_M = 2049             # ts ex15 2-D heat DAE at 2049²: n = 4,198,401
+EX15_DT = 0.01
+EX15_STEPS = 10
+TS_SMALL_M = 33           # ex15 card against CPU: n = 1,089
+EX15_GOLDEN_MAX = (0.455605, 0.238234, 0.148476, 0.104384, 0.0788279,
+                   0.0620459, 0.0500304, 0.0409203, 0.0337537, 0.0279837)
+TS_EX1_FNORMS = (0.207564, 0.184718, 0.160569, 0.135283, 0.109165,
+                 0.0827478, 0.0569517, 0.03335, 0.0144859, 0.00341003,
+                 0.000212272)
+TS_EX3_ERRORS = (0.00103714, 0.00173865, 0.00218619, 0.00244382,
+                 0.00256155, 0.0025782, 0.00252361, 0.00242114,
+                 0.00228786, 0.00213706)
+
+
+@contextlib.contextmanager
+def ts_its():
+    """The Newton solves' and the linear solves' (its, reason) of a TS
+    run, in order, from spies on the steppers' snes_solve and on
+    KSP_REGISTRY's gmres (every stage solve of the slice's runs)."""
+    log = types.SimpleNamespace(newton=[], linear=[])
+    mods = (ts_steppers, ts_imex, ts_gl_module)
+    reals = [m.snes_solve for m in mods]
+    real_ksp = ksp_api.KSP_REGISTRY["gmres"]
+
+    def newton(real):
+        def spy(*a, **kw):
+            res = real(*a, **kw)
+            log.newton.append((int(res.its), int(res.reason)))
+            return res
+        return spy
+
+    def linear(A, b, x0, pc, cfg, axis):
+        res = real_ksp(A, b, x0, pc, cfg, axis)
+        log.linear.append((int(res.its), int(res.reason)))
+        return res
+
+    for m, real in zip(mods, reals):
+        m.snes_solve = newton(real)
+    ksp_api.KSP_REGISTRY["gmres"] = linear
+    try:
+        yield log
+    finally:
+        for m, real in zip(mods, reals):
+            m.snes_solve = real
+        ksp_api.KSP_REGISTRY["gmres"] = real_ksp
+
+
+def ex15_bscale(M):
+    """The Dirichlet rows' weight of the MG route: 4/h² (heat2d_ifunc)."""
+    return 4.0 * (M - 1) ** 2
+
+
+def drive_ex15_path(rng):
+    """Phase 33: ts ex15's 2-D heat DAE (Dirichlet, the ifunc form, IC
+    exp(-30 r³) inside r < 1/8; the boundary rows weighted 4/h²) at
+    EX15_M², fp64, backward Euler dt = 0.01 for 10 steps through
+    ts_solve: each step the port's Newton with GMRES(30) on the
+    stencil-colored FD Jacobian (heat2d_jacobian_template, 9 colors),
+    preconditioned by the device geometric MG rebuilt on each Jacobian
+    (K1 at every level, the coarse LU through sptrsv_lu). Then K1
+    against its plain version and timed at every level shape of the
+    last hierarchy. Returns (launches by kernel, K1's max error)."""
+    M = EX15_M
+    da = DA((M, M))
+    t = time.perf_counter()
+    u0 = heat2d_initial(M)
+    jac = TimedJacobian(ColoredJacobian.from_stencil(
+        heat2d_jacobian_template(M, 0)))
+    torch.cuda.synchronize()
+    print(f"slice 11: ts ex15 {M}^2 (Dirichlet) BE dt={EX15_DT}: n={da.n}, "
+          f"{jac.plan.ncolors} colors; setup {time.perf_counter() - t:.2f} s; "
+          f"Fb [{jac.plan.ncolors}, n] fp64 "
+          f"{jac.plan.ncolors * da.n * 8 / 1e6:.0f} MB")
+    mg = types.SimpleNamespace(secs=[], pc=None)
+
+    def mg_builder(J):
+        t = time.perf_counter()
+        mg.pc = make_geometric_mg_device(J, da)
+        torch.cuda.synchronize()
+        mg.secs.append(time.perf_counter() - t)
+        return mg.pc
+
+    steps = []
+
+    def post_step(k, tt, u):
+        mx, mn = to_host(u.max(), u.min())
+        steps.append((k, float(tt), float(mx), float(mn),
+                      time.perf_counter()))
+
+    by_grid = collections.Counter()
+    real = stencil_module.stencil_mult
+
+    def spy(coeffs, x, offsets, grid, boundary=()):
+        by_grid[tuple(grid)] += 1
+        return real(coeffs, x, offsets, grid, boundary)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    stencil_module.stencil_mult = spy      # StencilMat.mult's K1 call
+    try:
+        with timed_ksp() as klog, ts_its() as tlog:
+            t0 = time.perf_counter()
+            res = ts_solve(None, u0, ifunc=heat2d_ifunc(
+                               M, 0, bscale=ex15_bscale(M)),
+                           ts_type="beuler", dt=EX15_DT,
+                           max_steps=EX15_STEPS, max_time=1.0, jac=jac,
+                           pc_builder=mg_builder, post_step=post_step)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        stencil_module.stencil_mult = real
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lin = sum(klog.its)
+    print(f"ex15 {M}^2: {int(res.steps)} steps to t={float(res.t):g} in "
+          f"{secs:.2f} s; {len(tlog.newton)} Newton solves, {lin} GMRES its, "
+          f"{1e3 * sum(klog.secs) / max(lin, 1):.4f} ms a linear iteration "
+          f"(the Krylov solves' {sum(klog.secs):.2f} s); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the "
+          f"start)")
+    mx0 = float(u0.max())
+    prev, k_lin, t_prev = mx0, 0, t0
+    for (k, tt, mx, mn, tk), (nits, reason) in zip(steps, tlog.newton):
+        its = klog.its[k_lin:k_lin + nits]
+        asm = jac.secs[k_lin:k_lin + nits]
+        mgs = mg.secs[k_lin:k_lin + nits]
+        k_lin += nits
+        print(f"  step {k} t={tt:g}: max {mx:.6g} min {mn:.3e}; Newton its "
+              f"{nits} (reason {reason}), GMRES its {its}; {tk - t_prev:.2f} "
+              f"s; a Newton step's setup: coloring assembly "
+              f"{', '.join(f'{a:.3f}' for a in asm)} s + MG setup "
+              f"{', '.join(f'{s:.2f}' for s in mgs)} s")
+        t_prev = tk
+        if reason <= 0:
+            raise AssertionError(f"ex15 step {k}: Newton reason {reason}")
+        if min(r for _, r in tlog.linear[k_lin - nits:k_lin]) <= 0:
+            raise AssertionError(f"ex15 step {k}: a GMRES solve diverged "
+                                 f"{tlog.linear[k_lin - nits:k_lin]}")
+        if not mx < prev:
+            raise AssertionError(f"ex15 step {k}: max(u) {mx} did not fall "
+                                 f"from {prev}")
+        if not mn >= -1e-6 * mx0:
+            raise AssertionError(f"ex15 step {k}: min(u) {mn} below "
+                                 f"-1e-6 max(u0)")
+        prev = mx
+    if len(steps) != EX15_STEPS or not torch.isfinite(res.u).all():
+        raise AssertionError(f"ex15: {len(steps)} steps, or a non-finite "
+                             "state")
+    print(f"ex15 {M}^2: launches " + ", ".join(
+        f"{k} {v}" for k, v in launched.items() if v) + "; K1 by grid "
+        + ", ".join(f"{g[0]}^2 {n}" for g, n in sorted(by_grid.items(),
+                                                       reverse=True)))
+    if launched["stencil_mult"] < lin:
+        raise AssertionError(f"ex15: K1 launched {launched['stencil_mult']} "
+                             f"times in {lin} linear its")
+    A, b, pc, cfg = klog.last
+    ksolve = ksp_api.KSP_REGISTRY[cfg.ksp_type]
+    profile_solve(types.SimpleNamespace(solve=lambda b_: ksolve(
+        A, b_, torch.zeros_like(b_), pc, cfg, None)), b,
+        label=f"ex15 {M}^2 (a linear solve of the last step)", top=8)
+
+    def one_step(u):
+        ts_solve(None, u, ifunc=heat2d_ifunc(M, 0, bscale=ex15_bscale(M)),
+                 ts_type="beuler", t0=float(res.t), dt=EX15_DT,
+                 max_steps=1, max_time=1.0, jac=jac, pc_builder=mg_builder)
+        return types.SimpleNamespace(its=1)
+
+    profile_solve(types.SimpleNamespace(solve=one_step), res.u,
+                  label=f"ex15 {M}^2 (one more time step, per step)", top=8)
+    errs = []
+    for lv in mg.pc.levels:
+        S = lv.A
+        label = f"{S.grid[0]}^2 {len(S.offsets)}-point"
+        A_host = stencil_to_scipy(S)
+        err, x = check_k1(label, S, rng, A_host)
+        errs.append(err)
+        measure_k1(label + " fp64", S, x, A_host)
+        print(f"K1 at {label}: {by_grid.get(tuple(S.grid), 0) / lin:.2f} "
+              f"launches a linear iteration of the TS path ({lin} its; MG "
+              f"setups' products included)")
+    del res, jac, mg, A, b, pc
+    return launched, max(errs)
+
+
+def heat2d_max_column(dev, M=20, steps=10, **kw):
+    """ex15's max and min after each of `steps` BE steps at dt 0.01."""
+    seen = []
+    ts_solve(None, heat2d_initial(M, device=dev), ifunc=heat2d_ifunc(M, 0),
+             ts_type="beuler", dt=0.01, max_steps=steps, max_time=1.0,
+             post_step=lambda k, tt, v: seen.append(
+                 tuple(float(a) for a in to_host(v.max(), v.min()))), **kw)
+    return seen
+
+
+def pseudo_bratu_fnorms(dev):
+    """ts ex1: Bratu 4×4 (λ = 6) by pseudo-timestepping (dt0 0.125, SER
+    increment 1.1): the fnorm stream."""
+    mx = my = 4
+    lam = 6.0
+    h = 1.0 / (mx - 1)
+    inner = torch.zeros((my, mx), dtype=torch.bool, device=dev)
+    inner[1:-1, 1:-1] = True
+
+    def F(t_, xv):
+        X = xv.reshape(my, mx)
+        u = X[1:-1, 1:-1]
+        uxx = (-X[1:-1, 2:] + 2 * u - X[1:-1, :-2])
+        uyy = (-X[2:, 1:-1] + 2 * u - X[:-2, 1:-1])
+        f = -uxx - uyy + h * h * lam * torch.exp(u)
+        full = torch.nn.functional.pad(f, (1, 1, 1, 1))
+        return torch.where(inner, full, X).reshape(-1)
+
+    u0 = np.zeros((my, mx))
+    for j in range(1, my - 1):
+        tj = min(j, my - 1 - j) * h
+        for i in range(1, mx - 1):
+            u0[j, i] = lam / (lam + 1.0) * np.sqrt(min(min(i, mx - 1 - i)
+                                                       * h, tj))
+    res = ts_pseudo(F, torch.from_numpy(u0.reshape(-1)).to(dev),
+                    TSConfig(ts_type="pseudo", dt=0.125, max_steps=12,
+                             pseudo_fnorm_rtol=1e-10))
+    return res.fnorm_history.numpy()
+
+
+def ssp_heat_errors(dev):
+    """ts ex3: 1-D heat m = 60 by SSP rks2 (5 stages), dt 5e-4: the
+    h-scaled 2-norm errors of steps 1..10."""
+    m = 60
+    h = 1.0 / (m - 1)
+    A = (sp.diags([np.ones(m - 1), -2.0 * np.ones(m), np.ones(m - 1)],
+                  [-1, 0, 1]) / h ** 2).tolil()
+    A[0, :] = 0.0
+    A[0, 0] = 1.0
+    A[m - 1, :] = 0.0
+    A[m - 1, m - 1] = 1.0
+    Ad = torch.from_numpy(A.toarray()).to(dev)
+    xs = h * np.arange(m)
+
+    def exact(tt):
+        return (np.sin(6 * np.pi * xs) * np.exp(-36 * np.pi ** 2 * tt)
+                + 3 * np.sin(2 * np.pi * xs) * np.exp(-4 * np.pi ** 2 * tt))
+
+    errs = []
+    ts_solve(lambda t_, u: Ad @ u, torch.from_numpy(exact(0.0)).to(dev),
+             TSConfig(ts_type="ssp", ssp_type="rks2", ssp_nstages=5,
+                      dt=0.0005, max_steps=10, max_time=1.0),
+             post_step=lambda k, tt, u: errs.append(
+                 np.sqrt(h) * np.linalg.norm(u.cpu().numpy()
+                                             - exact(0.0005 * k))))
+    return np.array(errs)
+
+
+def check_ts_goldens(dev="cuda"):
+    """Phase 34: the TS goldens on the card: ex15_1's max column at M =
+    20 through the golden test's own route (AD products, no PC) within
+    2e-5; ts ex1's pseudo-Bratu fnorm stream within 2e-3; ts ex3's SSP
+    errors within 2e-4 (tests/test_golden.py's bounds)."""
+    maxes = np.array([mx for mx, _ in heat2d_max_column(dev)])
+    d15 = float(np.max(np.abs(maxes / np.array(EX15_GOLDEN_MAX) - 1)))
+    fh = pseudo_bratu_fnorms(dev)[:len(TS_EX1_FNORMS)]
+    d1 = float(np.max(np.abs(fh / np.array(TS_EX1_FNORMS) - 1)))
+    e3 = ssp_heat_errors(dev)
+    d3 = float(np.max(np.abs(e3 / np.array(TS_EX3_ERRORS) - 1)))
+    print(f"TS goldens on the card: ex15_1 max column {maxes[0]:.6g} ... "
+          f"{maxes[-1]:.6g}, rel diff {d15:.2e} (2e-5); ts ex1 fnorms rel "
+          f"diff {d1:.2e} (2e-3); ts ex3 SSP errors rel diff {d3:.2e} (2e-4)")
+    if not (d15 <= 2e-5 and d1 <= 2e-3 and d3 <= 2e-4):
+        raise AssertionError("a TS golden disagrees on the card")
+
+
+def allen_cahn(n=64, eps=0.05):
+    """u' = ε² u_xx + u − u³ on n interior points, zero Dirichlet ends."""
+    h = 1.0 / (n + 1)
+
+    def rhs(t_, u):
+        P = torch.nn.functional.pad(u, (1, 1))
+        return (eps / h) ** 2 * (P[2:] - 2 * u + P[:-2]) + u - u ** 3
+
+    x = np.linspace(h, 1 - h, n)
+    return rhs, 0.8 * np.sin(3 * np.pi * x) + 0.1 * np.cos(7 * x)
+
+
+def ts_small_cases():
+    """The card-against-CPU cases of phase 35: (label, run(dev, u0) ->
+    TSResult, u0, bound). Each bound is at least 30 times the CPU's own
+    state change under a 1e-15 change of u0 (measured in the run; on the
+    CPU the bounds were set on: ex15 M=33 2.9e-15, ex22_3 RosW 1.9e-14,
+    ARKIMEX 4 1.8e-14, GL p=3 6.2e-16, alpha 3.7e-16, rk dp45 7.1e-16,
+    characteristic 2.9e-16: each bound is about 1000 times that)."""
+    M = TS_SMALL_M
+
+    def ex15(dev, u0):
+        da = DA((M, M))
+        return ts_solve(None, torch.from_numpy(u0).to(dev),
+                        ifunc=heat2d_ifunc(M, 0, bscale=ex15_bscale(M)),
+                        ts_type="beuler", dt=0.01,
+                        max_steps=10, max_time=1.0,
+                        jac=ColoredJacobian.from_stencil(
+                            heat2d_jacobian_template(M, 0, device=dev)),
+                        pc_builder=lambda J: make_geometric_mg_device(J, da))
+
+    def ex22(dev, u0, ark=False):
+        fexp, fimp = adr_rhs_advection(200), adr_rhs_reaction(200)
+        x0 = torch.from_numpy(u0).to(dev)
+        if ark:
+            return ts_arkimex(fexp, fimp, x0, TSConfig(
+                dt=0.1 / 400.0, max_steps=10, max_time=1.0,
+                clamp_final=False), tableau="4")
+        return ts_rosw(lambda t_, x: fexp(t_, x) + fimp(t_, x), x0,
+                       TSConfig(dt=5e-3, max_steps=10000, max_time=1.0,
+                                clamp_final=False), tableau="ra34pw2",
+                       jac_fn=fimp)
+
+    ac, ac0 = allen_cahn()
+
+    def forced(t_, u):
+        return ac(t_, u) + 0.3 * float(np.sin(5.0 * t_))
+
+    def gl3(dev, u0):
+        return ts_gl(ac, torch.from_numpy(u0).to(dev), order=3, dt=0.02,
+                     max_time=0.2)
+
+    def alpha(dev, u0):
+        return ts_alpha(ac, torch.from_numpy(u0).to(dev), dt=0.02,
+                        max_time=0.2)
+
+    def dp45(dev, u0):
+        return ts_solve(forced, torch.from_numpy(u0).to(dev), ts_type="rk",
+                        rk_type="dp45", dt=0.05, max_time=1.0, adapt=True,
+                        adapt_rtol=1e-8, adapt_atol=1e-10, max_steps=5000)
+
+    m = 65
+    xs = np.linspace(0, 1, m)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    c0 = np.exp(-100 * ((X - 0.7) ** 2 + (Y - 0.5) ** 2)).reshape(-1)
+
+    def characteristic(dev, u0):
+        vx = torch.from_numpy(-2 * np.pi * (Y - 0.5) + 0.3).to(dev)
+        vy = torch.from_numpy(2 * np.pi * (X - 0.5) - 0.2).to(dev)
+        return ts_characteristic(lambda t_, u: (vx, vy),
+                                 torch.from_numpy(u0).to(dev), (m, m),
+                                 dt=0.01, max_time=0.3, bc="periodic")
+
+    u22 = adr_initial(200, device="cpu").numpy()
+    return [
+        (f"ex15 M={M} BE, colored Jacobian + device MG", ex15,
+         heat2d_initial(M, device="cpu").numpy(), 1e-12),
+        ("ex22_3 RosW ra34pw2 dt 5e-3 (200 steps)", ex22, u22, 2e-11),
+        ("ex22 ARKIMEX 4, 10 steps",
+         lambda dev, u0: ex22(dev, u0, ark=True), u22, 2e-11),
+        ("GL p=3 Allen-Cahn, 10 steps", gl3, ac0, 1e-12),
+        ("alpha Allen-Cahn, 10 steps", alpha, ac0, 1e-12),
+        ("rk dp45 + basic adaptor, forced Allen-Cahn", dp45, ac0, 1e-12),
+        ("characteristic, periodic rotation 65^2", characteristic, c0,
+         1e-12),
+    ]
+
+
+def ts_state_diff(a, b):
+    """Max relative difference of two TS states, inf unless their step
+    counts and final times agree."""
+    if int(a.steps) != int(b.steps) or float(a.t) != float(b.t):
+        return float("inf")
+    x, y = a.u.cpu().numpy(), b.u.cpu().numpy()
+    return float(np.abs(x - y).max() / np.abs(y).max())
+
+
+def check_ts_small_against_cpu(devices=("cuda", "cpu")):
+    """Phase 35: each ts_small_cases entry on the card and on the CPU:
+    equal step counts, final times, Newton its and reasons, and linear
+    its, states within the case's bound, itself at least 30 times the
+    CPU's own change under a 1e-15 change of u0. Returns the card runs'
+    launches by kernel."""
+    launched = collections.Counter()
+    worst = 0.0
+    for label, run, u0, bound in ts_small_cases():
+        before = launch_counts()
+        with ts_its() as card_its:
+            card = run(devices[0], u0)
+        launched.update({k: v - before[k]
+                         for k, v in launch_counts().items()})
+        with ts_its() as cpu_its:
+            cpu = run(devices[1], u0)
+        diff = ts_state_diff(card, cpu)
+        print(f"small {label} card vs cpu: steps {int(card.steps)}/"
+              f"{int(cpu.steps)} t {float(card.t):g}; Newton solves "
+              f"{len(card_its.newton)}/{len(cpu_its.newton)}, linear its "
+              f"{sum(i for i, _ in card_its.linear)}/"
+              f"{sum(i for i, _ in cpu_its.linear)}; state rel diff "
+              f"{diff:.2e}")
+        if (card_its.newton != cpu_its.newton
+                or card_its.linear != cpu_its.linear
+                or not diff <= bound or not torch.isfinite(card.u).all()):
+            raise AssertionError(f"small {label} on the card disagrees "
+                                 "with the CPU")
+        check_bound_over_noise(label, bound, ts_state_diff(
+            cpu, run(devices[1], x0_changed(u0))))
+        worst = max(worst, diff / bound)
+    print(f"slice 11 card vs cpu: {len(ts_small_cases())} cases, worst "
+          f"difference {worst:.2e} of its bound; launches on the card "
+          f"{dict(launched)}")
+    return launched
+
+
+def slice11_phases(rng, kernels):
+    """Slice 11: the ex15 path at EX15_M² (phase 33), the TS goldens on
+    the card (34), the small TS cases card against CPU (35). Adds the
+    paths' K1 and SpTRSV launches to the kernels line and K1's error."""
+    launched, k1_err = drive_ex15_path(rng)
+    check_ts_goldens()
+    small = check_ts_small_against_cpu()
+    for name in ("sptrsv", "sptrsv_lu", "stencil_mult", "ell_spmv"):
+        if name in kernels:
+            kernels[name]["launches"] += launched[name] + small[name]
+    kernels["stencil_mult"]["max_abs_err"] = max(
+        kernels["stencil_mult"]["max_abs_err"], k1_err)
+
+
 T0 = time.perf_counter()
 
 
@@ -3796,7 +4253,7 @@ def main(argv=()):
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
-    if list(argv) in (["slice7"], ["slice8"], ["slice9"]):
+    if list(argv) in (["slice7"], ["slice8"], ["slice9"], ["slice11"]):
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
                    for k in ("sell_spmv", "sell_spmvT", "stencil_mult",
                              "sptrsv", "sptrsv_lu")}
@@ -3804,6 +4261,8 @@ def main(argv=()):
             slice7_phases(rng, kernels)
         elif argv[0] == "slice8":
             slice8_phases(rng, kernels, stream_triad_gbs(1 << 28))
+        elif argv[0] == "slice11":
+            slice11_phases(rng, kernels)
         else:
             triad = stream_triad_gbs(1 << 28)
             ell = slice9_phases(rng, kernels, triad)
@@ -3871,6 +4330,7 @@ def main(argv=()):
     slice8_phases(rng, {k["name"]: k for k in kernels}, triad)
     kernels.append(slice9_phases(rng, {k["name"]: k for k in kernels},
                                  triad))
+    slice11_phases(rng, {k["name"]: k for k in kernels})
     kernels += probes_phase()
     print(smi)
     print(f"chip_smoke.py in {time.perf_counter() - T0:.1f} s")

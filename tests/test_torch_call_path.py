@@ -24,6 +24,10 @@ from petsctpu_torch.ops import sptrsv as trsv
 from petsctpu_torch.ops import stencil_mult as k1
 from petsctpu_torch.ops import window_spmv as h2
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 OPS = pathlib.Path(petsctpu_torch.__file__).resolve().parent / "ops"
 
 

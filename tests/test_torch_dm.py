@@ -15,6 +15,10 @@ import torch
 from petsctpu.dm import da as jda
 from petsctpu_torch.dm import da as tda
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 GRIDS = [(9,), (9, 7), (5, 7, 9), (33, 33)]
 

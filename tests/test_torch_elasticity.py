@@ -41,6 +41,10 @@ from petsctpu_torch.models import elasticity as tel
 from petsctpu_torch.pc import make_pc
 from petsctpu_torch.pc.gamg import rigid_body_modes
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 NE = 63                                   # 8192 dofs: level 0 on SELL
 

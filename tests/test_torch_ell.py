@@ -22,6 +22,10 @@ from petsctpu_torch.mat import aij_from_scipy
 from petsctpu_torch.ops import _build
 from petsctpu_torch.ops import ell_spmv as ell
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 
 class _OnCard(torch.Tensor):
     """A CPU tensor that reports CUDA device 0 (the wrapper's CUDA path)."""

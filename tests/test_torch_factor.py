@@ -30,6 +30,10 @@ from petsctpu_torch.mat import factor as tfactor
 from petsctpu_torch.mat import order as torder
 from petsctpu_torch.models import ex2_system, ex45_system
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

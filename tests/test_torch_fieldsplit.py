@@ -60,6 +60,10 @@ from petsctpu_torch.pc.fieldsplit import (FieldSplitPC, MultiFieldSplitPC,
                                           make_multi_fieldsplit)
 from petsctpu_torch.vec.indexset import IS
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 SOLCX = dict(c_str=0, eta0=1.0, eta1=1.0e6, xc=0.5, nz=2)
 GOLDEN_OPTS = {"pc_fieldsplit_type": "symmetric_multiplicative",

@@ -55,6 +55,10 @@ from petsctpu_torch.pc.factor import PermutedPC
 from petsctpu_torch.pc.gamg_device import DenseLUPC
 from petsctpu_torch.pc.mg import pack_hierarchy
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 GAMG_OPTS = {"pc_gamg_coarse_eq_limit": "64"}
 

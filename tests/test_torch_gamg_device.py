@@ -55,6 +55,10 @@ from petsctpu_torch.pc import asa as tasa
 from petsctpu_torch.pc import gamg as tgamg
 from petsctpu_torch.pc import gamg_device as tgd
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -14,6 +14,10 @@ import torch
 import petsctpu_torch
 from petsctpu_torch.models import ex2_system
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 PKG = pathlib.Path(petsctpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
 
@@ -46,7 +50,8 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "snes.variants", "snes.fas", "snes.vi", "snes.nasm",
               "models.bratu", "models.cavity", "models.pbratu",
               "models.radiative", "models.adr1d", "models.laplin",
-              "core.random"):
+              "core.random", "ts", "ts.steppers", "ts.imex", "ts.gl",
+              "ts.characteristic", "models.heat"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
@@ -97,7 +102,7 @@ def _entry_points():
     from petsctpu_torch.pc.exotic import make_tfs
     from petsctpu_torch.pc.extra import make_eisenstat_system, make_svd
     from petsctpu_torch.pc.fieldsplit import make_fieldsplit
-    from petsctpu_torch.models import (adr1d, bratu, cavity, pbratu,
+    from petsctpu_torch.models import (adr1d, bratu, cavity, heat, pbratu,
                                        radiative)
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
@@ -140,6 +145,10 @@ def _entry_points():
         "radiative_initial_guess": lambda **kw:
             radiative.radiative_initial_guess(5, 5, **kw),
         "adr_initial": lambda **kw: adr1d.adr_initial(6, **kw),
+        "heat2d_initial": lambda **kw: heat.heat2d_initial(6, **kw),
+        "heat1d_initial": lambda **kw: heat.heat1d_initial(6, **kw),
+        "heat2d_jacobian_template": lambda **kw:
+            heat.heat2d_jacobian_template(6, 1, **kw).coeffs,
         "probes.__main__": lambda **kw: probes_main(
             ["probe_gather6_C", *(("--device", kw["device"]) if kw
                                   else ())])[0]["out"],
@@ -160,7 +169,9 @@ def _entry_points():
                                   "bratu3d_fd_jacobian",
                                   "cavity_initial_guess",
                                   "pbratu_initial_guess",
-                                  "radiative_initial_guess", "adr_initial"])
+                                  "radiative_initial_guess", "adr_initial",
+                                  "heat2d_initial", "heat1d_initial",
+                                  "heat2d_jacobian_template"])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

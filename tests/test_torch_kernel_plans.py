@@ -29,6 +29,10 @@ import torch
 from petsctpu_torch.ops import stencil_mult as k1
 from petsctpu_torch.ops.window_spmv import window_spmv_plain
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 STAR5 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 STAR7 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
          (0, 0, -1), (0, 0, 1))

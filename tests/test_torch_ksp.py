@@ -44,6 +44,10 @@ from petsctpu_torch.mat.sell import sell_from_scipy
 from petsctpu_torch.models import ex2_system, ex45_system
 from petsctpu_torch.pc import make_pc
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 SYSTEMS = {"ex2": lambda: ex2_system(8, 7), "ex45": lambda: ex45_system(6, 6, 6)}
 SOLVERS = {

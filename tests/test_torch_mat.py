@@ -32,6 +32,10 @@ from petsctpu_torch.mat import sell as tsell
 from petsctpu_torch.mat.factory import mat_from_options
 from petsctpu_torch.models import ex2_system, poisson_3d
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

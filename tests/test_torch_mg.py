@@ -41,6 +41,10 @@ from petsctpu_torch.models import ex2_system, poisson_3d
 from petsctpu_torch.pc import make_pc
 from petsctpu_torch.pc.factor import make_lu
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -53,6 +53,10 @@ from petsctpu_torch.pc.extra import make_eisenstat_system
 from petsctpu_torch.pc.spai import spai_host
 from petsctpu_torch.pc.supportgraph import support_tree
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -41,6 +41,10 @@ from petsctpu_torch.mat import aij_from_scipy, mat_from_options
 from petsctpu_torch.models import ex2_system, ex45_system
 from petsctpu_torch.pc import make_pc
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

@@ -28,6 +28,10 @@ from petsctpu_torch.probes import CASES, run
 from petsctpu_torch.probes.__main__ import main
 from petsctpu_torch.probes.sell import _k2_padded, _sell_bytes
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
 

@@ -12,12 +12,17 @@ are equal too.
 
 import numpy as np
 import pytest
+import torch
 
 from petsctpu.models import q1stokes as jq1
 from petsctpu.models.stokes import stokes_mac as jstokes_mac
 
 from petsctpu_torch.models import q1stokes
 from petsctpu_torch.models.stokes import stokes_mac
+
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
 
 PARAMS = {0: dict(eta0=1.0, eta1=1.0e6, xc=0.5, nz=2), 1: dict(eta1=1e3),
           2: dict(eta1=1e2, r=0.3), 3: {}}

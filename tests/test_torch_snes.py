@@ -45,6 +45,10 @@ from petsctpu_torch.snes import (SNES, ColoredJacobian, jvp_operator,
 from petsctpu_torch.snes.api import (SNESConfig, snes_grid_sequence,
                                      snes_ksponly, snes_nrichardson)
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 DATA = os.path.join(os.path.dirname(__file__), "data")
 T = dict(dtype=torch.float64)
 

@@ -27,6 +27,10 @@ from petsctpu_torch.ksp.common import KSPConfig
 from petsctpu_torch.mat import aij_from_scipy
 from petsctpu_torch.models import bratu as tb
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 
 def t(a):
     return torch.from_numpy(np.array(a, np.float64))

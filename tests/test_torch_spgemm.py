@@ -21,6 +21,10 @@ from petsctpu_torch.mat import aij_to_scipy
 from petsctpu_torch.mat import spgemm as tsp
 from petsctpu_torch.models import laplacian_2d
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

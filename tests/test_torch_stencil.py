@@ -32,6 +32,10 @@ from petsctpu_torch.mat import stencil as tst
 from petsctpu_torch.models import laplacian_2d, poisson_3d
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 STAR5 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 STAR7 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),

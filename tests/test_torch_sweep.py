@@ -37,6 +37,13 @@ SNES object with the 27-color 'ds' FD Jacobian and GMRES(30) + ILU(0)
 rebuilt on each Jacobian (every entry within 3e-5, the last within
 5e-3, "< 1.e-11" entries below 1e-11), the path chip_smoke.py drives
 at 128³.
+
+TS holds the 8 serial ts ex4 cases (ROADMAP queue 1 item 12) to their
+oracle Timestep streams with tests/test_sweep.py::run_ts_ex4's bounds
+(each step's time within 1e-5, its h-scaled 2-norm and max errors
+against the analytic solution within 2e-5 + 1e-12), in one integration
+whose state is read after each step (ts_solve's post_step), where
+run_ts_ex4 integrates again from t = 0 for every step.
 """
 
 import os
@@ -60,6 +67,10 @@ from petsctpu_torch.models import ex2_system
 from petsctpu_torch.pc import make_pc
 from petsctpu_torch.pc.extra import make_eisenstat_system
 from petsctpu_torch.vec import ops
+
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
 
 SLICE1 = ("sw_ex2_cg_none", "sw_ex2_gmres_restart10", "sw_ex2_gmres_mgs",
           "sw_ex2_gmres_unpre", "sw_ex2_gmres_right", "sw_ex1_cg_jacobi",
@@ -140,6 +151,9 @@ SNES = ("sw_snes5_l2_m10", "sw_snes5_l4_m10", "sw_snes5_l5_m16",
         "sw3_snes5_l2_m14", "sw3_snes5_l55_m20", "sw3_snes5_l1_m8",
         "sw_snes14_fdcolor_l5", "sw_snes14_fdcolor_l3",
         "sw3_snes14_fdcolor_l4", "sw3_snes14_fdcolor_l2")
+TS = ("sw_ts4_beuler", "sw_ts4_beuler_m40", "sw_ts4_euler_m80",
+      "sw3_ts4_beuler_m80", "sw3_ts4_euler_m40", "sw3_ts4_beuler_dt",
+      "sw8_ts4_cn_m60", "sw8_ts4_cn_m40")
 BY_TAG = {c.tag: c for c in CASES}
 # CG+SSOR on the 1-D 120-row operator, 51 its to rtol 1e-7; BiCGStab +
 # SOR on the 1-D 120-row operator, 31 its to rtol 1e-5; TFQMR + Jacobi
@@ -429,3 +443,64 @@ def test_snes_sweep_case_through_port(tag):
     flags = parse_args(case.args)
     monit = _snes_monitor(tag)
     (_snes5 if case.check == "snes" else _snes14)(case, flags, monit)
+
+
+def test_ts_is_every_serial_ts_ex4_case():
+    rule = [c.tag for c in CASES if c.np == 1 and c.sys.startswith("ts_ex4:")]
+    assert sorted(rule) == sorted(TS) and len(TS) == 8
+    assert all(BY_TAG[tag].check == "ts" for tag in TS)
+
+
+@pytest.mark.parametrize("tag", TS)
+def test_ts_sweep_case_through_port(tag):
+    """ts ex4's 1-D heat equation (RHS matrix with unit boundary rows,
+    u0 = sin(6πx) + 3 sin(2πx), dt = h²/2) replayed as
+    tests/test_sweep.py::run_ts_ex4 does, in one integration."""
+    from petsctpu_torch.ts import ts_solve
+    from petsctpu_torch.ts.steppers import TSConfig
+
+    case = BY_TAG[tag]
+    flags = parse_args(case.args)
+    m = int(dict(kv.split("=") for kv in
+                 case.sys.split(":")[1].split(","))["m"])
+    txt = open(os.path.join(ORACLE, tag + ".txt")).read()
+    rows = [(float(mm.group(1)), float(mm.group(2)), float(mm.group(3)))
+            for mm in re.finditer(
+                r"Timestep \d+: time = (\S+) 2-norm error = (\S+) "
+                r"max norm error = (\S+)", txt)]
+    assert rows, "no oracle Timestep stream"
+    h = 1.0 / (m - 1)
+    x = np.arange(m) * h
+    u0 = np.sin(6 * np.pi * x) + 3.0 * np.sin(2 * np.pi * x)
+
+    def exact(tt):
+        return (np.exp(-36 * np.pi ** 2 * tt) * np.sin(6 * np.pi * x)
+                + 3 * np.exp(-4 * np.pi ** 2 * tt) * np.sin(2 * np.pi * x))
+
+    s1 = 1.0 / h ** 2
+    A = sp.diags([s1 * np.ones(m - 1), -2 * s1 * np.ones(m),
+                  s1 * np.ones(m - 1)], [-1, 0, 1]).tolil()
+    A[0, :] = 0.0
+    A[0, 0] = 1.0
+    A[m - 1, :] = 0.0
+    A[m - 1, m - 1] = 1.0
+    Ad = torch.from_numpy(sp.csr_matrix(A).toarray())
+    dt = h * h / 2.0
+    states = [(0.0, u0)]
+    ts_solve(lambda t_, u: Ad @ u, torch.from_numpy(u0),
+             cfg=TSConfig(ts_type=flags.get("ts_type", "euler"), dt=dt,
+                          max_steps=len(rows) - 1, max_time=1.0),
+             post_step=lambda k, tt, u: states.append((float(tt),
+                                                       u.numpy().copy())))
+    assert len(states) == len(rows)
+    for k, ((t_ref, e2_ref, emax_ref), (tk, u)) in enumerate(zip(rows,
+                                                                 states)):
+        err = u - exact(k * dt)
+        e2 = np.sqrt(h) * np.linalg.norm(err)
+        emax = np.abs(err).max()
+        assert abs(k * dt - t_ref) <= 1e-5 * max(t_ref, 1e-9)
+        assert abs(tk - t_ref) <= 1e-5 * max(t_ref, 1e-9)
+        assert abs(e2 - e2_ref) <= 2e-5 * max(e2_ref, 1e-12) + 1e-12, \
+            (k, e2, e2_ref)
+        assert abs(emax - emax_ref) <= 2e-5 * max(emax_ref, 1e-12) \
+            + 1e-12, (k, emax, emax_ref)

@@ -12,6 +12,10 @@ import torch
 from petsctpu.vec import ops as jops
 from petsctpu_torch.vec import ops as tops
 
+# one intra-op thread: the suite runs in parallel workers (pytest -n), and
+# PyTorch's default of a thread a core oversubscribes the host's cores
+torch.set_num_threads(1)
+
 N = 1000
 RTOL = 1e-14
 
