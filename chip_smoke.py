@@ -324,6 +324,52 @@ then ex43's A at mx = 1023 as phase 25 does.
    Newton and linear its and reasons, states within each case's bound,
    at least 30 times the CPU's own change under a 1e-15 change of u0.
 `python3 chip_smoke.py slice11` runs the build and phases 33-35 alone.
+36. ksp ex55 at ne = 1023 (n = 2,097,152, bs 2, 37.7 M nonzeros) in fp32
+   through mat_from_options(-mat_type baij -mat_block_size 2): on the
+   card SellBAIJ, whose forward product is K2 on the block expansion
+   (explicit zeros kept); CG + pbjacobi for a fixed 300 its (rtol
+   1e-30), the launch counts reset just before the operator is built and
+   K2's read just after the solve; ms an iteration first and repeated, a
+   profiled repeat's idle share, the reason, the true residual and CG's
+   energy ½xᵀAx − bᵀx, checked to fall at its 50, 100, ..., 300 (the
+   residual of CG on ex55 rises over these 300 its: CG's transient at
+   this size, scripts/ex55_convergence.py); the same solve on the
+   BAIJ's block ops, its history within 30 times the block ops' own
+   change under four one-ulp changes of b (the correctness gate of the
+   route); K2 on this pack bit for bit
+   against its plain version; SellBAIJ.mult (K2), BAIJ.mult and
+   BAIJ.multT (the block ops; multT through its fold plan, two calls
+   bit-equal), the ELL kernel on the expansion and CSR `mv`, each against
+   its bound;
+37. the same system in fp64 on SBAIJ (-mat_type sbaij), CG + ICC(0) on
+   the host matrix for 300 its: ms an iteration, idle share, SpTRSV
+   launches (two a PC apply, the solve's own), the setup split, peak
+   memory, CG's energy falling at its 100, 200 and 300; SpTRSV on both
+   ICC triangles of this plan bit for bit against its plain version, and
+   the ICC apply against the plain triangles composed; SBAIJ.mult
+   against the fp64 AIJ product within 1e-13 on three x, two calls
+   bit-equal, timed against its bound and CSR `mv`;
+38. ex55 at ne = 63 card against CPU: fp64 BAIJ and SBAIJ with CG +
+   pbjacobi and + jacobi, and SBAIJ with CG + ICC(0): equal its and
+   reason, the history within 1e-8 on the entries where two CPU solves
+   (ICC: one) on b changed by 1e-15 stay within 1e-9 of the CPU's (CG
+   on ex55 amplifies rounding; at least half the history), x within 30
+   times those solves' change of x; fp32 SellBAIJ with CG + pbjacobi for
+   b and two one-ulp changes of b (the history within 1e-3 where 4
+   one-ulp changes of b keep the CPU's within 1e-4, x within 30 times
+   their change); the three blocked
+   configs of tests/test_golden_ex10.py on the card with that test's
+   bounds;
+39. card against CPU: -mat_type band (RCM) and dia (natural) with CG +
+   jacobi on ex45 at 32³, ILU(0) with -pc_factor_tri_solve band and
+   band2, -pc_gamg_mat_type band, NN and BDDC on a 2-D Poisson MatIS of
+   4 subdomains, the FFT PC (equal its and reasons, histories within
+   1e-8 and x as in phase 38, against one CPU solve on b changed by
+   1e-15); MAIJ and Nest products, ell_from_coo with duplicates and
+   AIJ.multT (bit-equal to the CPU, two calls bit-equal); then BandMat
+   and DiaMat on the natural-order 513² 5-point Laplacian timed beside
+   the ELL kernel and CSR `mv`.
+`python3 chip_smoke.py slice12` runs the build and phases 36-39 alone.
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -359,9 +405,14 @@ from petsctpu_torch.ksp.cheby import (estimate_extreme_singular_arnoldi,
 from petsctpu_torch.ksp.common import KSPConfig, to_host
 from petsctpu_torch.ksp.mixed import solve_ir
 from petsctpu_torch.ksp.specest import SpecEstPC
-from petsctpu_torch.mat import (StencilMat, aij_from_scipy, aij_to_scipy,
-                                mat_from_options, stencil_from_scipy,
-                                stencil_to_scipy)
+from petsctpu_torch.mat import (SellBAIJ, StencilMat, aij_from_scipy,
+                                aij_to_scipy, baij_from_scipy_bsr,
+                                band_from_scipy, dia_from_scipy,
+                                mat_from_options, sbaij_from_scipy,
+                                stencil_from_scipy, stencil_to_scipy)
+from petsctpu_torch.mat.coo import ell_from_coo
+from petsctpu_torch.mat.maij import MAIJ
+from petsctpu_torch.mat.nest import make_nest
 from petsctpu_torch.mat import stencil as stencil_module
 from petsctpu_torch.mat.dense import Dense
 from petsctpu_torch.mat.nullspace import make_nullspace
@@ -379,6 +430,7 @@ from petsctpu_torch.models.bratu import (bratu3d_fd_jacobian,
                                          bratu_residual)
 from petsctpu_torch.models.adr1d import (adr_initial, adr_rhs_advection,
                                          adr_rhs_reaction)
+from petsctpu_torch.models.ddpoisson import matis_poisson_2d
 from petsctpu_torch.models.elasticity import ex55_system
 from petsctpu_torch.models.heat import (heat2d_ifunc, heat2d_initial,
                                         heat2d_jacobian_template)
@@ -4246,6 +4298,630 @@ def slice11_phases(rng, kernels):
         kernels["stencil_mult"]["max_abs_err"], k1_err)
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the Mat formats, as ksp ex55 on BAIJ and SBAIJ (phases 36-39)
+# ---------------------------------------------------------------------------
+
+FMT_NE = 1023              # ksp ex55 at ne = 1023: n = 2,097,152, bs 2
+FMT_ITS = 300              # the fixed CG iteration count of phases 36-37
+FIXED_CG = {"ksp_type": "cg", "ksp_rtol": "1e-30",
+            "ksp_max_it": str(FMT_ITS)}
+BLOCKED = {"mat_block_size": "2"}
+FMT_NOISE_SEEDS = 4        # one-ulp changes of b read for phase 36's bound
+FMT_SMALL_NE = 63          # phase 38: n = 8,192
+FMT_ULP_SEEDS = 4          # one-ulp changes of b phase 38 reads fp32 noise over
+BAND_GRID = 32             # phase 39's band and dia solves: ex45 at 32³
+BAND_TIME_M = 513          # BandMat/DiaMat timed on the 513² 5-point
+# the blocked configs of tests/test_golden_ex10.py: tag -> (file,
+# mat_type, bs, ksp, pc); their bounds are that test's
+EX10_BLOCKED = {
+    "poisson_sbaij_cg_jacobi": ("ex10_poisson.bin", "sbaij", 1, "cg",
+                                "jacobi"),
+    "baij3_baij_gmres_pbjacobi": ("ex10_baij3.bin", "baij", 3, "gmres",
+                                  "pbjacobi"),
+    "baij3_baij_cg_jacobi": ("ex10_baij3.bin", "baij", 3, "cg", "jacobi"),
+}
+TESTS_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "data")
+
+
+def read_ex10_system(path):
+    """A PETSc binary Mat and the Vec after it in one file (ex10.c's
+    same-file layout): (scipy CSR, rhs), fp64."""
+    with open(path, "rb") as f:
+        classid, m, n, nnz = np.frombuffer(f.read(16), dtype=">i4")
+        if classid != 1211216:
+            raise ValueError(f"{path}: not a PETSc Mat file ({classid})")
+        rownnz = np.frombuffer(f.read(4 * m), dtype=">i4")
+        cols = np.frombuffer(f.read(4 * nnz), dtype=">i4").astype(np.int64)
+        data = np.frombuffer(f.read(8 * nnz), dtype=">f8").astype(np.float64)
+        indptr = np.concatenate([[0], np.cumsum(rownnz)]).astype(np.int64)
+        vclass, vn = np.frombuffer(f.read(8), dtype=">i4")
+        if vclass != 1211214:
+            raise ValueError(f"{path}: no rhs vector after the matrix")
+        b = np.frombuffer(f.read(8 * vn), dtype=">f8").astype(np.float64)
+    return sp.csr_matrix((data, cols, indptr), shape=(m, n)), b
+
+
+def ex10_oracle(tag):
+    """(monitor stream, its, true residual) of an oracle_ex10 capture."""
+    import re
+    txt = open(os.path.join(TESTS_DATA, "oracle_ex10", tag + ".txt")).read()
+    monit = [float(m.group(2)) for m in re.finditer(
+        r"^\s*(\d+) KSP Residual norm (\S+)", txt, re.M)]
+    its = int(re.search(r"Number of iterations\s*=\s*(\d+)", txt).group(1))
+    rn = re.search(r"^\s*Residual norm (\S+)\s*$", txt, re.M)
+    return monit, its, float(rn.group(1)) if rn else None
+
+
+def energy(A, b_np, x):
+    """CG's functional ½xᵀAx − bᵀx in fp64 on the host: it falls from 0
+    at x0 = 0 with every CG step, where the residual need not."""
+    x = x.double().cpu().numpy()
+    return float(0.5 * x @ (A @ x) - b_np @ x)
+
+
+def energy_falls(label, M, A, pc, b, b_np, stops, last):
+    """CG's energy at the iterations `stops` (the solve cut there, its PC
+    reused) and `last` (the full solve's): it must fall at every sample,
+    as CG's does whatever its residual does, or, once CG has converged,
+    stay within 1e-9 of its size (the rounding of x). Returns the
+    energies."""
+    es = []
+    for k in stops:
+        r = ksp_solve(M, b, pc=pc, ksp_type="cg", rtol=1e-30, maxits=k)
+        if int(r.its) != k:
+            raise AssertionError(f"{label}: the cut solve stopped at "
+                                 f"{int(r.its)} its, not {k}")
+        es.append(energy(A, b_np, r.x))
+    es.append(last)
+    print(f"{label}: energy ½xᵀAx−bᵀx at its {list(stops)} and the end: "
+          + ", ".join(f"{e:.9e}" for e in es))
+    if not (es[0] < 0 and all(e2 < e1 + 1e-9 * abs(e1)
+                              for e1, e2 in zip(es, es[1:]))):
+        raise AssertionError(f"{label}: CG's energy does not fall: {es}")
+    return es
+
+
+def noise_prefix(cpu, perturbed, rtol):
+    """How many leading history entries of the CPU's solve every solve of
+    `perturbed` (the same solve on a b changed by about an ulp) matches
+    within rtol, entry by entry by history_diff's measure: the part of
+    the history that rounding has not yet moved."""
+    hc = cpu.history.numpy()
+    lead = int(np.count_nonzero(~np.isnan(hc)))
+    for p in perturbed:
+        hp = p.history.numpy()
+        m = min(lead, int(np.count_nonzero(~np.isnan(hp))))
+        d = np.abs(hp[:m] - hc[:m]) / (np.abs(hc[:m])
+                                       + 1e-3 * rtol * abs(hc[0]))
+        bad = np.flatnonzero(~(d <= rtol))
+        lead = int(bad[0]) if bad.size else m
+    return lead
+
+
+def same_solve_to_noise(label, card, cpu, perturbed, rtol, size=""):
+    """Card against CPU for a solve that amplifies rounding (`perturbed`:
+    the CPU's solves on b changed by about an ulp): equal its and reason;
+    the history within rtol on its leading entries where every perturbed
+    solve stays within rtol/10 of the CPU's (noise_prefix), at least half
+    the history; max|x diff| within 30 times the perturbed solves' largest
+    change of x, or 1e-12·max|x| (fp32: 1e-5) where that is larger."""
+    ci, cr, hi, hr = (int(card.its), int(card.reason), int(cpu.its),
+                      int(cpu.reason))
+    hh = cpu.history.numpy()
+    n = int(np.count_nonzero(~np.isnan(hh)))
+    lead = noise_prefix(cpu, perturbed, rtol / 10)
+    hc, hh = card.history.numpy()[:lead], hh[:lead]
+    diff = float(np.max(np.abs(hc - hh) / (np.abs(hh) + 1e-3 * rtol
+                                           * abs(hh[0])))) if lead else 0.0
+    xc, xh = card.x.cpu().numpy(), cpu.x.numpy()
+    xnoise = max(float(np.abs(p.x.numpy() - xh).max()) for p in perturbed)
+    floor = (1e-12 if xh.dtype == np.float64 else 1e-5) * np.abs(xh).max()
+    xbound = max(30 * xnoise, floor)
+    xd = float(np.abs(xc - xh).max())
+    print(f"{size} {label} card vs cpu: its {ci}/{hi} reason {cr}/{hr}; "
+          f"history rel diff {diff:.2e} (bound {rtol:.0e}) on its first "
+          f"{lead} of {n} entries, where {len(perturbed)} perturbed CPU "
+          f"solves stay within {rtol / 10:.0e}; max|x diff| {xd:.2e} "
+          f"(bound {xbound:.2e}: the perturbed solves move x by up to "
+          f"{xnoise:.2e})")
+    if ((ci, cr) != (hi, hr) or 2 * lead < n or not diff <= rtol
+            or not xd <= xbound or not np.isfinite(xc).all()):
+        raise AssertionError(f"{size} {label} on the card disagrees with "
+                             "the CPU")
+    return diff
+
+
+def fixed_cg(M, A, pc_type, b):
+    """KSP with FIXED_CG and pc_type on M (A the host matrix): (ksp,
+    result, setup s, solve s)."""
+    ksp = KSP(Options({**FIXED_CG, "pc_type": pc_type})).set_operators(M, A)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    sync(b.device)
+    setup_s = time.perf_counter() - t
+    t = time.perf_counter()
+    res = ksp.solve(b)
+    sync(b.device)
+    return ksp, res, setup_s, time.perf_counter() - t
+
+
+def repeat_ms(ksp, b):
+    """ms an iteration of a repeat of the solve."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = ksp.solve(b)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / int(res.its)
+
+
+def baij_route_noise(M, A, b32, seeds=FMT_NOISE_SEEDS):
+    """Phase 36's bound, on M's device: the history difference between
+    the SellBAIJ route (K2) and its BAIJ's block ops, CG + pbjacobi for
+    FMT_ITS its, and the block ops' own change under one-ulp changes of
+    b (`seeds` of them). Runs on the CPU too (fmt="sell" there: K2's
+    plain version): (route diff, noise)."""
+    dev = M.device
+    b = torch.from_numpy(b32).to(dev)
+    blocks = M.block_ops()
+    base = fixed_cg(blocks, A, "pbjacobi", b)[1]
+    route = history_diff(fixed_cg(M, A, "pbjacobi", b)[1], base, 1e-2)
+    noise = max(history_diff(fixed_cg(blocks, A, "pbjacobi", torch.from_numpy(
+        ulp_changed(b32, s)).to(dev))[1], base, 1e-2) for s in range(seeds))
+    return route, noise
+
+
+def product_bound(nbytes, flops, fp64):
+    """(bound ms, what bounds it) of a product moving nbytes and doing
+    flops."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / (FP64_FLOPS_PER_S if fp64 else FP32_FLOPS_PER_S) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def time_product(label, fn, nbytes, flops, fp64, csr_ms=None):
+    """A PyTorch-op product (no hand kernel: petsctpu leaves it to XLA):
+    a call back to back, 20 from a CUDA graph, against its bound."""
+    fn()
+    call_ms = time_ms(fn, runs=20, inner=5)
+    device_ms = graph_ms(fn)
+    bound_ms, by = product_bound(nbytes, flops, fp64)
+    print(f"{label}: {device_ms:.4f} ms in a CUDA graph, {call_ms:.4f} ms a "
+          f"call back to back; bound {bound_ms:.4f} ms by {by} ({nbytes} B, "
+          f"{flops:.0f} flops; {100 * bound_ms / device_ms:.1f} %)"
+          + ("" if csr_ms is None else f"; torch.mv CSR {csr_ms:.4f} ms"))
+    return dict(ms=call_ms, device_ms=device_ms, bound_ms=bound_ms,
+                bound_by=by)
+
+
+def csr_ms(A, x):
+    csr = csr_tensor(A, np.float64 if x.dtype == torch.float64
+                     else np.float32)
+    torch.mv(csr, x)
+    return time_ms(lambda: torch.mv(csr, x), runs=20, inner=5)
+
+
+def repeatable(label, fn, x):
+    """Two calls on the same x are bit-equal (a fold plan, no atomics)."""
+    y1, y2 = fn(x), fn(x)
+    if not torch.equal(y1, y2):
+        raise AssertionError(f"{label}: two calls on the same x differ")
+    print(f"{label}: two calls on the same x bit-equal")
+    return y1
+
+
+def drive_baij_path(A, b_np, rng, triad_gbs):
+    """Phase 36: ksp ex55 at FMT_NE in fp32 through mat_from_options
+    (-mat_type baij -mat_block_size 2): SellBAIJ on the card, its forward
+    product K2 on the block expansion; CG + pbjacobi for FMT_ITS its,
+    counted, repeated and profiled; the same solve on the BAIJ's block
+    ops, held within 30 times the card's own one-ulp noise; K2 on this
+    pack bit for bit against its plain version; the products timed."""
+    reset_counts()
+    log_begin()
+    t = time.perf_counter()
+    M, perm = mat_from_options(A, Options({"mat_type": "baij", **BLOCKED}),
+                               dtype=torch.float32)
+    op_s = time.perf_counter() - t
+    if perm is not None or not isinstance(M, SellBAIJ):
+        raise AssertionError(f"slice 12: baij gave {type(M).__name__}")
+    b = torch.from_numpy(b_np.astype(np.float32)).cuda()
+    ksp, res, setup_s, secs = fixed_cg(M, A, "pbjacobi", b)
+    its, reason = int(res.its), int(res.reason)
+    k2 = sell_spmv.launches
+    hist = res.history[:its + 1].numpy()
+    e = energy(A, b_np, res.x)
+    print(f"slice 12 baij: ex55 ne={FMT_NE} n={A.shape[0]} nnz={A.nnz}; "
+          f"mat_from_options {op_s:.2f} s (SellBAIJ: K2 G={M.sell.G} "
+          f"S={M.sell.S} P={M.sell.npass}; BAIJ K={M.cols.shape[1]}); "
+          f"pbjacobi setup {setup_s:.3f} s; CG+pbjacobi its={its} "
+          f"reason={reason} {secs:.3f} s = {1e3 * secs / its:.4f} ms/it; K2 "
+          f"launches {k2}; history {hist[0]:.6e} -> {hist[-1]:.6e} (min "
+          f"{hist.min():.6e}); energy ½xᵀAx−bᵀx {e:.6e}; true rel residual "
+          f"{true_residual(A, b_np, res):.3e}")
+    if not (its == FMT_ITS or reason > 0) or not np.isfinite(hist).all():
+        raise AssertionError(f"slice 12 baij: its {its} reason {reason}, "
+                             f"history finite {np.isfinite(hist).all()}")
+    if k2 < its:
+        raise AssertionError(f"slice 12 baij: K2 launched {k2} times in "
+                             f"{its} its")
+    print(f"slice 12 baij: ms per iteration {1e3 * secs / its:.4f} first, "
+          f"{repeat_ms(ksp, b):.4f} repeated")
+    profile_solve(ksp, b, label="slice 12 baij")
+    energy_falls("slice 12 baij CG+pbjacobi", M, A, ksp.pc, b, b_np,
+                 range(50, its, 50), e)
+    t = time.perf_counter()
+    route, noise = baij_route_noise(M, A, b_np.astype(np.float32))
+    print(f"slice 12 baij: CG+pbjacobi on the BAIJ's block ops against K2: "
+          f"history rel diff {route:.2e}; the block ops' own under one-ulp "
+          f"changes of b {noise:.2e} ({FMT_NOISE_SEEDS} b, "
+          f"{time.perf_counter() - t:.1f} s)")
+    if not route <= 30 * noise:
+        raise AssertionError(f"slice 12 baij: the routes differ by {route}, "
+                             f"over 30 times the noise {noise}")
+    Bm = M.block_ops()
+    kb = KSP(Options({**FIXED_CG, "pc_type": "pbjacobi"})).set_operators(
+        Bm, A)
+    kb.set_from_options().setup()
+    kb.solve(b)
+    print(f"slice 12 baij: ms per iteration on the block ops "
+          f"{repeat_ms(kb, b):.4f}")
+    # the products
+    C = sp.csr_matrix(sp.bsr_matrix(A, blocksize=(2, 2))).astype(np.float32)
+    label = f"ex55 ne={FMT_NE} BAIJ expansion"
+    xp, err = check_k2(C, M.sell, "cuda", rng, label)
+    k2_times = measure(C, M.sell, xp, label=label, triad=False)
+    x = xp.reshape(-1)[M.sell.G * 128:M.sell.G * 128 + C.shape[1]] \
+        .contiguous()
+    nb = (Bm.cols.numel() * 4 + Bm.vals.numel() * 4 + 2 * A.shape[0] * 4)
+    cm = csr_ms(C, x)
+    times = {"SellBAIJ.mult (K2)": dict(k2_times),
+             "BAIJ.mult": time_product(
+                 f"BAIJ.mult (block ops) at {label}", lambda: Bm.mult(x),
+                 nb, 2.0 * Bm.vals.numel(), False, cm)}
+    repeatable("BAIJ.multT", Bm.multT, x)
+    times["BAIJ.multT"] = time_product(
+        f"BAIJ.multT (fold plan, {Bm.transpose_fold().ranks} ranks) at "
+        f"{label}", lambda: Bm.multT(x), nb, 2.0 * Bm.vals.numel(), False, cm)
+    Ad = aij_from_scipy(C)
+    times["ELL (the expansion)"] = measure_ell(label, C, Ad, x, triad_gbs)
+    del Ad
+    return dict(launches=k2, err=err, times=times)
+
+
+def drive_sbaij_path(A, b_np, rng):
+    """Phase 37: ksp ex55 at FMT_NE in fp64 on SBAIJ (-mat_type sbaij
+    -mat_block_size 2), CG + ICC(0) (on the host matrix) for FMT_ITS its,
+    SpTRSV counted in the solve, CG's energy falling; SpTRSV on both
+    triangles bit for bit against its plain version and the ICC apply
+    against the plain triangles composed; SBAIJ.mult against the fp64
+    AIJ product, repeatable, and timed."""
+    reset_counts()
+    log_begin()
+    t = time.perf_counter()
+    M, _ = mat_from_options(A, Options({"mat_type": "sbaij", **BLOCKED}),
+                            dtype=torch.float64)
+    op_s = time.perf_counter() - t
+    ksp = KSP(Options({**FIXED_CG, "pc_type": "icc"})).set_operators(M, A)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    numeric, levels, plans, _ = setup_split()
+    b = torch.from_numpy(b_np).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(sptrsv=sptrsv.launches, sptrsv_lu=sptrsv_lu.launches,
+                  ell_spmv=ell_spmv.launches)
+    res, secs, applies, trsv, _ = solve_counted(ksp, b)
+    launched = dict(sptrsv=sptrsv.launches, sptrsv_lu=sptrsv_lu.launches,
+                    ell_spmv=ell_spmv.launches)
+    launched = {k: v - before[k] for k, v in launched.items()}
+    its, reason = int(res.its), int(res.reason)
+    hist = res.history[:its + 1].numpy()
+    e = energy(A, b_np, res.x)
+    pl = ksp.pc.Lplan
+    print(f"slice 12 sbaij: ex55 ne={FMT_NE} fp64 SBAIJ K={M.bcols.shape[1]} "
+          f"nnzb={M.nnzb}; mat_from_options {op_s:.2f} s; ICC(0) setup "
+          f"{setup_s:.2f} s = factor numerics {numeric:.2f} + levels "
+          f"{levels:.2f} + plans {plans:.2f}; {pl.nlev} levels a triangle; "
+          f"CG+icc its={its} reason={reason} {secs:.3f} s = "
+          f"{1e3 * secs / its:.4f} ms/it; {applies} PC applies, {trsv} "
+          f"SpTRSV launches ({before['sptrsv'] + before['sptrsv_lu']} "
+          f"before the solve, since the counts were reset); history "
+          f"{hist[0]:.6e} -> {hist[-1]:.6e}; energy "
+          f"{e:.6e}; true rel residual {true_residual(A, b_np, res):.3e}; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (its == FMT_ITS or reason > 0) or not np.isfinite(hist).all():
+        raise AssertionError(f"slice 12 sbaij: its {its} reason {reason}")
+    if trsv != 2 * applies or launched["sptrsv"] + launched["sptrsv_lu"] \
+            != trsv:
+        raise AssertionError(f"slice 12 sbaij: {trsv} SpTRSV launches for "
+                             f"{applies} ICC applies ({launched})")
+    print(f"slice 12 sbaij: ms per iteration {1e3 * secs / its:.4f} first, "
+          f"{repeat_ms(ksp, b):.4f} repeated")
+    profile_solve(ksp, b, label="slice 12 sbaij")
+    energy_falls("slice 12 sbaij CG+icc", M, A, ksp.pc, b, b_np,
+                 [k for k in (FMT_ITS // 3, 2 * FMT_ITS // 3) if k < its], e)
+    pc = ksp.pc
+    err = max(check_sptrsv(f"ex55 ne={FMT_NE} ICC(0) {name}", plan, rng)[0]
+              for name, plan in (("Uᵀ (L)", pc.Lplan), ("U", pc.Uplan)))
+    r = torch.from_numpy(rng.standard_normal(A.shape[0])).cuda()
+    z = pc.apply(r)
+    zp = sptrsv_plain(*pc.Uplan.order, (pc.dinv * sptrsv_plain(
+        *pc.Lplan.order, r[None])[0])[None])[0]
+    err = max(err, float((z - zp).abs().max()))
+    print(f"slice 12 sbaij: the ICC apply against the plain triangles "
+          f"composed: max abs diff {float((z - zp).abs().max())}")
+    if not torch.equal(z, zp):
+        raise AssertionError("slice 12 sbaij: the ICC apply differs from "
+                             "its plain triangles")
+    Ad = aij_from_scipy(A)
+    worst = 0.0
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal(A.shape[0])).cuda()
+        y, ya = repeatable("SBAIJ.mult", M.mult, x), Ad.mult(x)
+        worst = max(worst, float((y - ya).abs().max() / ya.abs().max()))
+    print(f"slice 12 sbaij: SBAIJ.mult against the fp64 AIJ product on 3 x: "
+          f"max rel diff {worst:.2e}")
+    if not worst <= 1e-13:
+        raise AssertionError(f"slice 12 sbaij: SBAIJ.mult off by {worst}")
+    nb = M.bcols.numel() * 4 + M.bvals.numel() * 8 + 2 * A.shape[0] * 8
+    times = time_product(
+        f"SBAIJ.mult (fold plan, {M.transpose_fold().ranks} ranks) at ex55 "
+        f"ne={FMT_NE} fp64", lambda: M.mult(x), nb, M.flops_per_mult(),
+        True, csr_ms(A, x))
+    return dict(launched=launched, err=err, times=times)
+
+
+def fmt_small_solves(devices=("cuda", "cpu")):
+    """Phase 38: ex55 at FMT_SMALL_NE on the card against the CPU: fp64
+    BAIJ and SBAIJ with CG + pbjacobi and + jacobi, SBAIJ with CG + ICC(0),
+    to rtol 1e-5 (same_solve_to_noise at 1e-8 against two CPU solves on b
+    changed by 1e-15, one for ICC), fp32 SellBAIJ (fmt "sell", K2's plain version on
+    the CPU) with CG + pbjacobi for b and two one-ulp changes of b (at
+    1e-3 against FMT_ULP_SEEDS CPU solves on one-ulp changes of b); then
+    the blocked ex10 goldens on the card."""
+    A, b, _ = ex55_system(FMT_SMALL_NE, 1e-3)
+    size = f"ne={FMT_SMALL_NE}"
+    worst = 0.0
+    cpu = devices[-1]
+    for mat_type, pc_type in (("baij", "pbjacobi"), ("baij", "jacobi"),
+                              ("sbaij", "pbjacobi"), ("sbaij", "jacobi"),
+                              ("sbaij", "icc")):
+        o = {"ksp_type": "cg", "ksp_rtol": "1e-5", "pc_type": pc_type}
+
+        def run(dev, rhs):
+            M, _ = mat_from_options(A, Options({"mat_type": mat_type,
+                                                **BLOCKED}), device=dev)
+            return KSP(Options(o)).set_operators(M, A).solve(
+                torch.from_numpy(rhs).to(dev))
+        out = [run(dev, b) for dev in devices]
+        # ICC's solve barely amplifies rounding (x moves by ~1e-13 under
+        # a 1e-15 change of b) and is the CPU's slowest: one such solve
+        seeds = (1,) if pc_type == "icc" else (1, 2)
+        perturbed = [run(cpu, b_changed(b, s)) for s in seeds]
+        worst = max(worst, same_solve_to_noise(
+            f"ex55 {mat_type} CG+{pc_type} fp64", *out, perturbed, 1e-8,
+            size=size))
+    b32 = b.astype(np.float32)
+    Ms = {dev: baij_from_scipy_bsr(A, bs=2, dtype=np.float32, fmt="sell",
+                                   device=dev) for dev in devices}
+    o = {"ksp_type": "cg", "ksp_rtol": "1e-5", "pc_type": "pbjacobi"}
+
+    def run(dev, rhs):
+        return KSP(Options(o)).set_operators(Ms[dev], A).solve(
+            torch.from_numpy(rhs).to(dev))
+    for name, rhs in (("b", b32), ("b one ulp off (seed 0)",
+                                   ulp_changed(b32, 0)),
+                      ("b one ulp off (seed 1)", ulp_changed(b32, 1))):
+        perturbed = [run(cpu, ulp_changed(rhs, 100 + s))
+                     for s in range(FMT_ULP_SEEDS)]
+        worst = max(worst, same_solve_to_noise(
+            f"ex55 SellBAIJ CG+pbjacobi fp32, {name}",
+            *[run(dev, rhs) for dev in devices], perturbed, 1e-3, size=size))
+    check_ex10_blocked(devices[0])
+    return worst
+
+
+def check_ex10_blocked(dev="cuda"):
+    """The blocked configs of tests/test_golden_ex10.py on `dev`, with
+    that test's bounds: exact its, the stream within 2e-5, the true
+    residual within 2e-4."""
+    for tag, (fname, mat_type, bs, ksp_t, pc_t) in EX10_BLOCKED.items():
+        A, b = read_ex10_system(os.path.join(TESTS_DATA, fname))
+        monit, its_ref, rnorm = ex10_oracle(tag)
+        make = baij_from_scipy_bsr if mat_type == "baij" \
+            else sbaij_from_scipy
+        M = make(A, bs=bs, dtype=np.float64, device=dev)
+        r = ksp_solve(M, torch.from_numpy(b).to(dev), pc=make_pc(
+            pc_t, A=M, A_host=A), ksp_type=ksp_t, rtol=1e-5, maxits=400)
+        h = r.history[:len(monit)].numpy()
+        rel = float(np.max(np.abs(h - monit) / np.abs(monit)))
+        tr = float(np.linalg.norm(b - A @ r.x.cpu().numpy()))
+        print(f"ex10 golden {tag} on {dev}: its {int(r.its)}/{its_ref}, "
+              f"stream rel diff {rel:.2e}, true residual {tr:.6e} against "
+              f"{rnorm:.6e}")
+        if int(r.its) != its_ref or not rel <= 2e-5 or \
+                not abs(tr - rnorm) <= 2e-4 * max(rnorm, 1e-12) + 1e-9:
+            raise AssertionError(f"ex10 golden {tag} fails on {dev}")
+
+
+def fmt_rest_cases():
+    """Phase 39's solves: (label, builder(dev) -> (operator, pc, b), ksp
+    kwargs, history bound)."""
+    A45, b45, _ = ex45_system(BAND_GRID, BAND_GRID, BAND_GRID)
+    A16 = sp.csr_matrix(ex45_system(16, 16, 16)[0])
+    L2 = laplacian_2d(48, 48)
+    cases = []
+    # band in RCM order (the default); dia in the natural order, where
+    # ex45 has 7 diagonals (RCM's fill passes DiaMat's max_fill)
+    for mt, order in (("band", "rcm"), ("dia", "natural")):
+        def build(dev, mt=mt, order=order):
+            M, perm = mat_from_options(A45, Options(
+                {"mat_type": mt, "mat_ordering_type": order}), device=dev)
+            return M, make_pc("jacobi", A=M), b45[perm]
+        cases.append((f"ex45 {BAND_GRID}^3 -mat_type {mt} ({order}) "
+                      "CG+jacobi", build, dict(ksp_type="cg", rtol=1e-5),
+                      1e-8))
+    for tri in ("band", "band2"):
+        def build(dev, tri=tri):
+            M = aij_from_scipy(A16, device=dev)
+            return M, make_pc("ilu", A=M, A_host=A16, options=Options(
+                {"pc_factor_tri_solve": tri})), A16 @ np.ones(A16.shape[0])
+        cases.append((f"ex45 16^3 GMRES+ILU(0) tri {tri}", build,
+                      dict(ksp_type="gmres", rtol=1e-8), 1e-8))
+
+    def gamg_band(dev):
+        M = aij_from_scipy(L2, device=dev)
+        return M, make_pc("gamg", A=M, A_host=L2, options=Options(
+            {"pc_gamg_mat_type": "band", "pc_gamg_coarse_eq_limit": "50"})), \
+            L2 @ np.ones(L2.shape[0])
+    cases.append(("2-D 48^2 CG+gamg -pc_gamg_mat_type band", gamg_band,
+                  dict(ksp_type="cg", rtol=1e-8), 1e-8))
+    for name in ("nn", "bddc"):
+        def dd(dev, name=name):
+            M = matis_poisson_2d(16, 2, device=dev)
+            xex = np.random.default_rng(12).standard_normal(M.shape[0])
+            return M, make_pc(name, A=M), M.assemble_host() @ xex
+        cases.append((f"MatIS 4 subdomains FGMRES+{name}", dd,
+                      dict(ksp_type="fgmres", rtol=1e-8, maxits=200), 1e-8))
+
+    def fft(dev):
+        M = aij_from_scipy(L2, device=dev)
+        return M, make_pc("fft", A=M, options=Options(
+            {"pc_fft_dims": (48, 48)})), np.ones(L2.shape[0])
+    cases.append(("2-D 48^2 GMRES+fft", fft,
+                  dict(ksp_type="gmres", rtol=1e-10, maxits=5), 1e-8))
+    return cases
+
+
+def fmt_rest(rng, devices=("cuda", "cpu")):
+    """Phase 39: the rest of the Mat formats on the card against the CPU:
+    band, dia, the banded ILU routes, GAMG on BandMat levels, NN and
+    BDDC, the FFT PC (same_solve_to_noise at each case's bound against a
+    CPU solve on b changed by 1e-15); MAIJ, Nest and ell_from_coo with
+    duplicates; AIJ.multT
+    repeatable and equal to the CPU's bits. Then BandMat.mult and
+    DiaMat.mult timed on the natural-order BAND_TIME_M² 5-point Laplacian
+    beside the ELL kernel and CSR mv."""
+    worst = 0.0
+    for label, build, kw, bound in fmt_rest_cases():
+        out = []
+        for dev in devices:
+            M, pc, b = build(dev)
+            out.append(ksp_solve(M, torch.from_numpy(b).to(dev), pc=pc, **kw))
+        # an entry at rounding level (the FFT PC's exact solve leaves
+        # ~1e-13 of r0) lies past the history's prefix that a 1e-15
+        # change of b leaves within bound/10; x is held there
+        perturbed = [ksp_solve(M, torch.from_numpy(b_changed(b)), pc=pc,
+                               **kw)]
+        worst = max(worst, same_solve_to_noise(label, *out, perturbed,
+                                               bound))
+    A = laplacian_2d(20, 20)
+    B = sp.random(400, 90, density=0.05, random_state=3, format="csr")
+    x = rng.standard_normal(1200)
+    xs = rng.standard_normal(490)
+    rows = rng.integers(-1, 401, 5000)
+    cols = rng.integers(0, 400, 5000)
+    rows[:40], cols[:40] = 7, 9                 # a run of 40 duplicates
+    vals = rng.standard_normal(5000)
+    res = {}
+    for dev in devices:
+        def T(a):
+            return torch.from_numpy(a).to(dev)
+        Ad = aij_from_scipy(A, device=dev)
+        Mm = MAIJ(Ad, dof=3)
+        N = make_nest([[Ad, aij_from_scipy(B, device=dev)],
+                       [aij_from_scipy(B.T.tocsr(), device=dev), None]])
+        E = ell_from_coo(T(rows), T(cols), T(vals), (400, 400), 24)
+        Ar = aij_from_scipy(sp.random(400, 300, density=0.04, random_state=4,
+                                      format="csr"), device=dev)
+        xr = T(x[:400])
+        yT = Ar.multT(xr)
+        if not torch.equal(yT, Ar.multT(xr)):
+            raise AssertionError(f"AIJ.multT on {dev}: two calls differ")
+        res[dev] = [Mm.mult(T(x)), Mm.multT(T(x)), N.mult(T(xs)),
+                    N.multT(T(xs)), E.cols.to(torch.int64), E.vals, yT]
+    names = ("MAIJ.mult", "MAIJ.multT", "Nest.mult", "Nest.multT",
+             "ell_from_coo cols", "ell_from_coo vals", "AIJ.multT")
+    for name, a, c in zip(names, *(res[d] for d in devices)):
+        a = a.cpu()
+        d = float((a - c).abs().max() / c.abs().max())
+        exact = name.startswith("ell_from_coo") or name == "AIJ.multT"
+        print(f"{name} card vs cpu: rel diff {d:.2e}"
+              + (" (bit-equal required)" if exact else ""))
+        if (exact and not torch.equal(a, c)) or not d <= 1e-13:
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+    return worst
+
+
+def time_band_dia(triad_gbs):
+    """BandMat.mult and DiaMat.mult on the natural-order BAND_TIME_M²
+    5-point Laplacian (fp64), beside AIJ.mult (the ELL kernel) and CSR
+    mv: input for the GPU format policy."""
+    A = laplacian_2d(BAND_TIME_M, BAND_TIME_M)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        A.shape[0])).cuda()
+    label = f"{BAND_TIME_M}^2 5-point fp64"
+    cm = csr_ms(A, x)
+    Bm = band_from_scipy(A)
+    Dm = dia_from_scipy(A)
+    ya = aij_from_scipy(A).mult(x)
+    for M in (Bm, Dm):
+        d = float((M.mult(x) - ya).abs().max() / ya.abs().max())
+        if not d <= 1e-14:
+            raise AssertionError(f"{type(M).__name__}.mult off by {d}")
+    n, es = A.shape[0], 8
+    times = {
+        "BandMat.mult": time_product(
+            f"BandMat.mult at {label} (B={Bm.bandwidth}, T={Bm.tile}, "
+            f"tiles {tuple(Bm.tiles.shape)})", lambda: Bm.mult(x),
+            Bm.traffic_per_mult(), 2.0 * Bm.tiles.numel(), True, cm),
+        "DiaMat.mult": time_product(
+            f"DiaMat.mult at {label} ({len(Dm.offsets)} diagonals)",
+            lambda: Dm.mult(x), Dm.traffic_per_mult(),
+            2.0 * Dm.coeffs.numel(), True, cm)}
+    print(f"the same product's least bytes (the nonzeros, their int32 "
+          f"columns, x and y): {A.nnz * (es + 4) + 2 * n * es} B")
+    times[f"ELL {BAND_TIME_M}^2"] = measure_ell(label, A, aij_from_scipy(A),
+                                                x, triad_gbs)
+    del Bm
+    return times
+
+
+def slice12_phases(rng, kernels, triad_gbs):
+    """Slice 12: ex55 on SellBAIJ (phase 36) and SBAIJ (37), both formats
+    small card against CPU with the blocked ex10 goldens (38), the rest
+    of item 9 card against CPU and BandMat/DiaMat timed (39). Adds the
+    paths' K2 and SpTRSV launches and K2's error to the kernels line."""
+    t = time.perf_counter()
+    A, b, _ = ex55_system(FMT_NE, 1e-3)
+    print(f"ex55 ne={FMT_NE}: n={A.shape[0]} nnz={A.nnz} "
+          f"({time.perf_counter() - t:.1f} s)")
+    baij = drive_baij_path(A, b, rng, triad_gbs)
+    kernels["sell_spmv"]["launches"] += baij["launches"]
+    kernels["sell_spmv"]["max_abs_err"] = max(
+        kernels["sell_spmv"]["max_abs_err"], baij["err"])
+    print(f"slice 12: phase 36 in {time.perf_counter() - t:.1f} s")
+    sbaij = drive_sbaij_path(A, b, rng)
+    print(f"slice 12: phases 36-37 in {time.perf_counter() - t:.1f} s")
+    del A, b
+    for name in ("sptrsv", "sptrsv_lu", "ell_spmv"):
+        if name in kernels:
+            kernels[name]["launches"] += sbaij["launched"][name]
+    kernels["sptrsv"]["max_abs_err"] = max(kernels["sptrsv"]["max_abs_err"],
+                                           sbaij["err"])
+    fmt_small_solves()
+    print(f"slice 12: phases 36-38 in {time.perf_counter() - t:.1f} s")
+    fmt_rest(rng)
+    times = dict(baij["times"], **{"SBAIJ.mult": sbaij["times"]},
+                 **time_band_dia(triad_gbs))
+    print("slice 12 products: " + json.dumps(times))
+    print(f"slice 12 in {time.perf_counter() - t:.1f} s")
+
+
 T0 = time.perf_counter()
 
 
@@ -4253,7 +4929,8 @@ def main(argv=()):
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
-    if list(argv) in (["slice7"], ["slice8"], ["slice9"], ["slice11"]):
+    if list(argv) in (["slice7"], ["slice8"], ["slice9"], ["slice11"],
+                      ["slice12"]):
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
                    for k in ("sell_spmv", "sell_spmvT", "stencil_mult",
                              "sptrsv", "sptrsv_lu")}
@@ -4263,6 +4940,10 @@ def main(argv=()):
             slice8_phases(rng, kernels, stream_triad_gbs(1 << 28))
         elif argv[0] == "slice11":
             slice11_phases(rng, kernels)
+        elif argv[0] == "slice12":
+            kernels["ell_spmv"] = dict(name="ell_spmv", launches=0,
+                                       max_abs_err=0.0)
+            slice12_phases(rng, kernels, stream_triad_gbs(1 << 28))
         else:
             triad = stream_triad_gbs(1 << 28)
             ell = slice9_phases(rng, kernels, triad)
@@ -4331,6 +5012,7 @@ def main(argv=()):
     kernels.append(slice9_phases(rng, {k["name"]: k for k in kernels},
                                  triad))
     slice11_phases(rng, {k["name"]: k for k in kernels})
+    slice12_phases(rng, {k["name"]: k for k in kernels}, triad)
     kernels += probes_phase()
     print(smi)
     print(f"chip_smoke.py in {time.perf_counter() - T0:.1f} s")

@@ -46,6 +46,43 @@ def aij_from_arrays(cols, vals, shape, nnz, device=None) -> AIJ:
                tuple(shape), int(nnz))
 
 
+def baij_from_arrays(cols, vals, shape, bs: int, nnz: int, device=None):
+    """A BAIJ from block-ELL arrays cols [brows, K] (stored int32) and
+    vals [brows, K, bs, bs]."""
+    from petsctpu_torch.mat.bsr import BAIJ
+
+    dev = resolve_device(device)
+    return BAIJ(_tensor(cols, dev, torch.int32), _tensor(vals, dev),
+                tuple(shape), int(bs), int(nnz))
+
+
+def sbaij_from_arrays(bcols, bvals, shape, bs: int, nnzb: int,
+                      device=None):
+    """An SBAIJ from its upper block-ELL arrays."""
+    from petsctpu_torch.mat.sbaij import SBAIJ
+
+    dev = resolve_device(device)
+    return SBAIJ(_tensor(bcols, dev, torch.int32), _tensor(bvals, dev),
+                 tuple(shape), int(bs), int(nnzb))
+
+
+def band_from_arrays(tiles, bandwidth: int, tile: int, shape, nnz: int,
+                     device=None):
+    """A BandMat from its tiles [nt, T, T + 2B]."""
+    from petsctpu_torch.mat.band import BandMat
+
+    return BandMat(_tensor(tiles, resolve_device(device)), bandwidth, tile,
+                   tuple(shape), nnz)
+
+
+def dia_from_arrays(coeffs, offsets, shape, nnz: int, device=None):
+    """A DiaMat from its diagonals [D, n] and their offsets."""
+    from petsctpu_torch.mat.dia import DiaMat
+
+    return DiaMat(_tensor(coeffs, resolve_device(device)), offsets,
+                  tuple(shape), nnz)
+
+
 def jacobi_from_arrays(dinv, device=None) -> JacobiPC:
     """A JacobiPC from its inverse diagonal."""
     return JacobiPC(_tensor(dinv, resolve_device(device)))

@@ -21,6 +21,7 @@ import scipy.sparse as sp
 import torch
 
 from petsctpu_torch.device import np_dtype, resolve_device
+from petsctpu_torch.mat.fold import FoldPlan, fold_plan
 from petsctpu_torch.ops.ell_spmv import ell_spmv
 
 
@@ -39,6 +40,7 @@ class AIJ:
         self.vals = vals
         self.shape = tuple(shape)
         self.nnz = nnz
+        self._fold = None
 
     @property
     def dtype(self):
@@ -56,10 +58,21 @@ class AIJ:
         return ell_spmv(self.cols, self.vals, x.contiguous())
 
     def multT(self, x: torch.Tensor) -> torch.Tensor:
-        """y = Aᵀ x (MatMultTranspose): scatter-add into columns."""
+        """y = Aᵀ x (MatMultTranspose): each slot's product added into
+        its column in slot order, petsctpu's scatter order, through a
+        fold plan (mat/fold.py) built at the first call: deterministic
+        on the card, bit-equal to XLA:CPU's scatter on the CPU."""
         contrib = (self.vals * x[:, None]).reshape(-1)
         y = torch.zeros(self.shape[1], dtype=self.dtype, device=self.device)
-        return y.index_add_(0, self.cols.reshape(-1), contrib)
+        return self.transpose_fold().fold(y, contrib)
+
+    def transpose_fold(self) -> FoldPlan:
+        """The fold plan of multT over the columns, without the slots
+        whose value is zero (the padding, col 0 and val 0, would make
+        column 0 as wide as the padded rows)."""
+        if self._fold is None:
+            self._fold = fold_plan(self.cols, keep=self.vals != 0)
+        return self._fold
 
     def _on_diag(self) -> torch.Tensor:
         rows = torch.arange(self.shape[0], device=self.device)[:, None]

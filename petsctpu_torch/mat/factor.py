@@ -17,9 +17,11 @@ subdomains); lu_solve solves an L and a U plan in one launch where
 their x fits the card's shared memory. DenseTRSVPlan is the reference's
 small dense fallback (torch.linalg.solve_triangular, as the reference
 maps it to XLA's).
-The band plans of the reference (BandTRSVPlan, BandTRSVHierPlan) are
-ROADMAP queue 1 item 9; only their cheap viability probe
-(band_solve_viable) is here, for the reference's tri=auto rule.
+The reference's banded plans are here too (BandTRSVPlan, the tiled
+back-substitution, and BandTRSVHierPlan, its two-phase form), as
+PyTorch products; tri=auto keeps levels on every device, and their
+viability probe (band_solve_viable) serves the reference's choice of
+the dense plan.
 
 Setup is logged under four events (core/logging.py): MatFactorNumeric
 (ILU(0), IC and LU numerics), MatSolveLevels (the triangles' levels),
@@ -608,3 +610,217 @@ def band_solve_viable(tris_lower, tris_upper, dtype,
             total += (2 * L * G * tile * W + G * W * W
                       + L * G * tile * tile) * 4
     return total <= mem_cap_bytes
+
+
+# ---------------------------------------------------------------------------
+# Banded triangular solves (petsctpu's BandTRSVPlan, BandTRSVHierPlan)
+# ---------------------------------------------------------------------------
+
+class BandTRSVPlan:
+    """Blocked banded back-substitution x = T⁻¹ b: each [T, T] diagonal
+    tile inverted densely at setup, then one step a tile,
+
+        x_t = Dinv_t (b_t − Off_t @ x_window),
+
+    two small dense products a step; Off_t covers the W = ⌈B/T⌉·T
+    columns left of (lower) or right of (upper) the tile, and the window
+    carries them. petsctpu scans the tiles in one lax.scan; here it is
+    a Python loop of PyTorch products (TF32 off, device.py)."""
+
+    def __init__(self, dinv_tiles: torch.Tensor, off_tiles: torch.Tensor,
+                 lower: bool = True, tile: int = 128, n: int = 0):
+        self.dinv_tiles = dinv_tiles         # [nt, T, T]
+        self.off_tiles = off_tiles           # [nt, T, W]
+        self.lower = lower
+        self.tile = int(tile)
+        self.n = int(n)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        T = self.tile
+        nt, _, W = self.off_tiles.shape
+        bt = torch.zeros(nt * T, dtype=b.dtype, device=b.device)
+        bt[:self.n] = b
+        bt = bt.reshape(nt, T)
+        win = torch.zeros(W, dtype=b.dtype, device=b.device)
+        xs = [None] * nt
+        steps = range(nt) if self.lower else range(nt - 1, -1, -1)
+        for t in steps:
+            xt = self.dinv_tiles[t] @ (bt[t] - self.off_tiles[t] @ win)
+            win = (torch.cat([win[T:], xt]) if self.lower
+                   else torch.cat([xt, win[:W - T]]))
+            xs[t] = xt
+        return torch.cat(xs)[:self.n]
+
+
+class BandTRSVHierPlan:
+    """Two-phase blocked banded solve, sequential depth O(L + G) rather
+    than O(nt): the window recurrence w_t = A_t w_{t-1} + c_t has
+    propagators fixed by the factors, so the groups' products P_g and
+    the prefix rows R are precomputed. A solve: (1) particular
+    solutions of all G groups at once from a zero window (L steps of
+    batched products); (2) the boundary recurrence over the groups
+    ([W, W] products); (3) one batched correction x += R · v_g. The
+    upper triangle's reversal is baked in at setup."""
+
+    def __init__(self, dinv_tiles, off_tiles, Pg, R, lower: bool = True,
+                 tile: int = 128, n: int = 0, nt: int = 0):
+        self.dinv_tiles = dinv_tiles         # [L, G, T, T]
+        self.off_tiles = off_tiles           # [L, G, T, W]
+        self.Pg = Pg                         # [G, W, W]
+        self.R = R                           # [L, G, T, W]
+        self.lower = lower
+        self.tile = int(tile)
+        self.n = int(n)
+        self.nt = int(nt)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        L, G, T, W = self.off_tiles.shape
+        bt = torch.zeros(self.nt * T, dtype=b.dtype, device=b.device)
+        bt[:self.n] = b
+        bt = bt.reshape(self.nt, T)
+        if not self.lower:
+            bt = bt.flip(0)
+        bb = torch.cat([bt, bt.new_zeros(L * G - self.nt, T)])
+        bb = bb.reshape(G, L, T).transpose(0, 1)           # [L, G, T]
+        # phase 1: particular solutions, all groups at once
+        win = bb.new_zeros(G, W)
+        x0 = []
+        for l in range(L):
+            acc = torch.bmm(self.off_tiles[l], win[:, :, None])[..., 0]
+            xt = torch.bmm(self.dinv_tiles[l],
+                           (bb[l] - acc)[:, :, None])[..., 0]
+            win = torch.cat([win[:, T:], xt], dim=1)
+            x0.append(xt)
+        # phase 2: each group's entry window
+        v = bb.new_zeros(W)
+        vs = []
+        for g in range(G):
+            vs.append(v)
+            v = self.Pg[g] @ v + win[g]
+        vs = torch.stack(vs)                               # [G, W]
+        # phase 3: the batched correction
+        x = torch.stack(x0) + torch.einsum("lgtw,gw->lgt", self.R, vs)
+        x = x.transpose(0, 1).reshape(-1)[:self.nt * T]
+        if not self.lower:
+            x = x.reshape(self.nt, T).flip(0).reshape(-1)
+        return x[:self.n]
+
+
+def _hier_propagators(dinv_gl: torch.Tensor, off_gl: torch.Tensor):
+    """The group propagators Pg [G, W, W] and prefix rows R [L, G, T, W]:
+    with M_t = −Dinv_t Off_t, Q ← [Q[T:], M_t Q] over a group's L steps
+    from the identity, R_t = M_t Q."""
+    G, L, T, W = off_gl.shape
+    M = -torch.einsum("glij,gljw->gliw", dinv_gl, off_gl)
+    Q = torch.eye(W, dtype=off_gl.dtype, device=off_gl.device) \
+        .expand(G, W, W)
+    R = []
+    for l in range(L):
+        Rl = torch.bmm(M[:, l], Q)
+        Q = torch.cat([Q[:, T:, :], Rl], dim=1)
+        R.append(Rl)
+    return Q, torch.stack(R)
+
+
+def make_band_trsv_plan(Tmat, lower: bool, unit_diag: bool, dtype=None,
+                        tile: int = None, pad_to: tuple = None,
+                        device=None) -> BandTRSVPlan:
+    """A banded back-substitution plan of a scipy triangle, petsctpu's
+    tiles byte for byte. tile None: 256 but for small systems (128 at
+    n ≤ 1536). pad_to=(nt, W) forces at-least dimensions (identity
+    diagonal tiles, zero off columns on the window's far side)."""
+    dtiles, otiles, T, n = band_trsv_tiles(Tmat, lower, unit_diag, dtype,
+                                           tile, pad_to)
+    dev = resolve_device(device)
+    return BandTRSVPlan(torch.from_numpy(dtiles).to(dev),
+                        torch.from_numpy(otiles).to(dev), lower, T, n)
+
+
+def band_trsv_tiles(Tmat, lower: bool, unit_diag: bool, dtype=None,
+                    tile: int = None, pad_to: tuple = None):
+    """The host tiles (inverted diagonal tiles [nt, T, T], off tiles
+    [nt, T, W]), T and n of make_band_trsv_plan."""
+    Tmat = sp.csr_matrix(Tmat)
+    n = Tmat.shape[0]
+    coo = Tmat.tocoo()
+    T = tile if tile is not None else (256 if n > 1536 else 128)
+    nt, W = band_dims(Tmat, lower, T)
+    if pad_to is not None:
+        nt, W = max(nt, pad_to[0]), max(W, pad_to[1])
+    dt = np_dtype(dtype) or Tmat.dtype
+    dtiles = np.zeros((nt, T, T), dt)
+    otiles = np.zeros((nt, T, W), dt)
+    t_of, i_of = coo.row // T, coo.row % T
+    base = t_of * T
+    in_diag = (coo.col >= base) & (coo.col < base + T)
+    dtiles[t_of[in_diag], i_of[in_diag],
+           (coo.col - base)[in_diag]] = coo.data[in_diag]
+    off = ~in_diag
+    ocol = (coo.col - (base - W)) if lower else (coo.col - (base + T))
+    otiles[t_of[off], i_of[off], ocol[off]] = coo.data[off]
+    diag_view = np.einsum("tkk->tk", dtiles)     # a writable view
+    if unit_diag:
+        diag_view[:] = 1.0
+    else:
+        # rows past n get the identity, so the tile is invertible
+        diag_view[diag_view == 0] = 1.0
+    eye = np.broadcast_to(np.eye(T, dtype=dtiles.dtype), dtiles.shape)
+    return np.linalg.solve(dtiles, eye), otiles, T, n
+
+
+def make_band_trsv_hier_plan(Tmat, lower: bool, unit_diag: bool, dtype=None,
+                             tile: int = None, group_len: int = None,
+                             pad_to: tuple = None,
+                             device=None) -> BandTRSVHierPlan:
+    """The two-phase plan: the flat plan's tiles (tile 128 by default,
+    petsctpu's), grouped by L = ⌈√nt⌉ steps, with the propagators
+    computed on the device."""
+    dinv, off, T, n = band_trsv_tiles(Tmat, lower, unit_diag, dtype,
+                                      tile or 128, pad_to)
+    nt, _, W = off.shape
+    if not lower:
+        # bake the upper chain's reversal in: the window holds the
+        # produced tiles in reversed order, so the off columns' T-blocks
+        # flip too
+        dinv = dinv[::-1].copy()
+        off = off[::-1].reshape(nt, T, W // T, T)[:, :, ::-1, :] \
+            .reshape(nt, T, W).copy()
+    L = group_len or max(int(np.ceil(np.sqrt(nt))), 1)
+    G = -(-nt // L)
+    pad = L * G - nt
+    if pad:
+        # identity steps producing x = 0, appended
+        dinv = np.concatenate([dinv, np.tile(np.eye(T, dtype=dinv.dtype),
+                                             (pad, 1, 1))])
+        off = np.concatenate([off, np.zeros((pad, T, W), off.dtype)])
+    dev = resolve_device(device)
+    dinv_gl = torch.from_numpy(dinv.reshape(G, L, T, T)).to(dev)
+    off_gl = torch.from_numpy(off.reshape(G, L, T, W)).to(dev)
+    Pg, R = _hier_propagators(dinv_gl, off_gl)
+    return BandTRSVHierPlan(dinv_gl.transpose(0, 1).contiguous(),
+                            off_gl.transpose(0, 1).contiguous(), Pg, R,
+                            lower, T, n, nt)
+
+
+class StackedPlans:
+    """nb plans of one shape solving b [nb, n] one after another (the
+    bjacobi/ASM subdomains on a banded route; petsctpu vmaps them)."""
+
+    def __init__(self, plans):
+        self.plans = tuple(plans)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        return torch.stack([p.solve(bi) for p, bi in zip(self.plans, b)])
+
+
+def stacked_band_hier_plans(tris, lower: bool, unit_diag: bool, dtype=None,
+                            device=None, tile: int = 128) -> StackedPlans:
+    """Two-phase banded plans of the subdomain triangles, padded to a
+    common (nt, W) as petsctpu's _stacked_band_hier_plans does."""
+    nt = W = 1
+    for T in tris:
+        nti, Wi = band_dims(T, lower, tile)
+        nt, W = max(nt, nti), max(W, Wi)
+    return StackedPlans(make_band_trsv_hier_plan(
+        T, lower=lower, unit_diag=unit_diag, dtype=dtype, tile=tile,
+        pad_to=(nt, W), device=device) for T in tris)

@@ -9,9 +9,10 @@ asm/gasm, geometric mg, gamg (smoothed aggregation: the scalar route,
 and the rigid-body-mode and blocked routes for elasticity), asa
 (adaptive smoothed aggregation), and the compositional and specialty
 PCs: fieldsplit, ksp, composite, mat, shell, eisenstat, galerkin,
-redistribute, lsc, svd, cp, spai, supportgraph, exotic/wb and tfs.
-Every other type of petsctpu raises NotImplementedError naming its
-ROADMAP item.
+redistribute, lsc, svd, cp, spai, supportgraph, exotic/wb and tfs;
+and over the Mat formats, nn and bddc (on a MatIS) and fft (the DST
+Poisson solver). hmpi raises NotImplementedError naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ PC_REGISTRY = {}
 
 _Q = "ROADMAP queue 1 item"
 _LATER = {
-    # fft needs mat/fft.py; nn and bddc take a MatIS (mat/matis.py)
-    **dict.fromkeys(("fft", "nn", "bddc"), f"{_Q} 9"),
     # HMPI partitions over a device mesh (sharded AIJ)
     "hmpi": f"{_Q} 14",
 }
@@ -114,10 +113,13 @@ def make_pc(pc_type: str, A=None, A_host=None, options: Options = None,
         return make_asa(A_host, dtype=dt, options=opts, device=dev)
     if pc_type in _SLICE8:
         return _SLICE8[pc_type](A, A_host, opts, axis, dt, dev)
+    if pc_type in _SLICE12:
+        return _SLICE12[pc_type](A, A_host, opts, axis, dt, dev)
     if pc_type in _LATER:
         raise NotImplementedError(
             f"pc_type={pc_type} is not ported yet ({_LATER[pc_type]})")
-    known = set(PC_REGISTRY) | set(_LATER) | _PORTED | set(_SLICE8)
+    known = (set(PC_REGISTRY) | set(_LATER) | _PORTED | set(_SLICE8)
+             | set(_SLICE12))
     raise ValueError(f"unknown pc_type {pc_type!r}; known: {sorted(known)}")
 
 
@@ -347,6 +349,44 @@ def _make_tfs(A, A_host, opts: Options, axis, dt, dev):
                     device=dev)
 
 
+def _matis(A, pc_type: str):
+    from petsctpu_torch.mat.matis import MatIS
+
+    if not isinstance(A, MatIS):
+        raise ValueError(f"pc_type={pc_type} needs a MatIS operator "
+                         "(unassembled local Neumann matrices)")
+    return A
+
+
+def _make_nn(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.pc.nn import make_nn
+
+    return make_nn(_matis(A, "nn"), dtype=dt,
+                   balanced=opts.get_bool("pc_nn_balanced", True))
+
+
+def _make_bddc(A, A_host, opts: Options, axis, dt, dev):
+    # vertex and edge constraint spaces (bddc.c)
+    from petsctpu_torch.pc.bddc import make_bddc
+
+    return make_bddc(_matis(A, "bddc"), dtype=dt,
+                     vertices=opts.get_bool("pc_bddc_use_vertices", True),
+                     edges=opts.get_bool("pc_bddc_use_edges", True))
+
+
+def _make_fft(A, A_host, opts: Options, axis, dt, dev):
+    from petsctpu_torch.mat.fft import make_poisson_fft
+
+    dims = opts.get("pc_fft_dims")
+    if dims is None:
+        raise ValueError("pc_type=fft needs options key 'pc_fft_dims' "
+                         "(grid shape of the Dirichlet Laplacian)")
+    return make_poisson_fft(tuple(dims), dtype=dt,
+                            scale=opts.get_real("pc_fft_scale", 1.0),
+                            shift=opts.get_real("pc_fft_shift", 0.0),
+                            device=dev)
+
+
 def _make_spai(A, A_host, opts: Options, axis, dt, dev):
     from petsctpu_torch.pc.spai import make_spai
 
@@ -367,3 +407,5 @@ _SLICE8 = {
     "exotic": _make_exotic, "wb": _make_exotic, "tfs": _make_tfs,
     "spai": _make_spai,
 }
+# the PCs over the Mat formats (petsctpu/pc/api.py:202-216, :272)
+_SLICE12 = {"nn": _make_nn, "bddc": _make_bddc, "fft": _make_fft}

@@ -24,8 +24,8 @@ from petsctpu_torch.core.options import Options
 from petsctpu_torch.device import resolve_device
 from petsctpu_torch.mat.base import csr_submatrix_keep_zeros
 from petsctpu_torch.mat.factor import (ilu0, lu_factor, lu_solve,
+                                      stacked_band_hier_plans,
                                       stacked_sptrsv_plan)
-from petsctpu_torch.pc.factor import _tri_policy
 
 
 def increase_overlap(A: sp.csr_matrix, idx: np.ndarray,
@@ -117,7 +117,8 @@ def make_asm(A_host, nblocks: int = 4, overlap: int = 1,
     growth. sub_pc: "lu", or ILU(0) for any other value (as the
     reference). sub_ordering: each subdomain's ILU ordering
     (-sub_pc_factor_mat_ordering_type). tri (-sub_pc_factor_tri_solve):
-    the subdomains solve by levels; band and band2 raise."""
+    "band2" takes the reference's two-phase banded plans (one after
+    another, mat/factor.StackedPlans), every other value levels."""
     opts = options or Options()
     nblocks = opts.get_int("pc_asm_blocks", nblocks)
     overlap = opts.get_int("pc_asm_overlap", overlap)
@@ -126,7 +127,7 @@ def make_asm(A_host, nblocks: int = 4, overlap: int = 1,
     sub_pc = opts.get_str("sub_pc_type", sub_pc)
     sub_ordering = opts.get_str("sub_pc_factor_mat_ordering_type",
                                 sub_ordering)
-    _tri_policy(opts.get_str("sub_pc_factor_tri_solve", tri))
+    tri = opts.get_str("sub_pc_factor_tri_solve", tri)
     dev = resolve_device(device)
 
     A = sp.csr_matrix(A_host)
@@ -170,8 +171,12 @@ def make_asm(A_host, nblocks: int = 4, overlap: int = 1,
             L, U = ilu0(S)
             Ls.append(L)
             Us.append(U)
-        Lp = stacked_sptrsv_plan(Ls, True, True, dtype, dev)
-        Up = stacked_sptrsv_plan(Us, False, False, dtype, dev)
+        if tri == "band2":
+            Lp = stacked_band_hier_plans(Ls, True, True, dtype, dev)
+            Up = stacked_band_hier_plans(Us, False, False, dtype, dev)
+        else:
+            Lp = stacked_sptrsv_plan(Ls, True, True, dtype, dev)
+            Up = stacked_sptrsv_plan(Us, False, False, dtype, dev)
         # a symmetric permutation reuses the LU perm slots: pb[iperm[i]]
         # = b[i] permutes in, z[iperm] permutes back
         pr = pcm = np.stack(iperms)

@@ -13,7 +13,9 @@ The triangular-solve policy `tri` on the GPU: "auto" is the reference's
 rule with its MXU band route (band2) replaced by levels: ILU(k) and
 ICC(k) solve by levels, and ILUTP factors take the dense plan where the
 reference does (n ≤ 4096, not band-viable, or tri "dense"). "band" and
-"band2" (the reference's banded plans) are ROADMAP queue 1 item 9.
+"band2" take the reference's banded plans (mat/factor.py:
+BandTRSVPlan, BandTRSVHierPlan), PyTorch products; a band route becomes
+a default only on a measurement.
 `-pc_factor_drop_solver petsc` takes the reference's native ILUDT
 (make_iludt, a host Python loop as in the reference).
 """
@@ -28,14 +30,15 @@ import torch
 from petsctpu_torch.device import np_dtype, resolve_device
 from petsctpu_torch.mat.factor import (
     band_solve_viable, icc_factor, icc_pattern, ilu0, iluk_pattern,
-    lu_factor, lu_solve, make_dense_trsv_plan, make_sptrsv_plan)
+    lu_factor, lu_solve, make_band_trsv_hier_plan, make_band_trsv_plan,
+    make_dense_trsv_plan, make_sptrsv_plan)
 
 
-def _tri_policy(tri: str) -> None:
-    if tri in ("band", "band2"):
-        raise NotImplementedError(
-            f"pc_factor_tri_solve {tri}: the reference's banded triangular "
-            "plans are not ported yet (ROADMAP queue 1 item 9)")
+def _tri_maker(tri: str):
+    """The plan builder of a triangular-solve route: "band" the flat
+    banded plan, "band2" the two-phase one, else level scheduling."""
+    return {"band": make_band_trsv_plan,
+            "band2": make_band_trsv_hier_plan}.get(tri, make_sptrsv_plan)
 
 
 class ILUPC:
@@ -163,7 +166,6 @@ def make_ilu(A_host, dtype=None, levels: int = 0, ordering: str = "natural",
              device=None):
     """ILU(k) in an ordering, or with drop_tol > 0 drop-tolerance ILU
     (ILUTP via SuperLU's spilu, x = Pc U⁻¹ L⁻¹ Pr b)."""
-    _tri_policy(tri)
     dev = resolve_device(device)
     if drop_tol > 0.0:
         ilu = spla.spilu(sp.csc_matrix(A_host).astype(np.float64),
@@ -183,10 +185,11 @@ def make_ilu(A_host, dtype=None, levels: int = 0, ordering: str = "natural",
             Up = make_dense_trsv_plan(U, lower=False, unit_diag=False,
                                       dtype=dtype, device=dev)
         else:
-            Lp = make_sptrsv_plan(Lstrict, lower=True, unit_diag=True,
-                                  dtype=dtype, device=dev)
-            Up = make_sptrsv_plan(U, lower=False, unit_diag=False,
-                                  dtype=dtype, device=dev)
+            mk = _tri_maker(tri)
+            Lp = mk(Lstrict, lower=True, unit_diag=True, dtype=dtype,
+                    device=dev)
+            Up = mk(U, lower=False, unit_diag=False, dtype=dtype,
+                    device=dev)
         return LUPC(Lp, Up, _perm_tensor(ilu.perm_r, dev),
                     _perm_tensor(ilu.perm_c, dev))
     if ordering not in ("natural", ""):
@@ -227,10 +230,12 @@ def _make_ilu_natural(A_host, dtype=None, levels: int = 0, tri: str = "auto",
         L, U = ilu0(widen_to_pattern(A_host, iluk_pattern(A_host, levels)))
     else:
         L, U = ilu0(A_host)
-    Lp = make_sptrsv_plan(L, lower=True, unit_diag=True, dtype=dtype,
-                          device=device)
-    Up = make_sptrsv_plan(U, lower=False, unit_diag=False, dtype=dtype,
-                          device=device)
+    # transpose solves take level plans for both directions, as the
+    # reference does (one factor representation for apply and its
+    # transpose)
+    mk = make_sptrsv_plan if transpose_solves else _tri_maker(tri)
+    Lp = mk(L, lower=True, unit_diag=True, dtype=dtype, device=device)
+    Up = mk(U, lower=False, unit_diag=False, dtype=dtype, device=device)
     if transpose_solves:
         return ILUPCT(Lp, Up,
                       make_sptrsv_plan(sp.csr_matrix(L.T), lower=False,
@@ -250,7 +255,6 @@ def make_icc(A_host, dtype=None, levels: int = 0, ordering: str = "natural",
     incomplete Cholesky with its shift (MatCholeskyFactorNumeric_SeqAIJ
     aijfact.c:2076; the PCICC default is the Manteuffel shift,
     icc.c:198)."""
-    _tri_policy(tri)
     dev = resolve_device(device)
     if ordering not in ("natural", ""):
         from petsctpu_torch.mat.order import get_ordering, permute_symmetric
@@ -265,10 +269,10 @@ def make_icc(A_host, dtype=None, levels: int = 0, ordering: str = "natural",
     Ustrict, d, _, _ = icc_factor(A_host, pattern_rows=pattern,
                                   shift_type=shift_type, zeropivot=zeropivot,
                                   shift_amount=shift_amount)
-    Lp = make_sptrsv_plan(sp.csr_matrix(Ustrict.T), lower=True,
-                          unit_diag=True, dtype=dtype, device=dev)
-    Up = make_sptrsv_plan(Ustrict, lower=False, unit_diag=True, dtype=dtype,
-                          device=dev)
+    mk = _tri_maker(tri)
+    Lp = mk(sp.csr_matrix(Ustrict.T), lower=True, unit_diag=True,
+            dtype=dtype, device=dev)
+    Up = mk(Ustrict, lower=False, unit_diag=True, dtype=dtype, device=dev)
     dt = np_dtype(dtype) or np.dtype(np.float64)
     return ICCPC(Lp, Up, torch.from_numpy((1.0 / d).astype(dt)).to(dev))
 

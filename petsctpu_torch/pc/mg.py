@@ -486,8 +486,8 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
 
     fmt="auto" (default) and "ell" as in petsctpu; fmt="sell" adds the
     RCM conjugation of every level and returns the MGPC inside a
-    PermutedPC that applies it in the caller's ordering. fmt="band" (the
-    TPU's MXU band format) raises.
+    PermutedPC that applies it in the caller's ordering; fmt="band" does
+    the same with every level operator a BandMat (mat/band.py).
 
     The `auto` policy on the card: petsctpu takes SELL operators and
     transfers only when its backend is the TPU, and ELL elsewhere. The
@@ -511,14 +511,10 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
     from petsctpu_torch.mat.ell import aij_from_scipy
     from petsctpu_torch.mat.sell import sell_if_viable, sell_pack_cheapest
 
-    if fmt == "band":
-        raise NotImplementedError(
-            "pc_gamg_mat_type band (the MXU band format) is not ported yet "
-            "(ROADMAP queue 1 item 9)")
     dev = resolve_device(device)
     dtype = (np_dtype(dtype) or np.dtype(As[0].dtype)).type
     fp32 = np.dtype(dtype) == np.float32
-    if fmt == "sell":
+    if fmt in ("band", "sell"):
         from petsctpu_torch.mat.order import get_ordering
         perms = [get_ordering(sp.csr_matrix(A), "rcm") for A in As]
         As = [sp.csr_matrix(A)[p][:, p].tocsr() for A, p in zip(As, perms)]
@@ -526,7 +522,7 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
               for l, P in enumerate(Ps)]
 
     def permuted(pc):
-        if fmt != "sell":
+        if fmt not in ("band", "sell"):
             return pc
         return PermutedPC(pc, torch.as_tensor(perms[0]).to(dev))
 
@@ -540,6 +536,9 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
         return permuted(pc)
 
     def level_op(Ah):
+        if fmt == "band":
+            from petsctpu_torch.mat.band import band_from_scipy
+            return band_from_scipy(Ah, dtype=dtype, device=dev)
         if fmt in ("sell", "auto") and fp32:
             M = sell_if_viable(Ah, device=dev)
             if M is not None:

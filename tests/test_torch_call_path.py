@@ -658,3 +658,44 @@ def test_sptrsv_plain_matches_a_row_loop():
                 acc = acc + v * (ref[c] if c < n else 0.0)
             ref[r] = (b[r] - acc) * dinv[r]
     np.testing.assert_array_equal(x, ref)
+
+
+def test_sellbaij_mult_on_the_card_launches_k2_or_raises(monkeypatch):
+    """SellBAIJ.mult (the card's -mat_type baij route, mat/bsr.py) on
+    tensors that report the card takes K2's CUDA path: one launch
+    through the C entry point, counted; with no entry point (no nvcc)
+    it raises and takes no plain version."""
+    import ctypes
+
+    from petsctpu_torch.mat import sell as msell
+    from petsctpu_torch.mat.bsr import baij_from_scipy_bsr
+    from petsctpu_torch.models.elasticity import ex55_system
+    from petsctpu_torch.ops import sell_spmv as k2
+
+    A = ex55_system(31, 1e-3)[0]
+    M = baij_from_scipy_bsr(A, bs=2, dtype=np.float32, fmt="sell",
+                            device="cpu")
+    assert type(M).__name__ == "SellBAIJ"
+    x = torch.rand(A.shape[0])
+    plain = M.mult(x)
+    got = []
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *k2.ARGTYPES)
+    entry = proto(lambda *a: got.append(a) or 0)
+    monkeypatch.setattr(k2, "_launcher", lambda: entry)
+    monkeypatch.setattr(_build, "launch", lambda fn, index, a: fn(*a, None))
+    monkeypatch.setattr(_build, "counted",
+                        lambda w: setattr(w, "launches", w.launches + 1))
+    real = msell.sell_spmv
+    monkeypatch.setattr(msell, "sell_spmv",
+                        lambda *a, **k: real(*_card(a), **k))
+    before = k2.sell_spmv.launches
+    out = M.mult(_card(x))
+    assert len(got) == 1 and k2.sell_spmv.launches == before + 1
+    assert out.shape == plain.shape and out.dtype == plain.dtype
+
+    def no_entry():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(k2, "_launcher", no_entry)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        M.mult(_card(x))
+    assert k2.sell_spmv.launches == before + 1

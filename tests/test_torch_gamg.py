@@ -361,14 +361,22 @@ def test_dense_and_rectband_match_petsctpu():
 
 
 @pytest.mark.parametrize("opts,exc,match", [
-    ({"pc_gamg_mat_type": "band"}, NotImplementedError, "queue 1 item 9"),
+    ({"pc_gamg_mat_type": "band"}, None, "BandMat"),
 ])
 def test_gamg_routes_not_ported_raise(opts, exc, match):
+    """Every -pc_gamg_mat_type is ported since slice 12 (band: level
+    operators as BandMat in the RCM ordering, tests/
+    test_torch_band_trsv.py holds its apply to petsctpu's); a route with
+    an exception type would still have to raise it."""
     A = laplacian_2d(4, 4)
-    with pytest.raises(exc, match=match):
-        make_pc("gamg", A_host=A, options=Options({**opts,
-                                                   "pc_gamg_coarse_eq_limit":
-                                                   "4"}))
+    o = Options({**opts, "pc_gamg_coarse_eq_limit": "4"})
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            make_pc("gamg", A_host=A, options=o)
+        return
+    pc = make_pc("gamg", A=aij_from_scipy(A, device=CPU), A_host=A,
+                 options=o)
+    assert {type(lev.A).__name__ for lev in pc.inner.levels} == {match}
 
 
 def test_gamg_needs_the_host_matrix():

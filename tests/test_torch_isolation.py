@@ -51,7 +51,10 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "models.bratu", "models.cavity", "models.pbratu",
               "models.radiative", "models.adr1d", "models.laplin",
               "core.random", "ts", "ts.steppers", "ts.imex", "ts.gl",
-              "ts.characteristic", "models.heat"):
+              "ts.characteristic", "models.heat", "mat.fold", "mat.bsr",
+              "mat.sbaij", "mat.coo", "mat.band", "mat.dia", "mat.maij",
+              "mat.nest", "mat.matis", "mat.fft", "pc.nn", "pc.bddc",
+              "models.ddpoisson"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (

@@ -578,9 +578,18 @@ def test_mat_from_options_perm_matches_jax(ordering, mat_type):
 @pytest.mark.parametrize("mat_type", ["baij", "sbaij", "dense", "band",
                                       "dia", "auto"])
 def test_mat_types_not_ported_raise(mat_type):
+    """Only auto (its GPU policy, ROADMAP queue 1 item 6) still raises;
+    the other formats came with slice 12 (tests/test_torch_formats.py
+    holds them to petsctpu's)."""
     A, _, _ = ex2_system(4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mat_from_options(A, mat_type=mat_type, device=CPU)
+    if mat_type == "auto":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            mat_from_options(A, mat_type=mat_type, device=CPU)
+        return
+    M, _ = mat_from_options(A, mat_type=mat_type, device=CPU)
+    assert type(M).__name__ == {"baij": "BAIJ", "sbaij": "SBAIJ",
+                                "dense": "Dense", "band": "BandMat",
+                                "dia": "DiaMat"}[mat_type]
 
 
 def test_rcm_fast_and_bandwidth_match_jax():

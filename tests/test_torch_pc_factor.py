@@ -333,16 +333,24 @@ def test_native_iludt_matches_reference(drop):
 
 
 @pytest.mark.parametrize("pc_type,opts,match", [
-    ("ilu", {"pc_factor_tri_solve": "band"}, "queue 1 item 9"),
-    ("ilu", {"pc_factor_tri_solve": "band2"}, "queue 1 item 9"),
-    ("icc", {"pc_factor_tri_solve": "band2"}, "queue 1 item 9"),
-    ("asm", {"sub_pc_factor_tri_solve": "band2"}, "queue 1 item 9"),
+    ("ilu", {"pc_factor_tri_solve": "band"}, "BandTRSVPlan"),
+    ("ilu", {"pc_factor_tri_solve": "band2"}, "BandTRSVHierPlan"),
+    ("icc", {"pc_factor_tri_solve": "band2"}, "BandTRSVHierPlan"),
+    ("asm", {"sub_pc_factor_tri_solve": "band2"}, "StackedPlans"),
 ])
 def test_unported_routes_raise(pc_type, opts, match):
+    """These routes raised until slice 12 ported the banded plans; each
+    now builds its plans and solves as the level route does (tests/
+    test_torch_band_trsv.py holds them to petsctpu's)."""
     A = sp.csr_matrix(ex2_system(6, 6)[0])
-    with pytest.raises(NotImplementedError, match=match):
-        make_pc(pc_type, A=aij_from_scipy(A, device=CPU), A_host=A,
-                options=Options(opts))
+    Ad = aij_from_scipy(A, device=CPU)
+    pc = make_pc(pc_type, A=Ad, A_host=A, options=Options(opts))
+    plan = getattr(pc, "Lplan", None) or getattr(pc, "Lplans", None)
+    assert type(plan).__name__ == match
+    ref = make_pc(pc_type, A=Ad, A_host=A)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(36))
+    np.testing.assert_allclose(pc.apply(b).numpy(), ref.apply(b).numpy(),
+                               rtol=1e-11, atol=1e-12)
 
 
 @pytest.mark.parametrize("pc_type", ["ilu", "icc", "sor", "bjacobi", "asm"])

@@ -4,8 +4,8 @@ Replays, on the CPU in fp64, each case of tests/sweep_cases.py whose
 ksp type (cg, groppcg, gmres, fgmres by mapping; every other type since
 slice 6), pc type (none, jacobi; lu and redundant since slice 2; ilu,
 icc, sor, bjacobi and asm since slice 5; ROADMAP queue 1 item 10's
-eisenstat, composite, ksp and svd since slice 8) and matrix type (aij)
-the port has, -ksp_diagonal_scale solving the scaled system as
+eisenstat, composite, ksp and svd since slice 8) and matrix type (aij;
+baij and sbaij since slice 12) the port has, -ksp_diagonal_scale solving the scaled system as
 tests/test_sweep.py does, and -pc_type eisenstat solving the
 transformed system of make_eisenstat_system as run_serial does, and
 holds it to its oracle stream in tests/data/oracle_sweep/
@@ -62,7 +62,8 @@ from petsctpu_torch.core.options import Options
 from petsctpu_torch.ksp import ksp_solve
 from petsctpu_torch.ksp.api import config_from_options, diagonal_scale_system
 from petsctpu_torch.ksp.common import KSPConfig
-from petsctpu_torch.mat import aij_from_scipy
+from petsctpu_torch.mat import (aij_from_scipy, baij_from_scipy_bsr,
+                                sbaij_from_scipy)
 from petsctpu_torch.models import ex2_system
 from petsctpu_torch.pc import make_pc
 from petsctpu_torch.pc.extra import make_eisenstat_system
@@ -144,8 +145,11 @@ SLICE10 = ("sw_ex2_cg_eisenstat", "sw2_ex2_cg_eisenstat24",
            "sw7_ex2_gmres_composite_mult", "sw7_ex2_fgmres_ksppc",
            "sw9_ex2_fgmres_ksppc_specest",
            "sw9_ex2_fgmres_ksppc_specest_cg", "sw7_ex2_gmres_svd")
+# the serial cases on -mat_type baij or sbaij (ROADMAP queue 1 item 9)
+SLICE12 = ("sw_ex10b_cg_pbjacobi", "sw8_ex10p_sbaij_cg_icc",
+           "sw8_ex10p_sbaij_cg_jacobi")
 SLICE1_TYPES = ("cg", "pipecg", "groppcg", "gmres", "pgmres", "fgmres")
-ALL = SLICE1 + SLICE2 + SLICE5 + SLICE6 + SLICE10
+ALL = SLICE1 + SLICE2 + SLICE5 + SLICE6 + SLICE10 + SLICE12
 SNES = ("sw_snes5_l2_m10", "sw_snes5_l4_m10", "sw_snes5_l5_m16",
         "sw_snes5_l6_m12", "sw_snes5_l3_m16_basic", "sw_snes5_l45_m12_basic",
         "sw3_snes5_l2_m14", "sw3_snes5_l55_m20", "sw3_snes5_l1_m8",
@@ -225,8 +229,8 @@ def test_slice5_is_every_case_of_its_pcs_the_port_runs():
     """SLICE5 is the whole rule: serial, AIJ, an ex1/ex2/ex23 system or
     an ex10 datafile, a slice-1 ksp type (the other types' cases are
     SLICE6), and pc ilu/icc/sor/bjacobi/asm, or -ksp_diagonal_scale
-    with one of those or none/jacobi. The replay then holds 151 serial
-    cases with SLICE10's."""
+    with one of those or none/jacobi. The replay then holds 154 serial
+    cases with SLICE10's and SLICE12's."""
     slice5_pcs = ("ilu", "icc", "sor", "bjacobi", "asm")
 
     def in_rule(c):
@@ -242,7 +246,7 @@ def test_slice5_is_every_case_of_its_pcs_the_port_runs():
     rule = [c.tag for c in CASES if in_rule(c)]
     assert sorted(rule) == sorted(SLICE5)
     assert sum(BY_TAG[t].sys.startswith("file:") for t in SLICE5) == 11
-    assert len(set(ALL)) == len(ALL) == 151
+    assert len(set(ALL)) == len(ALL) == 154
 
 
 def test_slice10_is_every_serial_case_of_its_pcs():
@@ -255,6 +259,16 @@ def test_slice10_is_every_serial_case_of_its_pcs():
     rule = [c.tag for c in CASES
             if c.np == 1 and parse_args(c.args).get("pc_type") in item10]
     assert sorted(rule) == sorted(SLICE10)
+
+
+def test_slice12_is_every_serial_blocked_case():
+    """SLICE12 is every serial case on -mat_type baij or sbaij; with
+    them the port replays all 175 serial cases (ALL, SNES and TS)."""
+    rule = [c.tag for c in CASES if c.np == 1 and parse_args(c.args).get(
+        "mat_type", "aij") in ("baij", "sbaij")]
+    assert sorted(rule) == sorted(SLICE12)
+    assert len(ALL) + len(SNES) + len(TS) == sum(c.np == 1 for c in CASES) \
+        == 175
 
 
 def test_petsc_order_dot_sums_left_to_right():
@@ -337,7 +351,14 @@ def test_sweep_case_through_port(tag, monkeypatch):
             device="cpu")
         r = ksp_solve(shell, pre(torch.from_numpy(b)), pc=pc, cfg=cfg)
     else:
-        Ad = aij_from_scipy(A, device="cpu")
+        # as run_serial: -matload_block_size is the blocked formats' bs
+        bs = int(flags.get("matload_block_size", 1))
+        if flags.get("mat_type") == "baij":
+            Ad = baij_from_scipy_bsr(A, bs=bs, device="cpu")
+        elif flags.get("mat_type") == "sbaij":
+            Ad = sbaij_from_scipy(A, bs=bs, device="cpu")
+        else:
+            Ad = aij_from_scipy(A, device="cpu")
         pc = make_pc(flags.get("pc_type", "ilu"), A=Ad, A_host=A,
                      options=opts)
         r = ksp_solve(Ad, torch.from_numpy(b), pc=pc, cfg=cfg)
