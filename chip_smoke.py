@@ -371,6 +371,47 @@ then ex43's A at mx = 1023 as phase 25 does.
    the ELL kernel and CSR `mv`.
 `python3 chip_smoke.py slice12` runs the build and phases 36-39 alone.
 
+Slice 13 (DM: snes ex12's P1 Poisson on an unstructured mesh) runs after
+slice 12 (phase 41 against the port's CPU only in `slice13`, below):
+40. ex12 at full width: Plex.create_box_mesh(1024, 1024).refine() (4,198,401
+   vertices, 8,388,608 triangles), its interior vertices jittered by
+   ±0.2·h from a seeded generator (every cell keeps the sign of its
+   area), the Dirichlet rows from mark_boundary's label, assembled in
+   fp64 by fem_assemble_poisson on the card (each part of the setup
+   timed: mesh, refine and jitter, label, element kernel, pattern, sum,
+   load, Dirichlet rows, ELL pack and upload); the element kernel's card
+   time, and the sums of the full mesh's element matrices by both routes,
+   from the card's element matrices to the host's sums, twice each and
+   bit for bit: folded on the card and by np.add.at on the host; a KSP
+   with -ksp_type cg -pc_type gamg -ksp_rtol 1e-8 (the GAMG setup split,
+   the levels and their formats),
+   the launch counts reset just before the solve and read just after
+   (the ELL kernel at least once an iteration), its, reason, ms an
+   iteration first and repeated, a profiled repeat's idle share, the true
+   residual (≤ 1e-4); the ELL kernel bit for bit against its plain
+   version on every operator the solve multiplies by (ell_shapes), SpTRSV
+   on the coarse LU, and the fine operator's ELL product timed against
+   its bound and CSR `mv`;
+41. CG + ILU(0) to rtol 1e-8 on the same mesh from 256² (263,169 dofs) on
+   the card: SpTRSV's levels and shape, its launches (2 an apply in the
+   grid shape, 1 where the pair fuses), ms an iteration, a profiled
+   repeat, SpTRSV bit for bit on both triangles; in `slice13`, against
+   the port's CPU assembly and solve of the same system, run after the
+   card's parts: the same CSR and b bit for bit, equal its and reason,
+   the history within EX12_ILU_HIST·‖r0‖ (at least 30 times the card's
+   own change under a 1e-15 change of b) and x within 30 times the
+   card's own change of x;
+42. card against CPU on small meshes: P1 (the jittered 16² mesh refined),
+   P2, tets, Q1 quads and hexes, Neumann and Robin on labelled facets,
+   and P1 on a mesh written by write_gmsh and read back by read_gmsh,
+   labelled: the element matrices, the pattern byte for byte, values and
+   b within 1e-13 of the largest; then CG + GAMG on the P1 case, equal
+   its and reason, the history within 1e-10·‖r0‖.
+`python3 chip_smoke.py slice13` runs the build and phases 40-42 alone.
+The whole script runs ex55 (slices 7 and 12) and ex43 (slice 8) at
+FULL_SCRIPT_NE = 511, and phase 41 without the CPU solve: otherwise it
+would pass the 1,200 s it must end in. Each `sliceN` runs at 1023.
+
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
 """
@@ -391,11 +432,20 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from petsctpu_torch import device as port_device
 from petsctpu_torch import probes
 from petsctpu_torch.convert import sell_from_arrays
 from petsctpu_torch.core.logging import log_begin, log_events
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.dm import DA
+from petsctpu_torch.dm.gmsh import read_gmsh, write_gmsh
+from petsctpu_torch.dm.interp import boundary_faces, face_centroids, face_point
+from petsctpu_torch.dm.label import create_label, mark_boundary
+from petsctpu_torch.dm.plex import (Plex, Plex3D, PlexHex, PlexQuad,
+                                    closure_pattern, element_kernel_for,
+                                    element_matrices, fem_assemble_poisson,
+                                    p1_element_stiffness,
+                                    p2_assemble_poisson, p2_element_stiffness)
 from petsctpu_torch.ksp import KSP, ksp_solve
 from petsctpu_torch.ksp import api as ksp_api
 from petsctpu_torch.ksp import bcgs as ksp_bcgs
@@ -416,6 +466,7 @@ from petsctpu_torch.mat.nest import make_nest
 from petsctpu_torch.mat import stencil as stencil_module
 from petsctpu_torch.mat.dense import Dense
 from petsctpu_torch.mat.nullspace import make_nullspace
+from petsctpu_torch.mat.fold import fold_plan
 from petsctpu_torch.mat.factor import (SpTRSVPlan, ilu0, lu_solve,
                                        make_sptrsv_plan, stacked_sptrsv_plan)
 from petsctpu_torch.mat.sell import (SellMat, sell_from_scipy, sell_pack,
@@ -1404,11 +1455,16 @@ def setup_split():
             t["MatSolvePlan"] - t["MatSolveLevels"], t["MatSolveSegments"])
 
 
-def profile_solve(ksp, b, label="slice5", top=6):
+PROFILED = {"SpTRSV": ("sptrsv",), "K2": ("sell_spmv",),
+            "ELL": ("ell_ring_kernel", "ell_chunk_kernel")}
+
+
+def profile_solve(ksp, b, label="slice5", top=6, kernels=("SpTRSV", "K2")):
     """The device's busy and idle shares of a repeat of the solve under
     torch.profiler, its `top` kernels by device time (with their
-    launches an iteration), and SpTRSV's and K2's shares of the busy
-    time."""
+    launches an iteration), and the shares of the busy time of the hand
+    kernels named in `kernels` (keys of PROFILED, whose device kernel
+    names they match)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1426,12 +1482,13 @@ def profile_solve(ksp, b, label="slice5", top=6):
     for e in events:
         per[e.name][0] += 1
         per[e.name][1] += e.time_range.end - e.time_range.start
-    share = {k: sum(us for name, (_, us) in per.items() if k in name)
-             / max(busy, 1e-9) for k in ("sptrsv", "sell_spmv")}
+    share = {k: sum(us for name, (_, us) in per.items()
+                    if any(s in name for s in PROFILED[k]))
+             / max(busy, 1e-9) for k in kernels}
     print(f"{label} profiled: wall {1e3 * wall / n:.4f} ms/it; device busy "
           f"{busy / n / 1e3:.4f} ms/it, idle share "
-          f"{1 - busy / (wall * 1e6):.3f}; SpTRSV {share['sptrsv']:.3f} "
-          f"and K2 {share['sell_spmv']:.3f} of the busy time")
+          f"{1 - busy / (wall * 1e6):.3f}; " + " and ".join(
+              f"{k} {share[k]:.3f}" for k in kernels) + " of the busy time")
     for name, (count, us) in sorted(per.items(),
                                     key=lambda kv: -kv[1][1])[:top]:
         print(f"  {us / n / 1e3:9.5f} ms  {count / n:5.1f}/it  {name[:80]}")
@@ -2473,8 +2530,8 @@ def spy_restrictions(pc):
     return calls, undo
 
 
-def drive_slice7_path(A, b_np, coords, route, ne=EX55_NE):
-    """KSP ex55 -pc_type gamg at ne (EX55_NE) on the fp32 SELL operator
+def drive_slice7_path(A, b_np, coords, route, ne):
+    """KSP ex55 -pc_type gamg at ne on the fp32 SELL operator
     (natural order), route "rbm" (pc_gamg_coordinates) or "nc"
     (pc_gamg_dof 2 alone), counting launches from just before the
     operator is built to just after the solve."""
@@ -2825,17 +2882,17 @@ def asa_phase():
                out["cpu"], 1e-10, size=f"ne={ASA_NE}")
 
 
-def slice7_phases(rng, kernels):
-    """Slice 7: the RBM path at full width (phase 21) with its profile
+def slice7_phases(rng, kernels, ne=EX55_NE):
+    """Slice 7: the RBM path at ex55's ne (phase 21) with its profile
     and K2/K3 checks and times on its operators, the NC route once,
     both routes card against CPU at ne = 63 (phase 22), the device
     refresh (phase 23) and PCASA (phase 24). Adds the path's launches
     and errors to the kernels line's entries."""
     t = time.perf_counter()
-    A, b, coords = ex55_system(EX55_NE, 1e-3)
-    print(f"ex55 ne={EX55_NE}: n={A.shape[0]} nnz={A.nnz} "
+    A, b, coords = ex55_system(ne, 1e-3)
+    print(f"ex55 ne={ne}: n={A.shape[0]} nnz={A.nnz} "
           f"({time.perf_counter() - t:.1f} s)")
-    path = drive_slice7_path(A, b, coords, "rbm")
+    path = drive_slice7_path(A, b, coords, "rbm", ne=ne)
     k2, k3, trsv_lu = kernels["sell_spmv"], kernels["sell_spmvT"], \
         kernels["sptrsv_lu"]
     k2["launches"] += path["k2"]
@@ -2846,7 +2903,7 @@ def slice7_phases(rng, kernels):
           f"path, {warm_gamg_ms_per_it(path):.4f} repeated")
     profile_solve(ksp, path["b"], label="slice 7 rbm")
     if isinstance(M, SellMat):
-        label = f"ex55 ne={EX55_NE}"
+        label = f"ex55 ne={ne}"
         xp, err = check_k2(A, M, "cuda", rng, label)
         k2["max_abs_err"] = max(k2["max_abs_err"], err)
         measure(A, M, xp, label=label, triad=False)
@@ -2857,7 +2914,7 @@ def slice7_phases(rng, kernels):
         P_host = sell_to_scipy(P)
         k3["max_abs_err"] = max(k3["max_abs_err"], check_k3(
             f"ex55 level-{l} prolongator", P, P_host, rng))
-        measure_k3(l, P, P_host, rng, label=f"ex55 ne={EX55_NE}")
+        measure_k3(l, P, P_host, rng, label=f"ex55 ne={ne}")
     del path, ksp, M, pc
     del A, b, coords
     A, b, coords = ex55_system(EX55_NC_NE, 1e-3)
@@ -2942,14 +2999,14 @@ def ex43_ell_phase(triad_gbs, rng):
                        f"ex43 mx={EX43_MX}")
 
 
-def drive_slice8_path(triad_gbs):
-    """Phase 25: ksp ex43 SolCx at mx = my = EX43_MX in fp64 on AIJ,
+def drive_slice8_path(triad_gbs, mx):
+    """Phase 25: ksp ex43 SolCx at mx = my in fp64 on AIJ,
     FGMRES + symmetric_multiplicative fieldsplit with GAMG(dof 2) on the
     velocity and Jacobi on the pressure, counting every hand kernel's
     launches and the host reads in the solve. Returns the launches."""
-    A, B, f, fields, asm_s = ex43_system(EX43_MX)
+    A, B, f, fields, asm_s = ex43_system(mx)
     n = A.shape[0]
-    print(f"slice 8: ex43 SolCx mx=my={EX43_MX}: n={n} ({fields[0].size} "
+    print(f"slice 8: ex43 SolCx mx=my={mx}: n={n} ({fields[0].size} "
           f"velocity) nnz(A)={A.nnz} nnz(B)={B.nnz}; assembly {asm_s:.2f} s")
     reset_counts()
     log_begin()
@@ -2993,7 +3050,7 @@ def drive_slice8_path(triad_gbs):
     its, reason = int(res.its), int(res.reason)
     launched = {k: v - before[k] for k, v in launch_counts().items()}
     relres = true_residual(A, f, res)
-    line, uL2 = error_line(EX43_MX, res.x.cpu().numpy())
+    line, uL2 = error_line(mx, res.x.cpu().numpy())
     print(f"slice 8: FGMRES + fieldsplit its={its} reason={reason} "
           f"{secs:.3f} s = {1e3 * secs / max(its, 1):.4f} ms/it; true rel "
           f"residual {relres:.3e}; history {float(res.history[0]):.6e} -> "
@@ -3015,7 +3072,7 @@ def drive_slice8_path(triad_gbs):
     with ell_shapes() as shapes:         # an untimed solve
         ell_its = int(solve_once().its)
     ell_breakdown("slice 8", shapes, ell_its)
-    measure_aij(A, Ad, b, triad_gbs, f"ex43 mx={EX43_MX}")
+    measure_aij(A, Ad, b, triad_gbs, f"ex43 mx={mx}")
     return launched
 
 
@@ -3261,13 +3318,13 @@ def check_slice8_pcs_against_cpu(devices=("cuda", "cpu")):
     return launched
 
 
-def slice8_phases(rng, kernels, triad_gbs):
-    """Slice 8: the full-width path (phase 25), the golden (26), Schur
+def slice8_phases(rng, kernels, triad_gbs, mx=EX43_MX):
+    """Slice 8: the path at ex43's mx (phase 25), the golden (26), Schur
     at mx = 255 (27) and every other new PC type (28), each against the
     CPU; then SpTRSV against its plain version on the golden's LU pair
     and the Eisenstat triangles, and the golden LU's fused apply timed.
     Adds the path's launches to the kernels line's entries."""
-    launched = drive_slice8_path(triad_gbs)
+    launched = drive_slice8_path(triad_gbs, mx)
     for name in ("sptrsv", "sptrsv_lu", "sell_spmv", "sell_spmvT",
                  "stencil_mult"):
         kernels[name]["launches"] += launched[name]
@@ -4512,8 +4569,8 @@ def repeatable(label, fn, x):
     return y1
 
 
-def drive_baij_path(A, b_np, rng, triad_gbs):
-    """Phase 36: ksp ex55 at FMT_NE in fp32 through mat_from_options
+def drive_baij_path(A, b_np, rng, triad_gbs, ne):
+    """Phase 36: ksp ex55 at ne in fp32 through mat_from_options
     (-mat_type baij -mat_block_size 2): SellBAIJ on the card, its forward
     product K2 on the block expansion; CG + pbjacobi for FMT_ITS its,
     counted, repeated and profiled; the same solve on the BAIJ's block
@@ -4533,7 +4590,7 @@ def drive_baij_path(A, b_np, rng, triad_gbs):
     k2 = sell_spmv.launches
     hist = res.history[:its + 1].numpy()
     e = energy(A, b_np, res.x)
-    print(f"slice 12 baij: ex55 ne={FMT_NE} n={A.shape[0]} nnz={A.nnz}; "
+    print(f"slice 12 baij: ex55 ne={ne} n={A.shape[0]} nnz={A.nnz}; "
           f"mat_from_options {op_s:.2f} s (SellBAIJ: K2 G={M.sell.G} "
           f"S={M.sell.S} P={M.sell.npass}; BAIJ K={M.cols.shape[1]}); "
           f"pbjacobi setup {setup_s:.3f} s; CG+pbjacobi its={its} "
@@ -4570,7 +4627,7 @@ def drive_baij_path(A, b_np, rng, triad_gbs):
           f"{repeat_ms(kb, b):.4f}")
     # the products
     C = sp.csr_matrix(sp.bsr_matrix(A, blocksize=(2, 2))).astype(np.float32)
-    label = f"ex55 ne={FMT_NE} BAIJ expansion"
+    label = f"ex55 ne={ne} BAIJ expansion"
     xp, err = check_k2(C, M.sell, "cuda", rng, label)
     k2_times = measure(C, M.sell, xp, label=label, triad=False)
     x = xp.reshape(-1)[M.sell.G * 128:M.sell.G * 128 + C.shape[1]] \
@@ -4591,8 +4648,8 @@ def drive_baij_path(A, b_np, rng, triad_gbs):
     return dict(launches=k2, err=err, times=times)
 
 
-def drive_sbaij_path(A, b_np, rng):
-    """Phase 37: ksp ex55 at FMT_NE in fp64 on SBAIJ (-mat_type sbaij
+def drive_sbaij_path(A, b_np, rng, ne):
+    """Phase 37: ksp ex55 at ne in fp64 on SBAIJ (-mat_type sbaij
     -mat_block_size 2), CG + ICC(0) (on the host matrix) for FMT_ITS its,
     SpTRSV counted in the solve, CG's energy falling; SpTRSV on both
     triangles bit for bit against its plain version and the ICC apply
@@ -4622,7 +4679,7 @@ def drive_sbaij_path(A, b_np, rng):
     hist = res.history[:its + 1].numpy()
     e = energy(A, b_np, res.x)
     pl = ksp.pc.Lplan
-    print(f"slice 12 sbaij: ex55 ne={FMT_NE} fp64 SBAIJ K={M.bcols.shape[1]} "
+    print(f"slice 12 sbaij: ex55 ne={ne} fp64 SBAIJ K={M.bcols.shape[1]} "
           f"nnzb={M.nnzb}; mat_from_options {op_s:.2f} s; ICC(0) setup "
           f"{setup_s:.2f} s = factor numerics {numeric:.2f} + levels "
           f"{levels:.2f} + plans {plans:.2f}; {pl.nlev} levels a triangle; "
@@ -4645,7 +4702,7 @@ def drive_sbaij_path(A, b_np, rng):
     energy_falls("slice 12 sbaij CG+icc", M, A, ksp.pc, b, b_np,
                  [k for k in (FMT_ITS // 3, 2 * FMT_ITS // 3) if k < its], e)
     pc = ksp.pc
-    err = max(check_sptrsv(f"ex55 ne={FMT_NE} ICC(0) {name}", plan, rng)[0]
+    err = max(check_sptrsv(f"ex55 ne={ne} ICC(0) {name}", plan, rng)[0]
               for name, plan in (("Uᵀ (L)", pc.Lplan), ("U", pc.Uplan)))
     r = torch.from_numpy(rng.standard_normal(A.shape[0])).cuda()
     z = pc.apply(r)
@@ -4670,7 +4727,7 @@ def drive_sbaij_path(A, b_np, rng):
     nb = M.bcols.numel() * 4 + M.bvals.numel() * 8 + 2 * A.shape[0] * 8
     times = time_product(
         f"SBAIJ.mult (fold plan, {M.transpose_fold().ranks} ranks) at ex55 "
-        f"ne={FMT_NE} fp64", lambda: M.mult(x), nb, M.flops_per_mult(),
+        f"ne={ne} fp64", lambda: M.mult(x), nb, M.flops_per_mult(),
         True, csr_ms(A, x))
     return dict(launched=launched, err=err, times=times)
 
@@ -4891,21 +4948,22 @@ def time_band_dia(triad_gbs):
     return times
 
 
-def slice12_phases(rng, kernels, triad_gbs):
-    """Slice 12: ex55 on SellBAIJ (phase 36) and SBAIJ (37), both formats
-    small card against CPU with the blocked ex10 goldens (38), the rest
-    of item 9 card against CPU and BandMat/DiaMat timed (39). Adds the
-    paths' K2 and SpTRSV launches and K2's error to the kernels line."""
+def slice12_phases(rng, kernels, triad_gbs, ne=FMT_NE):
+    """Slice 12: ex55 at ne on SellBAIJ (phase 36) and SBAIJ (37), both
+    formats small card against CPU with the blocked ex10 goldens (38),
+    the rest of item 9 card against CPU and BandMat/DiaMat timed (39).
+    Adds the paths' K2 and SpTRSV launches and K2's error to the kernels
+    line."""
     t = time.perf_counter()
-    A, b, _ = ex55_system(FMT_NE, 1e-3)
-    print(f"ex55 ne={FMT_NE}: n={A.shape[0]} nnz={A.nnz} "
+    A, b, _ = ex55_system(ne, 1e-3)
+    print(f"ex55 ne={ne}: n={A.shape[0]} nnz={A.nnz} "
           f"({time.perf_counter() - t:.1f} s)")
-    baij = drive_baij_path(A, b, rng, triad_gbs)
+    baij = drive_baij_path(A, b, rng, triad_gbs, ne)
     kernels["sell_spmv"]["launches"] += baij["launches"]
     kernels["sell_spmv"]["max_abs_err"] = max(
         kernels["sell_spmv"]["max_abs_err"], baij["err"])
     print(f"slice 12: phase 36 in {time.perf_counter() - t:.1f} s")
-    sbaij = drive_sbaij_path(A, b, rng)
+    sbaij = drive_sbaij_path(A, b, rng, ne)
     print(f"slice 12: phases 36-37 in {time.perf_counter() - t:.1f} s")
     del A, b
     for name in ("sptrsv", "sptrsv_lu", "ell_spmv"):
@@ -4922,7 +4980,458 @@ def slice12_phases(rng, kernels, triad_gbs):
     print(f"slice 12 in {time.perf_counter() - t:.1f} s")
 
 
+EX12_N = 1024              # snes ex12 P1: the box 1024² refined once
+EX12_ILU_N = 256           # the CG + ILU(0) solve: 263,169 dofs
+EX12_SMALL_N = 16          # card against CPU: 1,089 dofs
+EX12_JITTER = 0.2          # interior vertices moved by uniform ±0.2·h
+EX12_SEED = 13
+EX12_OPTS = {"ksp_type": "cg", "pc_type": "gamg", "ksp_rtol": "1e-8"}
+EX12_ILU_OPTS = {"ksp_type": "cg", "pc_type": "ilu", "ksp_rtol": "1e-8"}
+EX12_HIST = 1e-10          # card against CPU: history within 1e-10·‖r0‖
+EX12_ILU_HIST = 1e-6       # the 263,169-dof CG + ILU(0): 526 its amplify
+                           # rounding (a 1e-15 change of b moves the card's
+                           # own history by 1.3e-8·‖r0‖), so 1e-6·‖r0‖
+EX12_KE_RTOL = 1e-13       # element matrices and sums, card against CPU
+
+
+def ex12_load(c):
+    """ex12's manufactured load: −Δu = 2π² sin(πx) sin(πy)."""
+    return 2 * np.pi ** 2 * np.sin(np.pi * c[0]) * np.sin(np.pi * c[1])
+
+
+def signed_areas(plex):
+    p = plex.coords[plex.cells]
+    e1, e2 = p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
+    return e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]
+
+
+def ex12_mesh(n, seed=EX12_SEED):
+    """The slice-13 mesh: Plex.create_box_mesh(n, n).refine(), its
+    interior vertices moved by uniform ±EX12_JITTER·h (h = 1/(2n)) from
+    default_rng(seed), as tests/test_plex_label_gmsh.py::_irregular_tri_mesh
+    jitters; raises unless every cell keeps the sign of its area.
+    (plex, seconds of the box mesh, seconds of refine and jitter)."""
+    t = time.perf_counter()
+    box = Plex.create_box_mesh(n, n)
+    t1 = time.perf_counter()
+    fine = box.refine()
+    coords = fine.coords.copy()
+    interior = np.flatnonzero(((coords > 0.0) & (coords < 1.0)).all(axis=1))
+    h = 1.0 / (2 * n)
+    coords[interior] += np.random.default_rng(seed).uniform(
+        -EX12_JITTER * h, EX12_JITTER * h, (len(interior), 2))
+    plex = Plex(fine.cells, coords)
+    before, after = signed_areas(fine), signed_areas(plex)
+    if not (np.sign(before) == np.sign(after)).all() or not after.all():
+        raise AssertionError("ex12 mesh: the jitter flipped or flattened a "
+                             "cell")
+    return plex, t1 - t, time.perf_counter() - t1
+
+
+def ex12_system(n, device=None, f=None):
+    """(plex, A on device, A host, b on device, seconds by part) of ex12's
+    P1 Poisson on ex12_mesh(n) with its Dirichlet rows from
+    mark_boundary's "marker" label, assembled by fem_assemble_poisson in
+    fp64; the parts are the log events of the assembly."""
+    plex, mesh_s, refine_s = ex12_mesh(n)
+    t = time.perf_counter()
+    mark_boundary(plex, "marker")
+    label_s = time.perf_counter() - t
+    log_begin()
+    Ad, Ah, b = fem_assemble_poisson(plex, f=f, bc_label=("marker", [1]),
+                                     device=device)
+    ev = log_events()
+    parts = {"mesh": mesh_s, "refine and jitter": refine_s,
+             "label": label_s}
+    for name, key in (("element kernel", "DMPlexElementKernel"),
+                      ("pattern", "DMPlexPattern"), ("sum", "DMPlexSum"),
+                      ("load", "DMPlexLoad"), ("Dirichlet rows", "DMPlexBC"),
+                      ("ELL pack and upload", "DMPlexUpload")):
+        parts[name] = ev[key].time
+    return plex, Ad, Ah, b, parts
+
+
+def parts_text(parts):
+    return " + ".join(f"{k} {v:.2f}" for k, v in parts.items())
+
+
+def ex12_assembly_parts_on_card(plex):
+    """The card's time of the P1 element kernel over every cell of the
+    full mesh (CUDA events), and the sums of those element matrices by
+    the two routes the assembly could take, each from the element
+    matrices on the card to the sums on the host, twice: folded on the
+    card (the slots uploaded, a fold plan built, the fold, the sums
+    copied down) and by np.add.at on the host (the element matrices
+    copied down: the reference's way). Both must give the same bits.
+    Returns the printed dict."""
+    coords = torch.from_numpy(plex.coords).cuda()
+    cells = torch.from_numpy(plex.cells).cuda().long()
+    X = coords[cells]
+    kernel_ms = time_ms(lambda: p1_element_stiffness(X), runs=5, inner=2,
+                        warmup=1)
+    Ke = p1_element_stiffness(X).reshape(-1)
+    del X
+    indices, _, slot = closure_pattern(plex.cells.astype(np.int64),
+                                       plex.num_vertices)
+    nslots = len(indices)
+
+    def on_card():
+        plan = fold_plan(torch.from_numpy(slot).cuda())
+        start = torch.zeros(nslots, dtype=Ke.dtype, device="cuda")
+        return plan.fold(start, Ke).cpu().numpy(), plan.ranks
+
+    def on_host():
+        out = np.zeros(nslots)
+        np.add.at(out, slot, Ke.cpu().numpy())
+        return out, None
+
+    secs = {"card fold": [], "np.add.at": []}
+    sums = {}
+    for _ in range(2):
+        for name, route in (("card fold", on_card), ("np.add.at", on_host)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sums[name], ranks = route()
+            secs[name].append(time.perf_counter() - t)
+            if ranks is not None:
+                fold_ranks = ranks
+    same = sums["card fold"].tobytes() == sums["np.add.at"].tobytes()
+    out = dict(element_kernel_ms=kernel_ms, cells=plex.num_cells,
+               entries=len(slot), slots=nslots, ranks=fold_ranks,
+               card_fold_s=secs["card fold"], add_at_s=secs["np.add.at"],
+               bit_equal=same)
+    print(f"slice 13 assembly parts on the card: the P1 element kernel "
+          f"over {plex.num_cells} cells {kernel_ms:.3f} ms (CUDA events); "
+          f"the sums of its {len(slot)} entries into {nslots} slots, from "
+          f"the card's element matrices to the host's sums: folded on the "
+          f"card ({fold_ranks} ranks; upload, plan, fold, copy down) "
+          f"{', '.join(f'{v:.3f}' for v in secs['card fold'])} s, "
+          f"np.add.at on the host (copy down, add) "
+          f"{', '.join(f'{v:.3f}' for v in secs['np.add.at'])} s; the same "
+          f"bits: {same}")
+    if not same:
+        raise AssertionError("the fold's sums differ from np.add.at's")
+    return out
+
+
+def check_ell_operators(label, seen):
+    """The ELL kernel against its plain version, bit for bit, on the card,
+    on every operator `seen` (ell_shapes) in a solve: each (cols, vals, x)
+    as the solve gave it. Returns max |kernel − plain| (0)."""
+    err = 0.0
+    for (m, K, dtype, nx, _), (calls, (cols, vals, x)) in sorted(
+            seen.items(), key=lambda kv: -kv[0][0]):
+        y, y_plain = ell_spmv(cols, vals, x), ell_spmv_plain(cols, vals, x)
+        torch.cuda.synchronize()
+        e = float((y - y_plain).abs().max()) if y.numel() else 0.0
+        print(f"ell_spmv {label}: m={m} n={nx} K={K} {str(dtype)[6:]}, "
+              f"{calls} calls in the solve: max|kernel-plain|={e}")
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"ell_spmv {label} m={m}: kernel differs "
+                                 f"from its plain version by {e}")
+        err = max(err, e)
+    return err
+
+
+def check_lu_pair(label, L, U, rng):
+    """SpTRSV on the pair (L, U) of an LU or ILU apply against its plain
+    version, bit for bit: the fused solve where the pair takes a shared
+    shape (one sptrsv_lu launch), else each triangle (lu_solve's two
+    sptrsv launches)."""
+    if L.fuses(U):
+        return check_sptrsv_lu(label, L, U, rng)
+    return max(check_sptrsv(f"{label} L", L, rng)[0],
+               check_sptrsv(f"{label} U", U, rng)[0])
+
+
+def gamg_levels_text(pc):
+    sizes = [lv.A.shape[0] for lv in pc.levels] + [pc.coarse_A.shape[0]]
+    nnz = [getattr(lv.A, "nnz", 0) for lv in pc.levels]
+    return (f"{len(sizes)} levels, rows {sizes}, level nnz {nnz}, formats "
+            f"{pc.formats}, coarse {type(pc.coarse).__name__}")
+
+
+def drive_ex12_path(rng, triad_gbs):
+    """Phase 40: snes ex12's P1 Poisson at full width (module docstring).
+    Returns (the kernels-line entry of the fine operator's ELL product,
+    {kernel: launches on the path}, max |kernel − plain| of the ELL kernel
+    and of SpTRSV)."""
+    t0 = time.perf_counter()
+    plex, Ad, Ah, b, parts = ex12_system(EX12_N)
+    n = Ah.shape[0]
+    print(f"slice 13: ex12 P1 on the box {EX12_N}² refined once and jittered "
+          f"±{EX12_JITTER}h: {plex.num_vertices} vertices, {plex.num_cells} "
+          f"triangles, n={n} nnz={Ah.nnz} ({Ah.nnz / n:.2f} a row), ELL K "
+          f"{Ad.cols.shape[1]} fp64 {Ad.cols.dtype} cols "
+          f"({(Ad.cols.numel() * 4 + Ad.vals.numel() * 8) / 1e9:.3f} GB), "
+          f"{int(np.count_nonzero(Ah.data == 0.0))} stored zeros; setup "
+          f"{parts_text(parts)} s")
+    if (n != (2 * EX12_N + 1) ** 2 or Ad.dtype != torch.float64
+            or Ad.device.type != port_device.resolve_device().type):
+        raise AssertionError("ex12: the system is not the expected one")
+    assembly = ex12_assembly_parts_on_card(plex)
+    ksp = KSP(Options(dict(EX12_OPTS))).set_operators(Ad, Ah)
+    log_begin()
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    gamg_s = time.perf_counter() - t
+    ev = log_events()
+    split = {k: round(v.time, 2) for k, v in ev.items()}
+    print(f"slice 13: GAMG setup {gamg_s:.2f} s ({split}); "
+          f"{gamg_levels_text(ksp.pc)}")
+    reset_counts()
+    res, secs, applies, trsv, fused = solve_counted(ksp, b)
+    launched = {k: f.launches for k, f in HAND_KERNELS.items()}
+    its, reason = int(res.its), int(res.reason)
+    b_np = b.cpu().numpy()
+    relres = true_residual(Ah, b_np, res)
+    hist = res.history[:its + 1].numpy()
+    print(f"slice 13: CG+GAMG its={its} reason={reason} {secs:.3f} s = "
+          f"{1e3 * secs / its:.4f} ms/it; true rel residual {relres:.3e}; "
+          f"history {hist[0]:.6e} -> {hist[-1]:.6e}; {applies} PC applies; "
+          f"launches in the solve {launched}")
+    if reason <= 0 or not relres <= 1e-4 or not np.isfinite(hist).all():
+        raise AssertionError(f"ex12 CG+GAMG failed: reason {reason}, true "
+                             f"residual {relres}")
+    if launched["ell_spmv"] < its:
+        raise AssertionError(f"ell_spmv launched {launched['ell_spmv']} "
+                             f"times in {its} its")
+    ms_repeat = repeat_ms(ksp, b)
+    print(f"slice 13: ms per iteration {1e3 * secs / its:.4f} first, "
+          f"{ms_repeat:.4f} repeated")
+    profile_solve(ksp, b, label="slice 13", top=8, kernels=("ELL", "SpTRSV"))
+    with ell_shapes() as seen:
+        ksp.solve(b)
+    ell_err = check_ell_operators("ex12 GAMG", seen)
+    coarse = ksp.pc.coarse
+    trsv_err = check_lu_pair("ex12 GAMG coarse LU", coarse.Lplan,
+                             coarse.Uplan, rng) \
+        if hasattr(coarse, "Lplan") else 0.0
+    x = torch.from_numpy(rng.standard_normal(n)).cuda()
+    ell_err = max(ell_err, ell_check("ex12 fine operator", Ah, Ad, rng, x))
+    entry = dict(name="ell_spmv", route="cuda",
+                 source="petsctpu_torch/csrc/ell_spmv.cu",
+                 replaces="petsctpu/mat/ell.py:53",
+                 operator=f"snes ex12 P1, {n} rows, K {Ad.cols.shape[1]}, "
+                          f"fp64",
+                 launches=launched["ell_spmv"], max_abs_err=ell_err,
+                 **measure_ell(f"ex12 {2 * EX12_N}² P1", Ah, Ad, x,
+                               triad_gbs))
+    print(f"slice 13: phase 40 in {time.perf_counter() - t0:.1f} s; "
+          f"assembly {json.dumps(assembly)}")
+    return entry, launched, ell_err, trsv_err
+
+
+def ex12_ilu_on_cpu(n):
+    """CG + ILU(0) on ex12_mesh(n)'s system, assembled and solved by the
+    port on the CPU: (its, reason, history, x, b, A's CSR arrays, the
+    seconds it took)."""
+    t = time.perf_counter()
+    _, Ad, Ah, b, _ = ex12_system(n, device="cpu")
+    res = KSP(Options(dict(EX12_ILU_OPTS))).set_operators(Ad, Ah).solve(b)
+    return (int(res.its), int(res.reason), res.history.numpy(),
+            res.x.numpy(), b.numpy(), Ah.indptr, Ah.indices, Ah.data,
+            time.perf_counter() - t)
+
+
+def drive_ex12_ilu(rng, against_cpu=True):
+    """Phase 41: ex12 at EX12_ILU_N with CG + ILU(0) on the card and, with
+    against_cpu, against the port's CPU solve of the same system
+    (ex12_ilu_on_cpu, run after the card's parts, so that no timed part
+    shares the host with it). Returns ({kernel: launches}, max |kernel −
+    plain| of SpTRSV)."""
+    t0 = time.perf_counter()
+    plex, Ad, Ah, b, parts = ex12_system(EX12_ILU_N)
+    ksp = KSP(Options(dict(EX12_ILU_OPTS))).set_operators(Ad, Ah)
+    t = time.perf_counter()
+    ksp.set_from_options().setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    L, U = ksp.pc.Lplan, ksp.pc.Uplan
+    reset_counts()
+    res, secs, applies, trsv, fused = solve_counted(ksp, b)
+    launched = {k: f.launches for k, f in HAND_KERNELS.items()}
+    its, reason = int(res.its), int(res.reason)
+    b_np = b.cpu().numpy()
+    relres = true_residual(Ah, b_np, res)
+    print(f"slice 13 ILU: n={Ah.shape[0]} nnz={Ah.nnz}; assembly "
+          f"{parts_text(parts)} s; ILU(0) setup {setup_s:.2f} s, SpTRSV "
+          f"levels L {L.nlev} U {U.nlev} (rmax {L.rmax}/{U.rmax}, "
+          f"{shape_of(L, U)} shape for the fused apply); CG+ILU its={its} "
+          f"reason={reason} {secs:.3f} s = {1e3 * secs / its:.4f} ms/it; "
+          f"true rel residual {relres:.3e}; {applies} PC applies, SpTRSV "
+          f"launches {trsv} ({fused} sptrsv_lu); launches {launched}")
+    if reason <= 0 or not relres <= 1e-4:
+        raise AssertionError(f"ex12 CG+ILU failed: reason {reason}, true "
+                             f"residual {relres}")
+    per = 1 if L.fuses(U) else 2
+    if trsv != per * applies or fused != (applies if per == 1 else 0):
+        raise AssertionError(f"SpTRSV launched {trsv} times ({fused} "
+                             f"sptrsv_lu) for {applies} ILU applies")
+    print(f"slice 13 ILU: ms per iteration {1e3 * secs / its:.4f} first, "
+          f"{repeat_ms(ksp, b):.4f} repeated")
+    profile_solve(ksp, b, label="slice 13 ILU", kernels=("SpTRSV", "ELL"))
+    err = check_lu_pair("ex12 ILU(0)", L, U, rng)
+    if not against_cpu:
+        print("slice 13 ILU: the port's CPU solve of this system, and the "
+              "card against it, run in `chip_smoke.py slice13`")
+        print(f"slice 13: phase 41 in {time.perf_counter() - t0:.1f} s")
+        return launched, err
+    # the card's own change under a 1e-15 change of b: of the history
+    # (which EX12_ILU_HIST must exceed 30 times) and of x
+    noisy = ksp.solve(torch.from_numpy(b_changed(b_np)).cuda())
+    h = res.history[:its + 1].numpy()
+    hn = noisy.history[:its + 1].numpy()
+    noise = float(np.abs(hn - h).max() / h[0]) \
+        if int(noisy.its) == its else float("inf")
+    x_card = res.x.cpu().numpy()
+    xbound = max(30 * float(np.abs(noisy.x.cpu().numpy() - x_card).max()),
+                 1e-12 * float(np.abs(x_card).max()))
+    c_its, c_reason, c_hist, c_x, c_b, indptr, indices, data, cpu_s = \
+        ex12_ilu_on_cpu(EX12_ILU_N)
+    print(f"slice 13 ILU: the port's CPU assembly and solve in {cpu_s:.1f} "
+          f"s")
+    same_system = (np.array_equal(indptr, Ah.indptr)
+                   and np.array_equal(indices, Ah.indices)
+                   and data.tobytes() == Ah.data.tobytes()
+                   and c_b.tobytes() == b_np.tobytes())
+    diff = float(np.abs(h - c_hist[:its + 1]).max() / c_hist[0]) \
+        if c_its == its else float("inf")
+    xd = float(np.abs(x_card - c_x).max())
+    print(f"slice 13 ILU card vs cpu: the CPU assembled the same system "
+          f"bit for bit: {same_system}; its {its}/{c_its} reason "
+          f"{reason}/{c_reason}; history diff {diff:.2e}·‖r0‖ (bound "
+          f"{EX12_ILU_HIST:.0e}; the card's own change under a 1e-15 change "
+          f"of b {noise:.2e}); max|x diff| {xd:.2e} (bound {xbound:.2e}: 30 "
+          f"times the card's own change of x, or 1e-12·max|x|)")
+    check_bound_over_noise("slice 13 ILU", EX12_ILU_HIST, noise)
+    if not same_system or (its, reason) != (c_its, c_reason) \
+            or not diff <= EX12_ILU_HIST or not xd <= xbound:
+        raise AssertionError("ex12 CG+ILU on the card disagrees with the CPU")
+    print(f"slice 13: phase 41 in {time.perf_counter() - t0:.1f} s")
+    return launched, err
+
+
+def ex12_small_cases(tmp):
+    """(label, plex, assemble keyword arguments, assembler) of phase 42."""
+    f3 = lambda c: 3 * np.pi ** 2 * np.prod(np.sin(np.pi * c))  # noqa: E731
+    p1, _, _ = ex12_mesh(EX12_SMALL_N)
+    cases = [("P1 jittered", p1, dict(f=ex12_load), fem_assemble_poisson),
+             ("P2", Plex.create_box_mesh(8, 8), dict(f=ex12_load),
+              p2_assemble_poisson),
+             ("P1 tets", Plex3D.create_box_mesh(4, 4, 4), dict(f=f3),
+              fem_assemble_poisson),
+             ("Q1 quads", PlexQuad.create_box_mesh(8, 8), dict(f=ex12_load),
+              fem_assemble_poisson),
+             ("Q1 hexes", PlexHex.create_box_mesh(4, 4, 4), dict(f=f3),
+              fem_assemble_poisson)]
+    nr = Plex.create_box_mesh(5, 4)
+    bf = boundary_faces(nr)
+    lab = create_label(nr, "bc")
+    lab.set_value(face_point(nr, bf[np.abs(face_centroids(nr, bf)[:, 0] - 1)
+                                    < 1e-12]), 7)
+    lab.set_value(nr.num_cells + np.flatnonzero(nr.coords[:, 0] == 0.0), 1)
+    cases.append(("Neumann and Robin", nr, dict(
+        f=lambda c: -2.0, bc_label=("bc", [1]), neumann=("bc", [7], 2.0),
+        robin=("bc", [7], lambda c: 1.0 + c[1])), fem_assemble_poisson))
+    path = os.path.join(tmp, "ex12.msh")
+    write_gmsh(p1, path)
+    back = read_gmsh(path)
+    if not (np.array_equal(back.cells, p1.cells)
+            and np.abs(back.coords - p1.coords).max() <= 1e-15):
+        raise AssertionError("write_gmsh/read_gmsh changed the mesh")
+    mark_boundary(back, "marker")
+    cases.append(("P1 through Gmsh, labelled", back,
+                  dict(bc_label=("marker", [1])), fem_assemble_poisson))
+    return cases
+
+
+def check_ex12_small_against_cpu(devices=("cuda", "cpu")):
+    """Phase 42: every small assembly of ex12_small_cases on the card
+    against the port's CPU: the element matrices, the CSR (pattern byte
+    for byte, values within EX12_KE_RTOL of the largest entry) and b; then
+    CG + GAMG on the P1 case, equal its and reason, the history within
+    EX12_HIST·‖r0‖."""
+    import tempfile
+
+    worst = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = ex12_small_cases(tmp)
+    for label, plex, kw, assemble in cases:
+        out = [assemble(plex, device=dev, **kw) for dev in devices]
+        (_, Ac, bc), (_, Ah, bh) = (o[:3] for o in out)
+        kernel = (p2_element_stiffness if assemble is p2_assemble_poisson
+                  else element_kernel_for(plex))
+        Ke = [element_matrices(plex, kernel, torch.float64, dev).cpu()
+              for dev in devices]
+        ke_d = float((Ke[0] - Ke[1]).abs().max() / Ke[1].abs().max())
+        pattern = (Ac.indptr.tobytes() == Ah.indptr.tobytes()
+                   and Ac.indices.tobytes() == Ah.indices.tobytes())
+        a_d = float(np.abs(Ac.data - Ah.data).max() / np.abs(Ah.data).max())
+        b_d = float((bc.cpu() - bh).abs().max() / bh.abs().max())
+        worst = max(worst, ke_d, a_d, b_d)
+        print(f"slice 13 small {label}: n={Ah.shape[0]} nnz={Ah.nnz}; "
+              f"element matrices card vs cpu {ke_d:.2e}, pattern equal "
+              f"{pattern}, values {a_d:.2e}, b {b_d:.2e} (of the largest; "
+              f"bound {EX12_KE_RTOL:.0e})")
+        if not pattern or not max(ke_d, a_d, b_d) <= EX12_KE_RTOL:
+            raise AssertionError(f"slice 13 small {label}: the card's "
+                                 "assembly differs from the CPU's")
+    _, plex, kw, _ = cases[0]
+    sols = []
+    for dev in devices:
+        Ad, Ah, b = fem_assemble_poisson(plex, **kw, device=dev)
+        sols.append(KSP(Options({**EX12_OPTS, "ksp_rtol": "1e-10"}))
+                    .set_operators(Ad, Ah).solve(b))
+    card, cpu = sols
+    its = int(cpu.its)
+    h = cpu.history[:its + 1].numpy()
+    diff = float(np.abs(card.history[:its + 1].numpy() - h).max() / h[0]) \
+        if int(card.its) == its else float("inf")
+    print(f"slice 13 small CG+GAMG card vs cpu: its {int(card.its)}/{its} "
+          f"reason {int(card.reason)}/{int(cpu.reason)}; history diff "
+          f"{diff:.2e}·‖r0‖ (bound {EX12_HIST:.0e})")
+    if int(card.reason) != int(cpu.reason) or int(cpu.reason) <= 0 \
+            or not diff <= EX12_HIST:
+        raise AssertionError("slice 13 small CG+GAMG on the card disagrees "
+                             "with the CPU")
+    return worst
+
+
+def slice13_phases(rng, kernels, triad_gbs, ilu_against_cpu=True):
+    """Slice 13: snes ex12's P1 Poisson through DM Plex at 4,198,401 dofs
+    with CG + GAMG (phase 40), CG + ILU(0) at 263,169 dofs, with
+    ilu_against_cpu against the port's CPU (41), the small assemblies
+    and a GAMG solve card against CPU (42). Adds the paths' launches and
+    errors to `kernels`; returns the kernels-line entry of the ex12
+    operator's ELL product."""
+    t = time.perf_counter()
+    entry, launched, ell_err, trsv_err = drive_ex12_path(rng, triad_gbs)
+    ilu_launched, ilu_err = drive_ex12_ilu(rng, ilu_against_cpu)
+    worst = check_ex12_small_against_cpu()
+    for name in kernels:
+        kernels[name]["launches"] += launched[name] + ilu_launched[name]
+    kernels["ell_spmv"]["max_abs_err"] = max(
+        kernels["ell_spmv"]["max_abs_err"], ell_err)
+    for name in ("sptrsv", "sptrsv_lu"):
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                           trsv_err, ilu_err)
+    print(f"slice 13 in {time.perf_counter() - t:.1f} s (small assemblies "
+          f"card vs cpu within {worst:.2e})")
+    return entry
+
+
 T0 = time.perf_counter()
+# ex55's ne (slices 7 and 12) and ex43's mx (slice 8) in the whole script:
+# 524,288 and 786,432 dofs. At 1023 the whole script would take 1,255 s
+# or more (PERF.md §4), past the 1,200 s it must end in.
+FULL_SCRIPT_NE = 511
+
+
+def stamp(label):
+    """The seconds since the script started, after `label`."""
+    print(f"[{label} done at {time.perf_counter() - T0:.1f} s]")
 
 
 def main(argv=()):
@@ -4930,7 +5439,7 @@ def main(argv=()):
     build_kernels()
     rng = np.random.default_rng(0)
     if list(argv) in (["slice7"], ["slice8"], ["slice9"], ["slice11"],
-                      ["slice12"]):
+                      ["slice12"], ["slice13"]):
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
                    for k in ("sell_spmv", "sell_spmvT", "stencil_mult",
                              "sptrsv", "sptrsv_lu")}
@@ -4940,10 +5449,14 @@ def main(argv=()):
             slice8_phases(rng, kernels, stream_triad_gbs(1 << 28))
         elif argv[0] == "slice11":
             slice11_phases(rng, kernels)
-        elif argv[0] == "slice12":
+        elif argv[0] in ("slice12", "slice13"):
             kernels["ell_spmv"] = dict(name="ell_spmv", launches=0,
                                        max_abs_err=0.0)
-            slice12_phases(rng, kernels, stream_triad_gbs(1 << 28))
+            if argv[0] == "slice12":
+                slice12_phases(rng, kernels, stream_triad_gbs(1 << 28))
+            else:
+                ex12 = slice13_phases(rng, kernels, stream_triad_gbs(1 << 28))
+                kernels["ell_spmv ex12"] = ex12
         else:
             triad = stream_triad_gbs(1 << 28)
             ell = slice9_phases(rng, kernels, triad)
@@ -5006,13 +5519,27 @@ def main(argv=()):
                     launches=gamg["launches"], max_abs_err=k3_err,
                     **k3_times[0]), trsv, trsv_lu]
     del gamg, k3_levels
-    slice7_phases(rng, {k["name"]: k for k in kernels})
+    stamp("slices 1-6")
+    slice7_phases(rng, {k["name"]: k for k in kernels}, ne=FULL_SCRIPT_NE)
+    stamp("slice 7")
     triad = stream_triad_gbs(1 << 28)
-    slice8_phases(rng, {k["name"]: k for k in kernels}, triad)
+    slice8_phases(rng, {k["name"]: k for k in kernels}, triad,
+                  mx=FULL_SCRIPT_NE)
+    stamp("slice 8")
     kernels.append(slice9_phases(rng, {k["name"]: k for k in kernels},
                                  triad))
+    stamp("slice 9")
     slice11_phases(rng, {k["name"]: k for k in kernels})
-    slice12_phases(rng, {k["name"]: k for k in kernels}, triad)
+    stamp("slice 11")
+    slice12_phases(rng, {k["name"]: k for k in kernels}, triad,
+                   ne=FULL_SCRIPT_NE)
+    stamp("slice 12")
+    # phase 41's CPU solve (over two minutes of the plain SpTRSV on the
+    # host) runs in `slice13` alone: with it the whole script would pass
+    # its limit
+    kernels.append(slice13_phases(rng, {k["name"]: k for k in kernels},
+                                  triad, ilu_against_cpu=False))
+    stamp("slice 13")
     kernels += probes_phase()
     print(smi)
     print(f"chip_smoke.py in {time.perf_counter() - T0:.1f} s")

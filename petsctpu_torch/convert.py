@@ -317,3 +317,45 @@ def fieldsplit_from_arrays(isa, isb, blocks, pc0, pc1, n: int,
                         _tensor(isb, dev, torch.int64), *ops, pc0, pc1,
                         int(n), fs_type=fs_type, schur_fact=schur_fact,
                         A00a=amat[0], A01a=amat[1], A10a=amat[2])
+
+
+def plex_from_arrays(cells, coords, labels: dict = None):
+    """A Plex of the cell type that cells [nc, npc] and coords [nv, dim]
+    give (Plex, PlexQuad, Plex3D or PlexHex), with the labels
+    {name: {value: chart points}} of labels_from_arrays. Host arrays:
+    a mesh is a host plan in both packages."""
+    from petsctpu_torch.dm.plex import Plex, Plex3D, PlexHex, PlexQuad
+
+    cells, coords = np.array(cells), np.array(coords)
+    cls = {(3, 2): Plex, (4, 2): PlexQuad, (4, 3): Plex3D,
+           (8, 3): PlexHex}[(cells.shape[1], coords.shape[1])]
+    plex = cls(cells, coords)
+    if labels:
+        labels_from_arrays(plex, labels)
+    return plex
+
+
+def labels_from_arrays(plex, labels: dict):
+    """Set {name: {value: chart points}} (each label's strata, as
+    petsctpu's DMLabel.stratum gives them) on the port's plex."""
+    from petsctpu_torch.dm.label import create_label
+
+    for name, strata in labels.items():
+        lab = create_label(plex, name)
+        for value, points in strata.items():
+            lab.set_value(np.asarray(points, np.int64), int(value))
+    return plex
+
+
+def section_from_arrays(ndof, fields: dict = None, constrained=()):
+    """A set-up Section from petsctpu's per-point dof counts ndof, its
+    per-field counts {name: [npoints]} (in field order) and the point
+    arrays it was given as constrained."""
+    from petsctpu_torch.dm.section import Section
+
+    sec = Section(len(ndof), np.array(ndof, np.int64))
+    for name, fd in (fields or {}).items():
+        sec.set_field(name, np.arange(len(ndof)), np.asarray(fd))
+    for pts in constrained:
+        sec.set_constrained(np.array(pts))
+    return sec.setup()

@@ -156,7 +156,8 @@ def sptrsv_plain(lstart, lrows, lcols, lvals, ldinv, b) -> torch.Tensor:
     lr, lc = pad(lrows, n).long(), pad(lcols, n).long()
     lv, ld, bp = pad(lvals, 0), pad(ldinv, 1), pad(b, 0)
     ls = lstart.long()
-    width = int((ls[:, 1:] - ls[:, :-1]).max()) if ls.shape[1] > 1 else 0
+    sizes = (ls[:, 1:] - ls[:, :-1]).amax(0).tolist()    # widest plan a level
+    width = max(sizes, default=0)
     i = torch.arange(max(width, 1), device=b.device)
     plan = torch.arange(nb, device=b.device)[:, None]
     # each row's last slot in use + 1, read once; a level's widest
@@ -168,17 +169,27 @@ def sptrsv_plain(lstart, lrows, lcols, lvals, ldinv, b) -> torch.Tensor:
                  if starts[q, lev + 1] > starts[q, lev] else 0)
                 for q in range(nb)) for lev in range(ls.shape[1] - 1)]
     for lev in range(ls.shape[1] - 1):
-        p = ls[:, lev, None] + i                  # [nb, width] positions
-        p = torch.where(p < ls[:, lev + 1, None], p, n)
         km = kmax[lev]
-        rows, c, v = lr[plan, p], lc[plan, p, :km], lv[plan, p, :km]
+        if nb == 1:
+            # one plan: the level's rows are one run of positions
+            s, e = int(starts[0, lev]), int(starts[0, lev + 1])
+            rows, c, v, d = (lr[:, s:e], lc[:, s:e, :km], lv[:, s:e, :km],
+                             ld[:, s:e])
+        else:
+            # [nb, the level's width] positions; past a plan's own rows,
+            # the sentinel n (its slots are padding, its write lands in
+            # x[n])
+            p = ls[:, lev, None] + i[:max(sizes[lev], 1)]
+            p = torch.where(p < ls[:, lev + 1, None], p, n)
+            rows, c, v, d = (lr[plan, p], lc[plan, p, :km], lv[plan, p, :km],
+                             ld[plan, p])
         # every product first (one gather), then the fold over k: the
         # same roundings as multiplying and adding slot by slot
         prod = v * torch.gather(x, 1, c.reshape(nb, -1)).view(c.shape)
         acc = torch.zeros_like(rows, dtype=b.dtype)
         for k in range(km):
             acc = acc + prod[..., k]
-        x.scatter_(1, rows, (torch.gather(bp, 1, rows) - acc) * ld[plan, p])
+        x.scatter_(1, rows, (torch.gather(bp, 1, rows) - acc) * d)
     return x[:, :n].contiguous()
 
 

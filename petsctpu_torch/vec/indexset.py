@@ -1,9 +1,10 @@
-"""IS — index sets (the part of petsctpu/vec/indexset.py that the PCs use).
+"""IS — index sets, and local↔global mappings.
 
-Reference: src/vec/is (impls general/stride/block). Index sets are
-setup-time objects (host numpy); the PCs that take them (fieldsplit)
-move their frozen index arrays to the device. Local↔global maps are
-ROADMAP queue 1 item 13.
+Counterpart of petsctpu/vec/indexset.py (reference: src/vec/is, impls
+general/stride/block; ISLocalToGlobalMapping src/vec/is/utils/
+isltog.c). Index sets are setup-time objects (host numpy), handed out by
+the DMs (dm/composite.py); the PCs that take them (fieldsplit) move
+their frozen index arrays to the device.
 """
 
 from __future__ import annotations
@@ -46,6 +47,35 @@ class BlockIS(IS):
         blocks = np.asarray(blocks, dtype=np.int64)
         super().__init__((blocks[:, None] * bs
                           + np.arange(bs)[None, :]).reshape(-1))
+
+
+class LocalToGlobalMapping:
+    """ISLocalToGlobalMapping: local index ↔ global index translation.
+    The inverse is a search of the sorted global indices; where a global
+    index appears twice, the last local index wins (petsctpu's dict)."""
+
+    def __init__(self, global_indices):
+        self.l2g = np.asarray(global_indices, dtype=np.int64)
+        self._order = np.argsort(self.l2g, kind="stable")
+        self._sorted = self.l2g[self._order]
+
+    def apply(self, local_idx) -> np.ndarray:
+        return self.l2g[np.asarray(local_idx)]
+
+    def apply_inverse(self, global_idx) -> np.ndarray:
+        """Local indices of global ones, −1 where a global index is not
+        mapped."""
+        g = np.atleast_1d(np.asarray(global_idx, dtype=np.int64))
+        if not len(self._sorted):
+            return np.full(g.shape, -1, np.int64)
+        pos = np.searchsorted(self._sorted, g, side="right") - 1
+        hit = pos >= 0
+        hit[hit] = self._sorted[pos[hit]] == g[hit]
+        return np.where(hit, self._order[np.maximum(pos, 0)], -1)
+
+    @property
+    def size(self):
+        return len(self.l2g)
 
 
 def is_indices(field) -> np.ndarray:

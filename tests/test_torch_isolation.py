@@ -54,7 +54,9 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "ts.characteristic", "models.heat", "mat.fold", "mat.bsr",
               "mat.sbaij", "mat.coo", "mat.band", "mat.dia", "mat.maij",
               "mat.nest", "mat.matis", "mat.fft", "pc.nn", "pc.bddc",
-              "models.ddpoisson"):
+              "models.ddpoisson", "dm", "dm.section", "dm.dt", "dm.plex",
+              "dm.label", "dm.interp", "dm.gmsh", "dm.exodus", "dm.ao",
+              "dm.composite", "dm.shell"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
@@ -107,6 +109,10 @@ def _entry_points():
     from petsctpu_torch.pc.fieldsplit import make_fieldsplit
     from petsctpu_torch.models import (adr1d, bratu, cavity, heat, pbratu,
                                        radiative)
+    from petsctpu_torch.dm import DMComposite
+    from petsctpu_torch.dm.plex import (Plex, fem_assemble_poisson,
+                                        p2_assemble_poisson)
+    from petsctpu_torch.dm.shell import DMRedundant
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
     halves = [np.arange(800), np.arange(800, 1600)]
@@ -152,6 +158,14 @@ def _entry_points():
         "heat1d_initial": lambda **kw: heat.heat1d_initial(6, **kw),
         "heat2d_jacobian_template": lambda **kw:
             heat.heat2d_jacobian_template(6, 1, **kw).coeffs,
+        "fem_assemble_poisson": lambda **kw: fem_assemble_poisson(
+            Plex.create_box_mesh(3, 3), **kw)[0],
+        "p2_assemble_poisson": lambda **kw: p2_assemble_poisson(
+            Plex.create_box_mesh(2, 2), **kw)[2],
+        "DMComposite.create_global_vector": lambda **kw: DMComposite.create(
+            4, 2).create_global_vector(**kw),
+        "DMRedundant.create_matrix": lambda **kw: DMRedundant(3).create_matrix(
+            **kw),
         "probes.__main__": lambda **kw: probes_main(
             ["probe_gather6_C", *(("--device", kw["device"]) if kw
                                   else ())])[0]["out"],
@@ -174,7 +188,11 @@ def _entry_points():
                                   "pbratu_initial_guess",
                                   "radiative_initial_guess", "adr_initial",
                                   "heat2d_initial", "heat1d_initial",
-                                  "heat2d_jacobian_template"])
+                                  "heat2d_jacobian_template",
+                                  "fem_assemble_poisson",
+                                  "p2_assemble_poisson",
+                                  "DMComposite.create_global_vector",
+                                  "DMRedundant.create_matrix"])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")
