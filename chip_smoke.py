@@ -408,9 +408,45 @@ slice 12 (phase 41 against the port's CPU only in `slice13`, below):
    b within 1e-13 of the largest; then CG + GAMG on the P1 case, equal
    its and reason, the history within 1e-10·‖r0‖.
 `python3 chip_smoke.py slice13` runs the build and phases 40-42 alone.
-The whole script runs ex55 (slices 7 and 12) and ex43 (slice 8) at
-FULL_SCRIPT_NE = 511, and phase 41 without the CPU solve: otherwise it
-would pass the 1,200 s it must end in. Each `sliceN` runs at 1023.
+
+Slice 14, the distributed solve, over DIST_RANKS = 4 rank threads on the
+card (parallel.comm.World: a gloo group a rank, CUDA operands staged
+through pinned host memory by the Comm), after slice 13:
+43. ksp ex45 at 128³ (fp32) through sharded_aij_from_scipy(fmt="sell"):
+   K2 on each rank's 524,288-row block, the ppermute halo; ParKSP with
+   GMRES + bjacobi ILU(0) (one sptrsv_lu a rank an apply, the
+   cluster16-smem shape) and CG + Jacobi to rtol 1e-5, the launch counts
+   reset just before each and read just after (K2 and sptrsv_lu on every
+   rank); each against the port's serial equivalent on the card (SELL,
+   -pc_bjacobi_blocks 4 or Jacobi): equal its and reason, the history
+   within 30 times the serial solve's own change under one-ulp changes
+   of b, true relative residual ≤ 1e-4; the setup by part, the ms an
+   iteration and idle share of a profiled repeat, its host stagings, and
+   the collectives an iteration (audit_par_ksp, comm_table);
+44. K2 on rank 0's SELL pack and sptrsv_lu on its ILU(0) pair against
+   their plain versions, bit for bit, the fused apply timed against two
+   launches; the fmt="ell" fp64 product over the ranks (the ELL kernel
+   on each block, bit for bit on rank 0's) against the serial ELL
+   product: its time and largest difference;
+45. snes ex5 Bratu (λ 6) at 129² through par_snes_solve (the sharded
+   residual and colored-FD Jacobian, GMRES rtol 1e-8, a lagged block
+   Jacobi ILU(0) of the first Jacobian) against the port's serial Newton
+   with the same Jacobian, KSP and PC: equal Newton its, x within 1e-6;
+46. the oracle sweep's ex2 cases at np = 2, 4 and 8 (fp64) on the card
+   and on the port's CPU: equal its and reason, histories within 1e-10
+   of ‖r0‖; each solve on a World of its own, closed after it (24
+   Worlds built and closed in a row, after phase 45's is closed);
+47. a CG + Jacobi solve over a world of one on NCCL (world_from_env), so
+   the multi-card route's collectives launch.
+`python3 chip_smoke.py slice14` runs the build and phases 43-47 alone,
+after asking in three processes which gloo collectives take CUDA
+tensors (gloo aborts the process on a CUDA `send`).
+
+The whole script runs ex55 (slices 7 and 12, the NC route and refresh
+of slice 7 too) and ex43 (slice 8) at FULL_SCRIPT_NE = 383, phase 27 at
+mx = FULL_SCRIPT_SCHUR_MX = 127, and phase 41 without the CPU solve:
+otherwise it would pass the 1,200 s it must end in. Each `sliceN` runs
+at 1023 (phase 27 at 255).
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -435,6 +471,8 @@ import torch
 from petsctpu_torch import device as port_device
 from petsctpu_torch import probes
 from petsctpu_torch.convert import sell_from_arrays
+from petsctpu_torch.core.commaudit import comm_table
+from petsctpu_torch.core.layout import Layout
 from petsctpu_torch.core.logging import log_begin, log_events
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.dm import DA
@@ -478,7 +516,8 @@ from petsctpu_torch.models.bratu import (bratu3d_fd_jacobian,
                                          bratu3d_residual,
                                          bratu_initial_guess,
                                          bratu_jacobian_template,
-                                         bratu_residual)
+                                         bratu_residual,
+                                         bratu_residual_sharded)
 from petsctpu_torch.models.adr1d import (adr_initial, adr_rhs_advection,
                                          adr_rhs_reaction)
 from petsctpu_torch.models.ddpoisson import matis_poisson_2d
@@ -504,6 +543,11 @@ from petsctpu_torch.ops.sptrsv import (device_shape, sptrsv, sptrsv_lu,
                                        sptrsv_lu_plain, sptrsv_plain)
 from petsctpu_torch.ops.stencil_mult import stencil_mult, stencil_mult_plain
 from petsctpu_torch.ops.window_spmv import window_spmv, window_spmv_plain
+from petsctpu_torch.parallel import (ParKSP, ShardedFDJac, World,
+                                     par_ksp_solve, par_snes_solve,
+                                     shard_vector, sharded_aij_from_scipy,
+                                     world_from_env)
+from petsctpu_torch.parallel.api import audit_par_ksp
 from petsctpu_torch.pc import make_pc
 from petsctpu_torch.pc.asa import asa_tentatives
 from petsctpu_torch.pc.extra import make_eisenstat_system
@@ -511,6 +555,7 @@ from petsctpu_torch.pc.factor import ILUPC, make_ilu
 from petsctpu_torch.pc.fieldsplit import make_fieldsplit
 from petsctpu_torch.pc.gamg import rigid_body_modes
 from petsctpu_torch.pc.mg import make_geometric_mg_device
+from petsctpu_torch.pc.parallel import make_par_pc
 from petsctpu_torch.pc.gamg_device import (GAMGProbeLevelPlan, PPair,
                                            csr_data_of_matching,
                                            gamg_device_plan, gamg_probe_plan)
@@ -1601,8 +1646,9 @@ def check_slice5_small_against_cpu():
 def shape_of(plan, upper=None):
     """The launch shape of a plan's solve on the card, or of the fused
     solve of plan (L) and upper (U)."""
-    rmax = plan.rmax if upper is None else max(plan.rmax, upper.rmax)
-    return device_shape(plan.nb, plan.n, rmax, plan.dtype, plan.device)
+    if upper is not None:
+        return plan.pair_shape(upper)
+    return device_shape(plan.nb, plan.n, plan.rmax, plan.dtype, plan.device)
 
 
 def check_sptrsv(label, plan, rng, expect=None):
@@ -2777,14 +2823,14 @@ def time_refresh(label, plan, a2):
     return pc, k2, reads[0]
 
 
-def refresh_phases(rng):
+def refresh_phases(rng, ne=REFRESH_NE):
     """The device refresh: gamg_probe_plan from asa_tentatives P0s on
-    ksp ex55 at ne = REFRESH_NE (bs = 2, rigid-body modes), refreshed
+    ksp ex55 at ne (REFRESH_NE; bs = 2, rigid-body modes), refreshed
     with D·A·D, and gamg_device_plan (SpGEMM plans) on ex45 at
     DEVICE_PLAN_GRID³; each held against the host's Galerkin products
     and preconditioning CG. Returns the max relative error."""
     check_scaled_refresh_small()
-    A, b, coords = ex55_system(REFRESH_NE, 1e-3, dtype=np.float32)
+    A, b, coords = ex55_system(ne, 1e-3, dtype=np.float32)
     t = time.perf_counter()
     p0s = asa_tentatives(A, rigid_body_modes(coords, dof=2), coarse_n=80,
                          bs=2)
@@ -2793,7 +2839,7 @@ def refresh_phases(rng):
     plan = gamg_probe_plan(A, p0s=p0s, coarse_n=80, dtype=np.float32)
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t
-    print(f"probe refresh plan, ex55 ne={REFRESH_NE} n={A.shape[0]}: "
+    print(f"probe refresh plan, ex55 ne={ne} n={A.shape[0]}: "
           f"asa_tentatives {tent_s:.2f} s, gamg_probe_plan {plan_s:.2f} s, "
           f"{len(plan.levels)} levels, coarse {plan.nc} rows")
     expect = 0
@@ -2809,12 +2855,12 @@ def refresh_phases(rng):
             expect += plan.power_its + ncp + ncc
     A2 = scaled(A, rng)
     a2 = torch.from_numpy(csr_data_of_matching(A2)).cuda()
-    pc, k2, reads = time_refresh(f"probe refresh ne={REFRESH_NE}", plan, a2)
+    pc, k2, reads = time_refresh(f"probe refresh ne={ne}", plan, a2)
     if k2 != expect or reads != 1:
         raise AssertionError(f"probe refresh: {k2} K2 launches (expected "
                              f"{expect}), {reads} host reads (expected 1)")
-    err = check_refreshed(f"probe refresh ne={REFRESH_NE}", plan, pc)
-    solve_refreshed(f"probe refresh ne={REFRESH_NE}", A2, b, pc)
+    err = check_refreshed(f"probe refresh ne={ne}", plan, pc)
+    solve_refreshed(f"probe refresh ne={ne}", A2, b, pc)
     del plan, pc, A, A2, a2, p0s
 
     g = DEVICE_PLAN_GRID
@@ -2884,7 +2930,8 @@ def asa_phase():
 
 def slice7_phases(rng, kernels, ne=EX55_NE):
     """Slice 7: the RBM path at ex55's ne (phase 21) with its profile
-    and K2/K3 checks and times on its operators, the NC route once,
+    and K2/K3 checks and times on its operators, the NC route once (at
+    ne or EX55_NC_NE, the smaller; the refresh likewise),
     both routes card against CPU at ne = 63 (phase 22), the device
     refresh (phase 23) and PCASA (phase 24). Adds the path's launches
     and errors to the kernels line's entries."""
@@ -2917,11 +2964,12 @@ def slice7_phases(rng, kernels, ne=EX55_NE):
         measure_k3(l, P, P_host, rng, label=f"ex55 ne={ne}")
     del path, ksp, M, pc
     del A, b, coords
-    A, b, coords = ex55_system(EX55_NC_NE, 1e-3)
-    nc = drive_slice7_path(A, b, coords, "nc", ne=EX55_NC_NE)
+    nc_ne = min(ne, EX55_NC_NE)
+    A, b, coords = ex55_system(nc_ne, 1e-3)
+    nc = drive_slice7_path(A, b, coords, "nc", ne=nc_ne)
     del nc, A, b, coords
     check_slice7_small_against_cpu()
-    refresh_phases(rng)
+    refresh_phases(rng, ne=min(ne, REFRESH_NE))
     asa_phase()
 
 
@@ -3120,31 +3168,31 @@ def check_bound_over_noise(label, bound, noise):
                              f"CPU's own change {noise}")
 
 
-def check_ex43_schur(devices=("cuda", "cpu")):
+def check_ex43_schur(devices=("cuda", "cpu"), mx=EX43_SCHUR_MX):
     """Phase 27: -pc_fieldsplit_type schur (fact full) with GAMG(dof 2)
-    on the velocity and the inner Schur GMRES at mx = EX43_SCHUR_MX, on
-    the card against the CPU: equal its and reason, the history within
-    SCHUR_RTOL, itself at least 30 times the CPU's own change under a
-    1e-15 change of b. Its inner solves read the host once an inner
-    iteration: counted."""
-    A, B, f, fields, _ = ex43_system(EX43_SCHUR_MX)
+    on the velocity and the inner Schur GMRES at mx (EX43_SCHUR_MX in
+    `slice8`), on the card against the CPU: equal its and reason, the
+    history within SCHUR_RTOL, itself at least 30 times the CPU's own
+    change under a 1e-15 change of b. Its inner solves read the host
+    once an inner iteration: counted."""
+    A, B, f, fields, _ = ex43_system(mx)
     out = []
     for dev in devices:
         with reads_from_device() as reads:
             res, _, secs = fieldsplit_solve(A, B, f, fields, EX43_SCHUR_OPTS,
                                             dev)
         its = int(res.its)
-        print(f"ex43 mx={EX43_SCHUR_MX} schur full + GAMG(dof 2) on {dev}: "
+        print(f"ex43 mx={mx} schur full + GAMG(dof 2) on {dev}: "
               f"its {its} reason {int(res.reason)} {secs:.2f} s = "
               f"{1e3 * secs / max(its, 1):.2f} ms/it; host reads "
               f"{reads[0]} ({reads[0] / max(its, 1):.1f} an outer "
               f"iteration); true rel residual {true_residual(A, f, res):.3e}")
         out.append(res)
     same_solve("schur full + GAMG(dof 2)", *out, rtol=SCHUR_RTOL,
-               size=f"mx={EX43_SCHUR_MX}")
+               size=f"mx={mx}")
     changed, _, _ = fieldsplit_solve(A, B, b_changed(f), fields,
                                      EX43_SCHUR_OPTS, devices[-1])
-    check_bound_over_noise(f"mx={EX43_SCHUR_MX} schur full", SCHUR_RTOL,
+    check_bound_over_noise(f"mx={mx} schur full", SCHUR_RTOL,
                            history_diff(out[-1], changed, SCHUR_RTOL))
 
 
@@ -3318,9 +3366,10 @@ def check_slice8_pcs_against_cpu(devices=("cuda", "cpu")):
     return launched
 
 
-def slice8_phases(rng, kernels, triad_gbs, mx=EX43_MX):
+def slice8_phases(rng, kernels, triad_gbs, mx=EX43_MX,
+                  schur_mx=EX43_SCHUR_MX):
     """Slice 8: the path at ex43's mx (phase 25), the golden (26), Schur
-    at mx = 255 (27) and every other new PC type (28), each against the
+    at schur_mx (27) and every other new PC type (28), each against the
     CPU; then SpTRSV against its plain version on the golden's LU pair
     and the Eisenstat triangles, and the golden LU's fused apply timed.
     Adds the path's launches to the kernels line's entries."""
@@ -3329,7 +3378,7 @@ def slice8_phases(rng, kernels, triad_gbs, mx=EX43_MX):
                  "stencil_mult"):
         kernels[name]["launches"] += launched[name]
     golden_pc, golden = check_ex43_golden()
-    check_ex43_schur()
+    check_ex43_schur(mx=schur_mx)
     small = check_slice8_pcs_against_cpu()
     for name in ("sptrsv", "sptrsv_lu"):
         kernels[name]["launches"] += golden[name] + small[name]
@@ -5422,11 +5471,497 @@ def slice13_phases(rng, kernels, triad_gbs, ilu_against_cpu=True):
     return entry
 
 
+
+# ---------------------------------------------------------------------------
+# Slice 14: the distributed solve (phases 43-47)
+# ---------------------------------------------------------------------------
+
+DIST_GRID = 128            # ksp ex45 at 128³ over DIST_RANKS rank threads
+DIST_RANKS = 4
+DIST_GMRES = {"ksp_type": "gmres", "pc_type": "bjacobi", "sub_pc_type": "ilu",
+              "ksp_rtol": "1e-5"}
+DIST_CG = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-5"}
+DIST_ULP_SEEDS = 3         # one-ulp changes of b the serial solve reads
+DIST_BOUND_OVER_NOISE = 30.0
+BRATU_M = 129              # snes ex5 Bratu λ 6 at 129² over DIST_RANKS
+BRATU_LAM = 6.0
+# the ex2 cases of the oracle sweep at np = 2, 4 and 8
+# (tests/sweep_cases.py): (grid m = n, options, np)
+DIST_SMALL = (
+    (12, {"ksp_type": "gmres", "pc_type": "bjacobi", "sub_pc_type": "ilu",
+          "ksp_rtol": "1e-6"}, 2),
+    (12, {"ksp_type": "gmres", "pc_type": "bjacobi", "sub_pc_type": "ilu",
+          "ksp_rtol": "1e-6"}, 4),
+    (12, {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-6"}, 2),
+    (12, {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-6"}, 4),
+    (12, {"ksp_type": "groppcg", "pc_type": "jacobi", "ksp_rtol": "1e-6"}, 2),
+    (12, {"ksp_type": "bcgs", "pc_type": "bjacobi", "sub_pc_type": "ilu",
+          "ksp_rtol": "1e-6"}, 4),
+    (12, {"ksp_type": "gmres", "pc_type": "bjacobi", "sub_pc_type": "lu",
+          "ksp_rtol": "1e-6"}, 2),
+    (16, {"ksp_type": "cg", "pc_type": "bjacobi", "sub_pc_type": "ilu",
+          "ksp_rtol": "1e-6"}, 2),
+    (16, {"ksp_type": "groppcg", "pc_type": "jacobi", "ksp_rtol": "1e-6"}, 4),
+    (18, {"ksp_type": "tfqmr", "pc_type": "bjacobi", "sub_pc_type": "ilu",
+          "ksp_rtol": "1e-6"}, 4),
+    (24, {"ksp_type": "pipecg", "pc_type": "jacobi", "ksp_rtol": "1e-6"}, 8),
+    (24, {"ksp_type": "cg", "pc_type": "jacobi",
+          "ksp_cg_single_reduction": None, "ksp_rtol": "1e-6"}, 4))
+DIST_SMALL_RTOL = 1e-10    # card against CPU, of ‖r0‖ (fp64)
+
+
+GLOO_PROBE = """
+import sys, torch
+from petsctpu_torch.parallel import World
+w = World(2, "cuda", timeout=10.0)
+for c in w.comms:
+    c.stage = False
+ops = {"allgather": lambda c, x: c._gather(x),
+       "alltoall_base": lambda c, x: c.all_to_all(x.reshape(2, -1)),
+       "send/recv": lambda c, x: c.ppermute(x, [(0, 1), (1, 0)])}
+x = torch.ones(8, device="cuda")
+y = w.run(lambda c: ops[sys.argv[1]](c, x + c.rank))
+print("yes" if all(t.is_cuda for t in y) else "no")
+"""
+
+
+def gloo_takes_cuda():
+    """Which gloo collectives take CUDA tensors as they are, each tried
+    in a process of its own (gloo aborts the process on a CUDA pointer it
+    cannot write): {op: the probe's answer}. The World's Comm stages
+    every CUDA operand through pinned host memory itself, so this is only
+    read, not used."""
+    procs = {op: subprocess.Popen(
+        [sys.executable, "-c", GLOO_PROBE, op], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=os.path.dirname(
+            os.path.abspath(__file__)))
+        for op in ("allgather", "alltoall_base", "send/recv")}
+    out = {}
+    for op, p in procs.items():
+        try:
+            so, se = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        err = [ln for ln in se.splitlines() if "what()" in ln
+               or "Error" in ln]
+        out[op] = so.strip() or f"no (exit {p.returncode}: " \
+            f"{(err or ['?'])[-1].strip()[:100]})"
+    return out
+
+
+def dist_counts(world):
+    """Per rank: the hand kernels' launches in its thread and its host
+    stagings (copies, bytes, seconds) since the last reset."""
+    return [(dict(c.launches), list(c.staging)) for c in world.comms]
+
+
+def reset_dist(world):
+    reset_counts()
+    world.reset_counts()
+
+
+def dist_relres(A, b_np, res):
+    x = res.x[:A.shape[0]].double().cpu().numpy()
+    if not np.isfinite(x).all():
+        raise AssertionError("distributed solution has NaNs")
+    return float(np.linalg.norm(b_np - A @ x) / np.linalg.norm(b_np))
+
+
+def serial_equivalent(M, A, opts, b32, nranks):
+    """The port's serial equivalent of a distributed solve on the card:
+    bjacobi with one block a rank (-pc_bjacobi_blocks np), else the same
+    options; (result, max history change over one-ulp changes of b)."""
+    o = dict(opts)
+    if o["pc_type"] == "bjacobi":
+        o["pc_bjacobi_blocks"] = str(nranks)
+    ksp = KSP(Options(o)).set_operators(M, A)
+    res = ksp.solve(torch.from_numpy(b32).cuda())
+    h = res.history.numpy()
+    noise = 0.0
+    for seed in range(DIST_ULP_SEEDS):
+        r2 = ksp.solve(torch.from_numpy(ulp_changed(b32, seed)).cuda())
+        h2 = r2.history.numpy()
+        k = min(int(res.its), int(r2.its)) + 1
+        noise = max(noise, float(np.abs(h2[:k] - h[:k]).max() / h[0]))
+    return res, noise
+
+
+def profiled_ms(fn, its):
+    """(ms an iteration, idle share) of fn() under torch.profiler: the
+    union of the card's kernel and copy spans (all rank threads) against
+    the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy = _union_us([(e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type.name == "CUDA"])
+    return 1e3 * wall / its, 1.0 - busy / (wall * 1e6)
+
+
+def drive_dist_path(rng, world):
+    """Phase 43: ksp ex45 at DIST_GRID³ (fp32) over DIST_RANKS rank
+    threads on the card, sharded with fmt="sell" (K2 on each rank's
+    diagonal block; the ppermute halo), GMRES + block Jacobi ILU(0) (one
+    sptrsv_lu launch a rank an apply) and CG + Jacobi to rtol 1e-5,
+    counted; each against the port's serial equivalent on the card:
+    equal its and reason, the history within DIST_BOUND_OVER_NOISE times
+    the serial solve's own change under one-ulp changes of b (and at
+    most 1e-3 of ‖r0‖), true relative residual ≤ 1e-4. Then the repeat
+    of each, timed and profiled, its collectives an iteration (the
+    audit) and its host stagings. Returns (launches on the path, the
+    sharded operator, its part, the ILU PC)."""
+    A, b, _ = ex45_system(DIST_GRID, DIST_GRID, DIST_GRID)
+    b32 = b.astype(np.float32)
+    P = world.size
+    t = time.perf_counter()
+    A_sh, part = sharded_aij_from_scipy(A, P, dtype=np.float32, fmt="sell")
+    pc_bj = make_par_pc("bjacobi", A_sh, part,
+                        options=Options({"sub_pc_type": "ilu"}))
+    pc_j = make_par_pc("jacobi", A_sh, part)
+    setup_s = time.perf_counter() - t
+    parts = dict(part.timings, **pc_bj.timings)
+    print(f"slice14 ex45 {DIST_GRID}^3 over {P} ranks: setup {setup_s:.2f} s "
+          f"= " + " + ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f" + the rest {setup_s - sum(parts.values()):.2f}; style "
+          f"{A_sh.style} (ring offsets {A_sh.offsets}), halo smax "
+          f"{part.halo.smax} gmax {part.halo.gmax}; SELL packs "
+          f"P={A_sh.diag_ops[0].npass} S={A_sh.diag_ops[0].S} "
+          f"Lp={A_sh.diag_ops[0].Lp}; ILU plans "
+          f"{tuple(pc_bj.pcs[0].Lplan.level_rows.shape)} (levels, rows), "
+          f"{shape_of(pc_bj.pcs[0].Lplan, pc_bj.pcs[0].Uplan)} shape")
+    t = time.perf_counter()
+    M, _ = mat_from_options(A, Options({"mat_type": "sell",
+                                        "mat_ordering_type": "natural"}),
+                            dtype=torch.float32)
+    print(f"slice14 serial SELL operator in {time.perf_counter() - t:.2f} s")
+    launched = dict.fromkeys(("sell_spmv", "sptrsv", "sptrsv_lu",
+                              "ell_spmv", "stencil_mult", "sell_spmvT"), 0)
+    for label, opts, pc in (("GMRES+bjacobi ILU(0)", DIST_GMRES, pc_bj),
+                            ("CG+jacobi", DIST_CG, pc_j)):
+        reset_dist(world)
+        ksp = ParKSP(world, Options(dict(opts)))
+        ksp.set_operators(A_sh, part)
+        ksp.pc = pc
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ksp.solve(b32)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        its, reason = int(res.its), int(res.reason)
+        per_rank = dist_counts(world)
+        for name in launched:
+            launched[name] += HAND_KERNELS[name].launches
+        relres = dist_relres(A, b, res)
+        ser, noise = serial_equivalent(M, A, opts, b32, P)
+        hd, hs = res.history.numpy(), ser.history.numpy()
+        k = min(its, int(ser.its)) + 1
+        diff = float(np.abs(hd[:k] - hs[:k]).max() / hs[0])
+        bound = min(max(DIST_BOUND_OVER_NOISE * noise, 1e-6), 1e-3)
+        k2 = [pr[0].get("sell_spmv", 0) for pr in per_rank]
+        lu = [pr[0].get("sptrsv_lu", 0) for pr in per_rank]
+        print(f"slice14 {label}: its={its} reason={reason} {secs:.3f} s = "
+              f"{1e3 * secs / its:.4f} ms/it; true rel residual "
+              f"{relres:.3e}; serial equivalent its={int(ser.its)} "
+              f"reason={int(ser.reason)}, history diff {diff:.3e}·‖r0‖ "
+              f"(bound {bound:.3e}: {DIST_BOUND_OVER_NOISE:g} × the serial "
+              f"solve's own {noise:.3e} under one-ulp changes of b); "
+              f"launches on each rank: K2 {k2}, sptrsv_lu {lu}")
+        if reason <= 0 or not relres <= 1e-4:
+            raise AssertionError(f"slice14 {label}: reason {reason}, "
+                                 f"residual {relres}")
+        if (its, reason) != (int(ser.its), int(ser.reason)):
+            raise AssertionError(f"slice14 {label}: its/reason {its}/"
+                                 f"{reason} against the serial "
+                                 f"{int(ser.its)}/{int(ser.reason)}")
+        if not diff <= bound:
+            raise AssertionError(f"slice14 {label}: history differs by "
+                                 f"{diff} against the bound {bound}")
+        if min(k2) < its or (pc is pc_bj and min(lu) < its):
+            raise AssertionError(f"slice14 {label}: a rank launched K2 "
+                                 f"{k2} / sptrsv_lu {lu} in {its} its")
+        # the repeat: ms an iteration, idle share, stagings
+        world.reset_counts()
+        ms, idle = profiled_ms(lambda: ksp.solve(b32), its)
+        st = world.comms[0].staging
+        print(f"slice14 {label} repeated: {ms:.4f} ms/it, idle share "
+              f"{idle:.3f}; host stagings a rank an iteration "
+              f"{st[0] / its:.1f} copies, {st[1] / its / 1024:.2f} KiB, "
+              f"{1e3 * st[2] / its:.4f} ms")
+        audit = audit_par_ksp(world, A_sh, b32, pc=pc,
+                              cfg=ksp_api.config_from_options(Options(dict(opts))),
+                              key=f"slice14 {opts['ksp_type']}+"
+                                  f"{opts['pc_type']}[{P}]")
+        print(f"slice14 {label} collectives an iteration (a rank): "
+              + ", ".join(f"{k} {n} ({audit.per_iteration.bytes[k]:.0f} B)"
+                          for k, n in sorted(
+                              audit.per_iteration.counts.items())))
+    print(comm_table())
+    del M
+    return launched, A, A_sh, part, pc_bj
+
+
+def check_dist_kernels(rng, world, A, A_sh, part, pc_bj):
+    """Phase 44: each kernel of the path on its rank-0 inputs against its
+    plain version, bit for bit (K2 on the diagonal block's SELL pack,
+    sptrsv_lu on its ILU pair), then the fmt="ell" product in fp64 over
+    the ranks (the ELL kernel on every diagonal block) against the
+    serial ELL product: the time of one distributed mult and the largest
+    difference; the ELL kernel on rank 0's fp64 block against its plain
+    version. Returns (K2, sptrsv_lu, ELL max |kernel − plain|, ELL
+    launches in the timed mults)."""
+    D0 = sp.csr_matrix(part.diag_blocks[0]).astype(np.float32)
+    _, k2_err = check_k2(D0, A_sh.diag_ops[0], "cuda", rng,
+                         f"slice14 rank 0 diag block ({D0.shape[0]} rows)")
+    L, U = pc_bj.pcs[0].Lplan, pc_bj.pcs[0].Uplan
+    lu_err = check_lu_pair("slice14 rank 0 ILU(0)", L, U, rng)
+    b = torch.from_numpy(rng.standard_normal(L.n)).to("cuda", L.dtype)
+    lead = (L.order, U.order, b[None])
+    print(f"sptrsv_lu slice14 rank 0 ILU(0) ({shape_of(L, U)} shape, "
+          f"levels {int(L.nlevs.max())}+{int(U.nlevs.max())}): "
+          f"{graph_ms(lambda: lu_solve(L, U, b)):.4f} ms in a CUDA graph, "
+          f"{time_ms(lambda: lu_solve(L, U, b), runs=20, inner=5):.4f} ms a "
+          f"call; as two launches ({shape_of(L)} shape) "
+          f"{graph_ms(lambda: U.solve(L.solve(b))):.4f} ms in a CUDA graph; "
+          f"plain {time_ms(lambda: sptrsv_lu_plain(*lead), runs=3, inner=1, warmup=1):.4f} ms")
+    E, _ = sharded_aij_from_scipy(A, world.size, style=A_sh.style,
+                                  fmt="ell")
+    ell_err = ell_check("slice14 rank 0 diag block fp64",
+                        part.diag_blocks[0], E.diag_ops[0], rng)
+    x = rng.standard_normal(A.shape[0])
+    xs = shard_vector(world, x, Layout(A.shape[0], world.size))
+    mult = (lambda: world.run(lambda c, v: E.rank(c).mult(v),
+                              [(v,) for v in xs]))
+    y = torch.cat(mult())
+    Ad = aij_from_scipy(A)
+    ys = Ad.mult(torch.from_numpy(x).cuda())
+    diff = float((y[:A.shape[0]] - ys).abs().max() / ys.abs().max())
+    mult()
+    before = ell_spmv.launches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        mult()
+    torch.cuda.synchronize()
+    dist_ms = 1e2 * (time.perf_counter() - t)
+    launches = ell_spmv.launches - before
+    ser_ms = time_ms(lambda: Ad.mult(ys))
+    print(f"slice14 fmt=ell fp64 product over {world.size} ranks: "
+          f"{dist_ms:.4f} ms a distributed mult (ELL launches "
+          f"{launches / 10:.0f} a mult), serial ELL {ser_ms:.4f} ms; "
+          f"max|distributed - serial| / max|y| = {diff:.3e}")
+    if not diff <= 1e-13:
+        raise AssertionError(f"slice14: distributed ELL product differs by "
+                             f"{diff}")
+    return k2_err, lu_err, ell_err, launches
+
+
+class RanksInSeries:
+    """A distributed PC's rank pieces applied one after another to the
+    pieces of a serial vector, zero-padded to the ranks' rows: the same
+    operator as the distributed PC, for the serial side of a check."""
+
+    def __init__(self, pcs, nloc: int, n: int):
+        self.pcs, self.nloc, self.n = pcs, nloc, n
+
+    def apply(self, r):
+        rp = r.new_zeros(len(self.pcs) * self.nloc)
+        rp[:self.n] = r
+        s = self.nloc
+        return torch.cat([pc.apply(rp[p * s:(p + 1) * s])
+                          for p, pc in enumerate(self.pcs)])[:self.n]
+
+
+def drive_dist_bratu(world):
+    """Phase 45: snes ex5 Bratu (λ 6) at BRATU_M² through par_snes_solve
+    over the ranks (the sharded residual's ppermute halo, the sharded
+    colored-FD Jacobian, GMRES rtol 1e-8 as
+    tests/test_psnes.py::test_bratu_newton_matches_serial, and a lagged
+    distributed PC: block Jacobi ILU(0) of the first Jacobian, one block
+    a rank) against the port's serial Newton on the card with the same
+    Jacobian, KSP and PC (the ranks' ILU factors in series): equal Newton
+    its, x within 1e-6."""
+    from petsctpu_torch.parallel.plan import partition_csr
+    from petsctpu_torch.pc.parallel import make_bjacobi
+
+    m = BRATU_M
+    da = DA((m, m))
+    kcfg = KSPConfig(ksp_type="gmres", rtol=1e-8, maxits=10000)
+    scfg = SNESConfig(rtol=1e-8, atol=1e-12)
+    x0 = bratu_initial_guess(da, BRATU_LAM)
+    F = bratu_residual(da, BRATU_LAM)
+    jac = ColoredJacobian.from_stencil(bratu_jacobian_template(da))
+    J0 = stencil_to_scipy(jac.assemble(F, x0, F(x0)))
+    Fp, grid = bratu_residual_sharded(da, world.size, lam=BRATU_LAM)
+    n, n_pad = m * m, grid[0] * grid[1]
+    part = partition_csr(sp.block_diag([J0, sp.eye(n_pad - n)]).tocsr(),
+                         world.size)
+    pc = make_bjacobi(part, "ilu", dtype=np.float64)
+    gmres, lin = ksp_api.KSP_REGISTRY["gmres"], []
+
+    def counted_gmres(*args):
+        res = gmres(*args)
+        lin.append(int(res.its))
+        return res
+    ksp_api.KSP_REGISTRY["gmres"] = counted_gmres
+    try:
+        t = time.perf_counter()
+        rs = snes_solve(F, x0, jac=jac, ksp_cfg=kcfg, cfg=scfg,
+                        pc_builder=lambda J: RanksInSeries(
+                            pc.pcs, part.layout.shard_size, n))
+        torch.cuda.synchronize()
+        ser_s, ser_lin = time.perf_counter() - t, sum(lin)
+        plan = ShardedFDJac.plan((m, m), STAR5, world.size)
+        lin.clear()
+        t = time.perf_counter()
+        rp = par_snes_solve(world, Fp, x0.cpu().numpy(), jac=plan, pc=pc,
+                            cfg=scfg, ksp_cfg=kcfg)
+        torch.cuda.synchronize()
+        dist_s, dist_lin = time.perf_counter() - t, sum(lin) // world.size
+    finally:
+        ksp_api.KSP_REGISTRY["gmres"] = gmres
+    xs = rs.x.cpu().numpy()
+    xp = rp.x[:n].cpu().numpy()
+    rel = float(np.abs(xp - xs).max() / np.abs(xs).max())
+    print(f"slice14 Bratu {m}^2 lambda {BRATU_LAM}: {world.size} ranks "
+          f"Newton its={int(rp.its)} reason={int(rp.reason)}, GMRES its "
+          f"{dist_lin} in all, {dist_s:.2f} s; serial its={int(rs.its)} "
+          f"reason={int(rs.reason)}, GMRES its {ser_lin}, {ser_s:.2f} s; "
+          f"max|x - x_serial| / max|x| = {rel:.3e}")
+    if int(rp.reason) <= 0 or (int(rp.its), int(rp.reason)) != \
+            (int(rs.its), int(rs.reason)) or not rel <= 1e-6:
+        raise AssertionError("slice14: the distributed Bratu solve differs "
+                             "from the serial one")
+
+
+def dist_small_solve(dev, m, opts, nranks):
+    """One case of DIST_SMALL on a World of its own, closed after."""
+    A, b, _ = ex2_system(m, m)
+    A = sp.csr_matrix(A)
+    with World(nranks, dev, timeout=60.0) as w:
+        A_sh, part = sharded_aij_from_scipy(A, nranks, device=dev)
+        o = Options(dict(opts))
+        pc = make_par_pc(opts["pc_type"], A_sh, part, options=o)
+        cfg = ksp_api.config_from_options(o, KSPConfig(maxits=2000))
+        return par_ksp_solve(w, A_sh, np.asarray(b), pc=pc, cfg=cfg)
+
+
+def check_dist_small_against_cpu(devices=("cuda", "cpu")):
+    """Phase 46: the ex2 cases of the oracle sweep at np = 2, 4 and 8
+    (fp64) on the card and on the port's CPU, each over the rank threads
+    of a World of its own: equal its and reason, histories within DIST_SMALL_RTOL of
+    ‖r0‖. Returns the largest difference."""
+    worst = 0.0
+    for m, opts, nranks in DIST_SMALL:
+        card, cpu = (dist_small_solve(d, m, opts, nranks) for d in devices)
+        hc, hh = card.history.numpy(), cpu.history.numpy()
+        k = min(int(card.its), int(cpu.its)) + 1
+        diff = float(np.abs(hc[:k] - hh[:k]).max() / hh[0])
+        label = f"ex2 {m}x{m} np={nranks} {opts['ksp_type']}+" \
+                f"{opts['pc_type']}"
+        print(f"slice14 small {label}: its {int(card.its)}/{int(cpu.its)} "
+              f"reason {int(card.reason)}/{int(cpu.reason)} history diff "
+              f"{diff:.2e}·‖r0‖")
+        if (int(card.its), int(card.reason)) != (int(cpu.its),
+                                                 int(cpu.reason)) \
+                or int(card.reason) <= 0 or not diff <= DIST_SMALL_RTOL:
+            raise AssertionError(f"slice14 small {label}: card and CPU "
+                                 "differ")
+        worst = max(worst, diff)
+    return worst
+
+
+def nccl_world_solve():
+    """Phase 47: one CG + Jacobi solve over a world of size 1 on NCCL
+    (world_from_env, as torchrun would start it), so that the
+    multi-card route's calls launch; the group is destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        w = world_from_env()
+        A, b, u = ex2_system(64, 64)
+        A_sh, part = sharded_aij_from_scipy(sp.csr_matrix(A), 1)
+        res = par_ksp_solve(w, A_sh, np.asarray(b),
+                            pc=make_par_pc("jacobi", A_sh, part),
+                            ksp_type="cg", rtol=1e-10)
+        err = float(np.abs(res.x.cpu().numpy() - u).max())
+        print(f"slice14 NCCL world of 1 ({w.backend}): CG+jacobi its="
+              f"{int(res.its)} reason={int(res.reason)} max|x-u|={err:.2e};"
+              f" collectives {w.comm.counts}")
+        if int(res.reason) <= 0 or not err <= 1e-7 or w.backend != "nccl":
+            raise AssertionError("slice14: the NCCL world's solve failed")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def slice14_phases(rng, kernels, probe_gloo=False):
+    """Slice 14: the distributed ex45 path over 4 rank threads (phase 43),
+    its kernels against their plain versions and the fp64 ELL product
+    (44), Bratu through par_snes_solve (45), the sweep's ex2 cases card
+    against CPU (46) and a world of one on NCCL (47). Adds the path's
+    launches (43's counted solves and 44's timed mults) and errors to
+    `kernels`. probe_gloo: first ask which gloo collectives take CUDA
+    tensors (three processes; `slice14` alone)."""
+    t = time.perf_counter()
+    if probe_gloo:
+        print(f"slice14 gloo takes CUDA tensors: {gloo_takes_cuda()}")
+    world = World(DIST_RANKS, "cuda")
+    launched, A, A_sh, part, pc_bj = drive_dist_path(rng, world)
+    print(f"slice14: phase 43 done at {time.perf_counter() - t:.1f} s")
+    k2_err, lu_err, ell_err, ell_launches = check_dist_kernels(
+        rng, world, A, A_sh, part, pc_bj)
+    del A, A_sh, part, pc_bj
+    print(f"slice14: phase 44 done at {time.perf_counter() - t:.1f} s")
+    drive_dist_bratu(world)
+    world.close()
+    print(f"slice14: phase 45 done at {time.perf_counter() - t:.1f} s")
+    worst = check_dist_small_against_cpu()
+    print(f"slice14: phase 46 done at {time.perf_counter() - t:.1f} s")
+    nccl_world_solve()
+    launched["ell_spmv"] += ell_launches
+    for name, err in (("sell_spmv", k2_err), ("sptrsv_lu", lu_err),
+                      ("ell_spmv", ell_err)):
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    for name in ("sell_spmv", "sptrsv", "sptrsv_lu", "ell_spmv"):
+        kernels[name]["launches"] += launched[name]
+    print(f"slice 14 in {time.perf_counter() - t:.1f} s (launches "
+          f"{ {k: launched[k] for k in ('sell_spmv', 'sptrsv_lu', 'ell_spmv')} };"
+          f" small cases card vs cpu within {worst:.2e}·‖r0‖)")
+
+
 T0 = time.perf_counter()
-# ex55's ne (slices 7 and 12) and ex43's mx (slice 8) in the whole script:
-# 524,288 and 786,432 dofs. At 1023 the whole script would take 1,255 s
-# or more (PERF.md §4), past the 1,200 s it must end in.
-FULL_SCRIPT_NE = 511
+# ex55's ne (slices 7 and 12, with slice 7's NC route and refresh) and
+# ex43's mx (slice 8) in the whole script: 295,936 and 442,368 dofs. At
+# 1023 the whole script would take 1,255 s or more (PERF.md §4); at 511
+# (PR 17) slice 14's 160 s would take a slow host past the 1,200 s it
+# must end in.
+FULL_SCRIPT_NE = 383
+# phase 27's Schur check in the whole script (196,608 dofs at 255 in
+# `slice8`, a 64 s CPU solve): 49,152 dofs, which gives back slice 14's
+# time
+FULL_SCRIPT_SCHUR_MX = 127
 
 
 def stamp(label):
@@ -5435,9 +5970,22 @@ def stamp(label):
 
 
 def main(argv=()):
+    import faulthandler
+    faulthandler.enable()
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
+    if list(argv) == ["slice14"]:
+        kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
+                   for k in ("sell_spmv", "sptrsv", "sptrsv_lu", "ell_spmv")}
+        slice14_phases(rng, kernels, probe_gloo=True)
+        print(smi)
+        print(f"slice14 in {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"slice14": list(kernels.values())}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if list(argv) in (["slice7"], ["slice8"], ["slice9"], ["slice11"],
                       ["slice12"], ["slice13"]):
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
@@ -5524,7 +6072,7 @@ def main(argv=()):
     stamp("slice 7")
     triad = stream_triad_gbs(1 << 28)
     slice8_phases(rng, {k["name"]: k for k in kernels}, triad,
-                  mx=FULL_SCRIPT_NE)
+                  mx=FULL_SCRIPT_NE, schur_mx=FULL_SCRIPT_SCHUR_MX)
     stamp("slice 8")
     kernels.append(slice9_phases(rng, {k["name"]: k for k in kernels},
                                  triad))
@@ -5540,6 +6088,8 @@ def main(argv=()):
     kernels.append(slice13_phases(rng, {k["name"]: k for k in kernels},
                                   triad, ilu_against_cpu=False))
     stamp("slice 13")
+    slice14_phases(rng, {k["name"]: k for k in kernels})
+    stamp("slice 14")
     kernels += probes_phase()
     print(smi)
     print(f"chip_smoke.py in {time.perf_counter() - T0:.1f} s")

@@ -359,3 +359,49 @@ def section_from_arrays(ndof, fields: dict = None, constrained=()):
     for pts in constrained:
         sec.set_constrained(np.array(pts))
     return sec.setup()
+
+
+def halo_plan_from_arrays(send_idx, ghost_src, ghost_gidx, n_ghost,
+                          smax: int, gmax: int, offsets=()):
+    """The port's HaloPlan from petsctpu's (host numpy, stacked [P, ...])."""
+    from petsctpu_torch.parallel.plan import HaloPlan
+
+    return HaloPlan(np.array(send_idx), np.array(ghost_src),
+                    np.array(ghost_gidx), np.array(n_ghost), int(smax),
+                    int(gmax), tuple(int(o) for o in offsets))
+
+
+def partitioned_csr_from_arrays(n: int, nshards: int, diag_blocks,
+                                off_blocks, garrays, halo: dict, perm=None):
+    """The port's PartitionedCSR from petsctpu's: the true size and rank
+    count of its Layout, its per-rank scipy blocks and garrays, and its
+    halo plan's fields as a dict (halo_plan_from_arrays' arguments)."""
+    import scipy.sparse as sp
+
+    from petsctpu_torch.core.layout import Layout
+    from petsctpu_torch.parallel.plan import PartitionedCSR
+
+    return PartitionedCSR(
+        Layout(int(n), int(nshards)),
+        [sp.csr_matrix(D, copy=True) for D in diag_blocks],
+        [sp.csr_matrix(O, copy=True) for O in off_blocks],
+        [np.array(g) for g in garrays], halo_plan_from_arrays(**halo),
+        None if perm is None else np.array(perm))
+
+
+def sharded_aij_from_arrays(arrays: dict, statics: dict, sell_packs=None,
+                            device=None):
+    """A ShardedAIJ from petsctpu's stacked leaves arrays {diag_cols,
+    diag_vals, off_cols, off_vals, send_idx, ghost_src, ghost_gidx} [P,
+    ...] and statics {shape, nshards, style, nnz, offsets}; fmt "sell"
+    when `sell_packs` (sell_pack pairs a rank, the rows of petsctpu's
+    stacked diag_sell) is given."""
+    from petsctpu_torch.parallel.pmat import sharded_aij_from_stacked
+
+    a = {k: np.array(v) for k, v in arrays.items()}
+    return sharded_aij_from_stacked(
+        a["diag_cols"], a["diag_vals"], a["off_cols"], a["off_vals"],
+        a["send_idx"], a["ghost_src"], a["ghost_gidx"],
+        tuple(statics["shape"]), int(statics["nshards"]), statics["style"],
+        int(statics.get("nnz", 0)), tuple(statics.get("offsets", ())),
+        "sell" if sell_packs is not None else "ell", sell_packs, device)

@@ -8,7 +8,9 @@ src/sys/logging/plog.c) as `log_event`, the analytic flop ledger
 
 Kernels run asynchronously on the card, so a timed event synchronises
 the current CUDA device on entry and exit. The logger is
-process-global, mirroring the reference's global state.
+process-global, mirroring the reference's global state, except on the
+rank threads of a parallel.comm.World: there each rank's events go to
+the RankCounters bound to its thread (core/rankctx).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import torch
+
+from petsctpu_torch.core import rankctx
 
 
 @dataclass
@@ -49,7 +53,10 @@ def log_enabled() -> bool:
 
 
 def log_events() -> dict:
-    return _state.events
+    """The event table this thread writes: its rank's on a World's
+    rank thread, else the process's."""
+    mine = rankctx.current()
+    return _state.events if mine is None else mine.events
 
 
 def _sync():
@@ -67,7 +74,7 @@ def log_event(name: str, flops: float = 0.0, bytes: float = 0.0):
     t = time.perf_counter()
     yield
     _sync()
-    ev = _state.events.setdefault(name, EventStats())
+    ev = log_events().setdefault(name, EventStats())
     ev.count += 1
     ev.time += time.perf_counter() - t
     ev.flops += flops
@@ -78,7 +85,7 @@ def log_flops(name: str, flops: float, bytes: float = 0.0) -> None:
     """Accrue flops without timing (for fused regions)."""
     if not _state.enabled:
         return
-    ev = _state.events.setdefault(name, EventStats())
+    ev = log_events().setdefault(name, EventStats())
     ev.flops += flops
     ev.bytes += bytes
 

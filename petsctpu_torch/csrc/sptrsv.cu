@@ -33,7 +33,7 @@
 // index; nlevs [nb] skips padded levels. Slots that are padding in
 // every row are dropped there.
 //
-// One launch a solve, the level loop inside, in one of five shapes
+// One launch a solve, the level loop inside, in one of six shapes
 // (ops/sptrsv.py::launch_shape picks one from the plan's size, its widest
 // level and the card's shared memory; a shape that cannot launch raises):
 //   block-smem   (x and the ring below fit one block's shared memory):
@@ -52,7 +52,11 @@
 //                MEMBAR.ALL.GPU, 0.4 µs a level; an assumption about
 //                the memory model, see round_arrive), wait after the
 //                next level's reads from the ring.
-//   In both, a block is its consumer warps and one producer warp. b is
+//   cluster16-smem (the fused solve of one plan whose x fits no cluster
+//                of kCluster blocks but one of kCluster16, a non-portable
+//                cluster size the launch allows on the kernel): the
+//                cluster-smem shape over kCluster16 ranks.
+//   In these, a block is its consumer warps and one producer warp. b is
 //   copied into shared memory at the start and x overwrites it in place
 //   (a row reads b[r] and then writes x[r]; no row reads x[r] before a
 //   later level); x goes to global memory once, at the end, after a
@@ -108,10 +112,12 @@ namespace {
 
 // ops/sptrsv.py SHAPES
 enum Shape { kBlock = 0, kClusters = 1, kGrid = 2, kBlockSmem = 3,
-             kClusterSmem = 4 };
+             kClusterSmem = 4, kCluster16Smem = 5 };
 
 constexpr int kThreads = 1024;     // the most threads a block
 constexpr int kCluster = 8;        // blocks a cluster (a portable size)
+constexpr int kCluster16 = 16;     // the fused solve's wider cluster
+                                   // (a non-portable size)
 constexpr int kSlots = 4;          // slots of a row loaded ahead
 constexpr int kStages = 4;         // levels in the ring (shared shapes)
 constexpr unsigned kNone = 0xffffffffu;   // a slot past K: no address
@@ -224,7 +230,7 @@ __device__ __forceinline__ double load_x(unsigned a, bool far, double)
 
 // nb stacked plans in level order (ops/sptrsv.py::level_order, derived
 // once a plan): lstart [nb, nlev+1] each level's first position, lseg
-// [nb, nlev·kCluster+1] each (level, rank)'s first position (the
+// [nb, nlev·ranks+1] each (level, rank)'s first position (the
 // cluster-smem shape), nlevs [nb] each plan's own levels, lrows [nb, n]
 // the row at each position, lcols/lvals [nb, n, K] and ldinv [nb, n]
 // that row's slots and 1/diag.
@@ -859,6 +865,8 @@ sptrsv_kernel(const __grid_constant__ Solve<T> S)
         solve_smem<1>(S);
     else if constexpr (kShape == kClusterSmem)
         solve_smem<kCluster>(S);
+    else if constexpr (kShape == kCluster16Smem)
+        solve_smem<kCluster16>(S);
     else if constexpr (kShape == kClusters)
         solve_global<kShape>(S, kCluster);
     else if constexpr (kShape == kGrid)
@@ -922,6 +930,10 @@ cudaError_t allow_smem(int dev, int bytes, cudaStream_t stream)
         err = cudaFuncSetAttribute(sptrsv_kernel<kShape, T>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    bytes);
+        if (err == cudaSuccess && kShape == kCluster16Smem)
+            err = cudaFuncSetAttribute(
+                sptrsv_kernel<kShape, T>,
+                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         *out = 1;
         return err;
     });
@@ -961,7 +973,8 @@ cudaError_t launch_ex(const Solve<T>& S, int blocks, int threads, int ranks,
 template <int kShape, typename T>
 cudaError_t launch_smem(const Solve<T>& S, int rmax, cudaStream_t stream)
 {
-    constexpr int ranks = kShape == kClusterSmem ? kCluster : 1;
+    constexpr int ranks = kShape == kClusterSmem ? kCluster
+                          : kShape == kCluster16Smem ? kCluster16 : 1;
     const int consumers = consumers_for((rmax + ranks - 1) / ranks);
     const size_t bytes = smem_bytes<T>(S.n, ranks, consumers);
     int dev = 0, optin = 0;
@@ -986,6 +999,8 @@ cudaError_t launch(int shape, const Solve<T>& S, int rmax, cudaStream_t stream)
         return launch_smem<kBlockSmem, T>(S, rmax, stream);
     if (shape == kClusterSmem)
         return launch_smem<kClusterSmem, T>(S, rmax, stream);
+    if (shape == kCluster16Smem)
+        return launch_smem<kCluster16Smem, T>(S, rmax, stream);
     if (shape == kBlock) {
         sptrsv_kernel<kBlock, T><<<S.nb, threads_for(rmax), 0, stream>>>(S);
         return cudaGetLastError();
@@ -1031,7 +1046,13 @@ Tri<T> tri_of(const void* lstart, const void* lseg, const void* nlevs,
 
 bool is_smem(int shape)
 {
-    return shape == kBlockSmem || shape == kClusterSmem;
+    return shape == kBlockSmem || shape == kClusterSmem
+        || shape == kCluster16Smem;
+}
+
+bool is_cluster_smem(int shape)
+{
+    return shape == kClusterSmem || shape == kCluster16Smem;
 }
 
 }  // namespace
@@ -1045,9 +1066,9 @@ extern "C" int sptrsv_launch(const void* lstart, const void* lseg,
 {
     if (nb <= 0 || n <= 0 || nlev <= 0)
         return 0;
-    if (shape < kBlock || shape > kClusterSmem
+    if (shape < kBlock || shape > kCluster16Smem
         || (shape == kGrid && (nb != 1 || bar == nullptr))
-        || (shape == kClusterSmem && lseg == nullptr))
+        || (is_cluster_smem(shape) && lseg == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     auto* st = static_cast<cudaStream_t>(stream);
     auto* br = static_cast<unsigned*>(bar);
@@ -1082,7 +1103,8 @@ extern "C" int sptrsv_lu_launch(
     if (nb <= 0 || n <= 0 || l_nlev <= 0 || u_nlev <= 0)
         return 0;
     if (!is_smem(shape)
-        || (shape == kClusterSmem && (l_lseg == nullptr || u_lseg == nullptr)))
+        || (is_cluster_smem(shape)
+            && (l_lseg == nullptr || u_lseg == nullptr)))
         return static_cast<int>(cudaErrorInvalidValue);
     auto* st = static_cast<cudaStream_t>(stream);
     cudaError_t err;

@@ -29,21 +29,20 @@ def _op(A, pc, v):
 
 
 def solve_bcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     r = preconditioned_residual(A, b, x, pc, cfg)
     rt = r                                    # shadow residual r̃₀
-    history, rnorm0, reason = start(cfg, ops.norm(r))
+    history, rnorm0, reason = start(cfg, ops.norm(r, axis))
     its = 0
     while reason == ITERATING:
-        rho = ops.dot(rt, r)
+        rho = ops.dot(rt, r, axis)
         if its == 0:
             p = r
         else:
             beta = (rho / rho_old) * (alpha / omega)
             p = r + beta * (p - omega * v)
         v = _op(A, pc, p)
-        rtv = ops.dot(rt, v)
+        rtv = ops.dot(rt, v, axis)
         alpha = rho / rtv
         s = r - alpha * v
         t = _op(A, pc, s)
@@ -53,7 +52,8 @@ def solve_bcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         omega = ts / positive_or_one(tt)
         x = x + alpha * p + omega * s
         r = s - omega * t
-        dp, bad = to_host(ops.norm(r), (rho == 0) | (rtv == 0) | (omega == 0))
+        dp, bad = to_host(ops.norm(r, axis),
+                          (rho == 0) | (rtv == 0) | (omega == 0))
         its += 1
         reason = advance(cfg, history, its, dp, rnorm0, bool(bad))
         rho_old = rho
@@ -62,14 +62,13 @@ def solve_bcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
 
 def solve_cgsq(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     """Conjugate Gradient Squared (src/ksp/ksp/impls/cgs)."""
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     r = preconditioned_residual(A, b, x, pc, cfg)
     rt = r
-    history, rnorm0, reason = start(cfg, ops.norm(r))
+    history, rnorm0, reason = start(cfg, ops.norm(r, axis))
     its = 0
     while reason == ITERATING:
-        rho = ops.dot(rt, r)
+        rho = ops.dot(rt, r, axis)
         if its == 0:
             u = p = r
         else:
@@ -77,13 +76,13 @@ def solve_cgsq(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
             u = r + beta * q
             p = u + beta * (q + beta * p)
         v = _op(A, pc, p)
-        sigma = ops.dot(rt, v)
+        sigma = ops.dot(rt, v, axis)
         alpha = rho / sigma
         q = u - alpha * v
         uq = u + q
         x = x + alpha * uq
         r = r - alpha * _op(A, pc, uq)
-        dp, bad = to_host(ops.norm(r), (rho == 0) | (sigma == 0))
+        dp, bad = to_host(ops.norm(r, axis), (rho == 0) | (sigma == 0))
         its += 1
         reason = advance(cfg, history, its, dp, rnorm0, bool(bad))
         rho_old = rho
@@ -99,7 +98,6 @@ def solve_bicg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     TRUE adjoint; symmetric PCs fall back to the conjugate sandwich
     M⁻ᴴ v = conj(M⁻¹ conj(v)). Needs A.multT: an AIJ operator (SELL's
     transpose is chunk-mode only, as in petsctpu)."""
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     rr = b - A.mult(x) if cfg.guess_nonzero else b
     rl = rr
@@ -119,11 +117,11 @@ def solve_bicg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
 
     zr = apply_pc(pc, rr)
     zl = pc_herm(rl)
-    history, rnorm0, reason = start(cfg, ops.norm(zr))
+    history, rnorm0, reason = start(cfg, ops.norm(zr, axis))
     its = 0
     while reason == ITERATING:
         # VecDot(Zr, Rl) = conj(Rl)·Zr
-        beta = ops.dot(rl, zr)
+        beta = ops.dot(rl, zr, axis)
         if its == 0:
             pr, pl = zr, zl
         else:
@@ -132,14 +130,14 @@ def solve_bicg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
             pl = zl + torch.conj(bfac) * pl
         vzr = A.mult(pr)
         vzl = mult_herm(pl)
-        dpi = ops.dot(pl, vzr)                # VecDot(Zr, Pl)
+        dpi = ops.dot(pl, vzr, axis)          # VecDot(Zr, Pl)
         a = beta / dpi
         x = x + a * pr
         rr = rr - a * vzr
         rl = rl - torch.conj(a) * vzl
         zr = apply_pc(pc, rr)
         zl = pc_herm(rl)
-        dp, bad = to_host(ops.norm(zr), (beta == 0) | (dpi == 0))
+        dp, bad = to_host(ops.norm(zr, axis), (beta == 0) | (dpi == 0))
         its += 1
         reason = advance(cfg, history, its, dp, rnorm0, bool(bad))
         beta_old = beta

@@ -26,16 +26,31 @@ from petsctpu_torch.vec import ops
 ITERATING = ConvergedReason.ITERATING
 
 
-def _norm(nt, r, z, rz):
+def _norm(nt, r, z, rz, axis=None):
     """The convergence norm of the norm type, from the residual r, the
     preconditioned residual z and rz = zᴴr."""
     if nt == NORM_PRECONDITIONED:
-        return ops.norm(z)
+        return ops.norm(z, axis)
     if nt == NORM_UNPRECONDITIONED:
-        return ops.norm(r)
+        return ops.norm(r, axis)
     if nt == NORM_NATURAL:
         return torch.sqrt(torch.abs(rz))
     return torch.zeros((), dtype=r.real.dtype, device=r.device)
+
+
+def _fused(nt, r, z, pairs, axis):
+    """(*(aᴴb for each pair), zᴴr, the norm type's norm), the partials
+    with zᴴz and rᴴr in ONE reduction, as petsctpu's reduce_all of an
+    iteration's inner products (serially the local values themselves)."""
+    dot = ops.local_dot
+    *vals, rz, zz, rr = ops.reduce_all(
+        (*(dot(a, b) for a, b in pairs), dot(z, r), dot(z, z).real,
+         dot(r, r).real), axis)
+    if nt == NORM_PRECONDITIONED:
+        return (*vals, rz, torch.sqrt(zz))
+    if nt == NORM_UNPRECONDITIONED:
+        return (*vals, rz, torch.sqrt(rr))
+    return (*vals, rz, _norm(nt, r, z, rz))
 
 
 def _flag_indefinite(reason, indefinite_mat, indefinite_pc):
@@ -47,34 +62,32 @@ def _flag_indefinite(reason, indefinite_mat, indefinite_pc):
 
 
 def solve_cg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
-    ops.require_serial(axis)
     if cfg.cg_single_reduction:
         return solve_cg_single(A, b, x0, pc, cfg, axis)
     nt = cfg.norm_type or NORM_PRECONDITIONED
     x = x0
     r = b - A.mult(x) if cfg.guess_nonzero else b
     z = apply_pc(pc, r)
-    rz = ops.dot(z, r)
-    dp_t = _norm(nt, r, z, rz)
+    rz = ops.dot(z, r, axis)
+    dp_t = _norm(nt, r, z, rz, axis)
     (dp,) = to_host(dp_t)
     history = init_history(cfg, b.dtype)
     history[0] = dp
     monitor(cfg, 0, dp)
     if cfg.monitor_true:
-        bnorm = to_host(ops.norm(b))[0]
-        monitor_true(cfg, 0, dp, to_host(ops.norm(r))[0], bnorm)
+        bnorm = to_host(ops.norm(b, axis))[0]
+        monitor_true(cfg, 0, dp, to_host(ops.norm(r, axis))[0], bnorm)
     rnorm0 = rnorm0_reference(cfg, b, pc, nt, axis, dp)
     reason = check_convergence(dp, rnorm0, 0, cfg)
     p, its = z, 0
     while reason == ITERATING:
         w = A.mult(p)
-        pw = ops.dot(p, w)
+        pw = ops.dot(p, w, axis)
         alpha = rz / pw
         x = x + alpha * p
         r = r - alpha * w
         z = apply_pc(pc, r)
-        rz_new = ops.dot(z, r)
-        dp_t = _norm(nt, r, z, rz_new)
+        rz_new, dp_t = _fused(nt, r, z, (), axis)
         beta = rz_new / rz
         dp, pw_h, beta_h = to_host(dp_t, pw, beta)
         dp = dp.real                # one copy: a complex solve's is complex
@@ -82,7 +95,7 @@ def solve_cg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         history[its] = dp
         monitor(cfg, its, dp)
         if cfg.monitor_true:
-            monitor_true(cfg, its, dp, to_host(ops.norm(r))[0], bnorm)
+            monitor_true(cfg, its, dp, to_host(ops.norm(r, axis))[0], bnorm)
         reason = check_convergence(dp, rnorm0, its, cfg)
         reason = _flag_indefinite(reason, pw_h <= 0, beta_h < 0)
         p = z + beta * p
@@ -99,21 +112,20 @@ def solve_cg_single(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     the extra matmult s = Az. Keeps petsctpu's quirks (ROADMAP queue 3):
     no beta==0 → CONVERGED_ATOL break, and the update is applied before
     an indefinite break."""
-    ops.require_serial(axis)
     nt = cfg.norm_type or NORM_PRECONDITIONED
     x = x0
     r = b - A.mult(x) if cfg.guess_nonzero else b
     z = apply_pc(pc, r)
     s = A.mult(z)
-    delta = ops.dot(z, s)
-    rz = ops.dot(z, r)
-    (dp,) = to_host(_norm(nt, r, z, rz))
+    delta = ops.dot(z, s, axis)
+    rz = ops.dot(z, r, axis)
+    (dp,) = to_host(_norm(nt, r, z, rz, axis))
     history = init_history(cfg, b.dtype)
     history[0] = dp
     monitor(cfg, 0, dp)
     if cfg.monitor_true:
-        bnorm = to_host(ops.norm(b))[0]
-        monitor_true(cfg, 0, dp, to_host(ops.norm(r))[0], bnorm)
+        bnorm = to_host(ops.norm(b, axis))[0]
+        monitor_true(cfg, 0, dp, to_host(ops.norm(r, axis))[0], bnorm)
     rnorm0 = rnorm0_reference(cfg, b, pc, nt, axis, dp)
     reason = check_convergence(dp, rnorm0, 0, cfg)
     one = torch.ones((), dtype=rz.dtype, device=rz.device)
@@ -133,9 +145,7 @@ def solve_cg_single(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         r = r - alpha * w
         z = apply_pc(pc, r)
         s = A.mult(z)
-        delta_n = ops.dot(z, s)
-        rz_n = ops.dot(z, r)
-        dp_t = _norm(nt, r, z, rz_n)
+        delta_n, rz_n, dp_t = _fused(nt, r, z, ((z, s),), axis)
         dp, dpi_h, dpiold_h, rzz_h = to_host(
             dp_t, dpi.real, dpiold.real, (rz_n * rz).real)
         indefinite_mat = dpi_h == 0 or (not first and dpi_h * dpiold_h <= 0)
@@ -143,7 +153,7 @@ def solve_cg_single(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         history[its] = dp
         monitor(cfg, its, dp)
         if cfg.monitor_true:
-            monitor_true(cfg, its, dp, to_host(ops.norm(r))[0], bnorm)
+            monitor_true(cfg, its, dp, to_host(ops.norm(r, axis))[0], bnorm)
         reason = check_convergence(dp, rnorm0, its, cfg)
         reason = _flag_indefinite(reason, indefinite_mat, rzz_h < 0)
         rzold, rz, delta, dpiold = rz, rz_n, delta_n, dpi
@@ -157,7 +167,6 @@ def solve_pipecg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     State follows Ghysels & Vanroose: r, u=M⁻¹r, w=Au, and the shifted
     vectors z=Aq, q=M⁻¹p, p. Each iteration does one SpMV, one PC apply
     and ONE reduction of (r·u, w·u, ||r||², ||u||²)."""
-    ops.require_serial(axis)
     nt = cfg.norm_type or NORM_PRECONDITIONED
     x = x0
     r = b - A.mult(x) if cfg.guess_nonzero else b
@@ -165,8 +174,8 @@ def solve_pipecg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     w = A.mult(u)
 
     def reduce(r, u, w):
-        gamma = ops.dot(r, u)
-        return gamma, ops.dot(w, u), _norm(nt, r, u, gamma)
+        delta, gamma, dp = _fused(nt, r, u, ((w, u),), axis)
+        return gamma, delta, dp
 
     gamma, delta, dp_t = reduce(r, u, w)
     (dp,) = to_host(dp_t)

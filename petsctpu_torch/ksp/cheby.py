@@ -35,15 +35,14 @@ def estimate_lambda_max(A, pc, n, dtype, axis=None, iters: int = 12,
                         seed: int = 7, device=None):
     """Power-iteration estimate of λmax(M⁻¹A) (deterministic start);
     a 0-d tensor of the solve's real dtype on `device`."""
-    ops.require_serial(axis)
     rdtype = torch.empty((), dtype=dtype).real.dtype
     i = torch.arange(n, dtype=rdtype, device=device)
     v = (torch.sin(i * 12.9898 + 78.233) + 0.01).to(dtype)
-    v = v / ops.norm(v)
+    v = v / ops.norm(v, axis)
     lam = torch.ones((), dtype=v.real.dtype, device=device)
     for _ in range(iters):
         w = apply_pc(pc, A.mult(v))
-        lam = ops.norm(w)
+        lam = ops.norm(w, axis)
         v = w / torch.where(lam > 0, lam, torch.ones_like(lam))
     return lam
 
@@ -121,7 +120,6 @@ def estimate_extreme_singular_arnoldi(A, pc, b, iters: int = 10):
 
 
 def solve_chebyshev(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     if cfg.cheby_emax > 0:
         emin = torch.tensor(cfg.cheby_emin, dtype=b.dtype, device=b.device)
@@ -157,7 +155,7 @@ def solve_chebyshev(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         its += 1
         if want_norm:
             (dp,) = to_host(ops.norm(z if norm_type == NORM_PRECONDITIONED
-                                     else r))
+                                     else r, axis))
             if its == 1:
                 rnorm0 = dp
             # history index = reference monitor label = its - 1
@@ -182,14 +180,13 @@ def solve_richardson(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     -ksp_richardson_self_scale (rich.c:84-92) the per-step scale
     (Br)ᴴ(BABr)/(BABr)ᴴ(BABr), x, r AND z updated by it (one PC apply
     per iteration)."""
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     s = cfg.richardson_scale
     norm_type = cfg.norm_type or NORM_PRECONDITIONED
     want_norm = norm_type != NORM_NONE
 
     def conv_norm(r, z):
-        return ops.norm(z if norm_type == NORM_PRECONDITIONED else r)
+        return ops.norm(z if norm_type == NORM_PRECONDITIONED else r, axis)
 
     r = b - A.mult(x)
     z = apply_pc(pc, r)
@@ -205,7 +202,7 @@ def solve_richardson(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         if cfg.richardson_self_scale:
             w = A.mult(z)
             y = apply_pc(pc, w)
-            ss = ops.dot(z, y) / ops.dot(y, y)
+            ss = ops.dot(z, y, axis) / ops.dot(y, y, axis)
             x = x + ss * z
             r = r - ss * w
             z = z - ss * y

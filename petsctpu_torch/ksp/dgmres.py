@@ -105,7 +105,7 @@ def solve_dgmres(A, b, x0, pc, cfg: KSPConfig, axis=None,
                          "in the reference); use lgmres on the SPMD path")
     x = x0 if cfg.guess_nonzero else torch.zeros_like(b)
     r = b - A.mult(x) if cfg.guess_nonzero else b
-    rnorm0 = float(to_host(ops.norm(r))[0])
+    rnorm0 = float(to_host(ops.norm(r, axis))[0])
     history = np.full(cfg.maxits + 1, np.nan)
     history[0] = rnorm0
     reason = check_convergence(np.float64(rnorm0), np.float64(rnorm0), 0,
@@ -118,7 +118,7 @@ def solve_dgmres(A, b, x0, pc, cfg: KSPConfig, axis=None,
     sigma = 1.0
     while reason == ConvergedReason.ITERATING:
         x, r, V, Hraw, j = _cycle(A, b, x, r, pc, cfg, U, C)
-        rn = float(to_host(ops.norm(r))[0])     # true residual
+        rn = float(to_host(ops.norm(r, axis))[0])     # true residual
         its += j
         history[min(its, cfg.maxits)] = rn       # filled at cycle ends only
         reason = check_convergence(np.float64(rn), np.float64(rnorm0), its,
@@ -147,7 +147,7 @@ def solve_dgmres(A, b, x0, pc, cfg: KSPConfig, axis=None,
         except np.linalg.LinAlgError:
             Cn = np.zeros_like(T)
         U, C = Ud, torch.from_numpy(np.asarray(Cn)).to(b.device, b.dtype)
-    (rfinal,) = to_host(ops.norm(r))
+    (rfinal,) = to_host(ops.norm(r, axis))
     hist = history.astype(np_dtype(rfinal.dtype))
     return make_result(x, min(its, cfg.maxits), reason, hist,
                        rnorm=rfinal)

@@ -27,7 +27,6 @@ def solve_cr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     ai = (RT, A·RT)/(AP, M⁻¹AP), P/AP update with bi = btop/bbot, and
     the default norm is ‖RT‖. The reference's indefinite-matrix test
     (|btop| < 0, cr.c) is dead code, so it is not checked."""
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     r0 = b - A.mult(x) if cfg.guess_nonzero else b
     rt = apply_pc(pc, r0)
@@ -40,7 +39,7 @@ def solve_cr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     its = 0
     while reason == ITERATING:
         q = apply_pc(pc, ap)
-        apq = ops.dot(q, ap)                  # VecDot(AP,Q)
+        apq = ops.dot(q, ap, axis)            # VecDot(AP,Q)
         bad_pc = apq.real <= 0
         ai = btop / torch.where(bad_pc, torch.ones_like(apq), apq)
         x = x + ai * p
@@ -70,21 +69,20 @@ def solve_tfqmr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     Both half-steps run on the device before the one copy of the
     iteration: the second's iterate is taken only if the first did not
     converge, as the reference's `live` mask does."""
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     r0 = preconditioned_residual(A, b, x, pc, cfg)
 
     def B(v):
         return apply_pc(pc, A.mult(v))
 
-    dp0 = ops.norm(r0)
+    dp0 = ops.norm(r0, axis)
     (rnorm0,) = to_host(dp0)
     history = np.full((2 * cfg.maxits + 3,), np.nan, dtype=rnorm0.dtype)
     record(history, 0, rnorm0)
     monitor(cfg, 0, rnorm0)
     reason = check_convergence(rnorm0, rnorm0, 0, cfg)
     rp = r0
-    rhoold = ops.dot(rp, r0)                  # VecDot(R,RP)
+    rhoold = ops.dot(rp, r0, axis)            # VecDot(R,RP)
     v = B(r0)
     r, u, p = r0, r0, r0
     q = d = torch.zeros_like(b)
@@ -94,13 +92,13 @@ def solve_tfqmr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     its = hidx = 0
     while reason == ITERATING:
         its += 1
-        s = ops.dot(rp, v)                    # VecDot(V,RP)
+        s = ops.dot(rp, v, axis)              # VecDot(V,RP)
         a = rhoold / nonzero_or_one(s)
         q = u - a * v
         t = u + q
         auq = B(t)
         r = r - a * auq
-        dp = ops.norm(r)
+        dp = ops.norm(r, axis)
         xs, dpests = [], []
         for m in (0, 1):
             w = torch.sqrt(dp * dpold) if m == 0 else dp
@@ -114,7 +112,7 @@ def solve_tfqmr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
             xs.append(x)
             dpests.append(((m + 1.0) ** 0.5) * tau)
             etaold, psiold = eta, psi
-        rho = ops.dot(rp, r)                  # VecDot(R,RP)
+        rho = ops.dot(rp, r, axis)            # VecDot(R,RP)
         bb = rho / nonzero_or_one(rhoold)
         u = r + bb * q
         q2 = q + bb * p
@@ -167,14 +165,13 @@ def solve_cgne(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
 def solve_fbcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     """Flexible BiCGStab (fbcgs.c): right preconditioning, so the PC may
     vary; monitors the TRUE residual."""
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     r = b - A.mult(x) if cfg.guess_nonzero else b
     rt = r
-    history, rnorm0, reason = start(cfg, ops.norm(r))
+    history, rnorm0, reason = start(cfg, ops.norm(r, axis))
     its = 0
     while reason == ITERATING:
-        rho = ops.dot(rt, r)
+        rho = ops.dot(rt, r, axis)
         if its == 0:
             p = r
         else:
@@ -182,7 +179,7 @@ def solve_fbcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
             p = r + beta * (p - omega * v)
         ph = apply_pc(pc, p)
         v = A.mult(ph)
-        rtv = ops.dot(rt, v)
+        rtv = ops.dot(rt, v, axis)
         alpha = rho / rtv
         s = r - alpha * v
         sh = apply_pc(pc, s)
@@ -192,7 +189,8 @@ def solve_fbcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         omega = ts / positive_or_one(tt)
         x = x + alpha * ph + omega * sh
         r = s - omega * t
-        dp, bad = to_host(ops.norm(r), (rho == 0) | (rtv == 0) | (omega == 0))
+        dp, bad = to_host(ops.norm(r, axis),
+                          (rho == 0) | (rtv == 0) | (omega == 0))
         its += 1
         reason = advance(cfg, history, its, dp, rnorm0, bool(bad))
         rho_old = rho
@@ -210,11 +208,10 @@ def solve_fbcgsr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     unconjugated products (its VEC_ReduceArithmetic loops). On a
     breakdown the previous iterate, residual and norm are kept: the
     reference aborts before applying the update."""
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     r = b - A.mult(x) if cfg.guess_nonzero else b
     rp = r
-    dp0 = ops.norm(r)
+    dp0 = ops.norm(r, axis)
     history, rnorm0, reason = start(cfg, dp0)
     p = r
     its = 0

@@ -33,24 +33,24 @@ from petsctpu_torch.vec import ops
 ITERATING = ConvergedReason.ITERATING
 
 
-def _orthogonalize(V, w, j, cfg):
+def _orthogonalize(V, w, j, cfg, axis=None):
     """Orthogonalize w against V[0..j]. Returns (w, h [j+1])."""
     if cfg.orth == "mgs":
         # modified Gram-Schmidt: sequential dots (borthog.c)
         h = []
         for i in range(j + 1):
-            hi = ops.dot(V[i], w)
+            hi = ops.dot(V[i], w, axis)
             w = w - hi * V[i]
             h.append(hi)
         return w, torch.stack(h)
     # classical GS: one mdot + correction (borthog2.c)
     Vj = V[:j + 1]
-    h = ops.mdot(w, Vj)
+    h = ops.mdot(w, Vj, axis)
     w = w - h @ Vj
     if cfg.cgs_refine in ("always", "ifneeded"):
         # 'ifneeded' is treated as 'always', as in petsctpu: a second
         # CGS pass is one extra matvec and is unconditionally stable
-        h2 = ops.mdot(w, Vj)
+        h2 = ops.mdot(w, Vj, axis)
         w = w - h2 @ Vj
         h = h + h2
     return w, h
@@ -96,7 +96,6 @@ def _solve_update(H, g, basis, j_end, m):
 
 
 def _gmres_generic(A, b, x0, pc, cfg: KSPConfig, axis, flexible: bool):
-    ops.require_serial(axis)
     m = cfg.restart
     n = b.shape[0]
     dt = np_dtype(b.dtype)
@@ -110,16 +109,16 @@ def _gmres_generic(A, b, x0, pc, cfg: KSPConfig, axis, flexible: bool):
         return apply_pc(pc, r)
 
     def true_norm(x):
-        return to_host(ops.norm(b - A.mult(x)))[0]
+        return to_host(ops.norm(b - A.mult(x), axis))[0]
 
     history = init_history(cfg, b.dtype)
     if cfg.monitor_true:
-        bnorm = to_host(ops.norm(b))[0]
+        bnorm = to_host(ops.norm(b, axis))[0]
     x = x0 if cfg.guess_nonzero else torch.zeros_like(b)
     its, reason, rnorm0 = 0, ITERATING, None
     while reason == ITERATING:
         r = precond_res(x)
-        beta_t = ops.norm(r)
+        beta_t = ops.norm(r, axis)
         (beta,) = to_host(beta_t)
         if its == 0:
             rnorm0 = rnorm0_reference(cfg, b, pc, nt, axis, beta)
@@ -146,8 +145,8 @@ def _gmres_generic(A, b, x0, pc, cfg: KSPConfig, axis, flexible: bool):
                 w = A.mult(z)
             else:
                 w = apply_pc(pc, A.mult(V[j]))
-            w, h_t = _orthogonalize(V, w, j, cfg)
-            hj1_t = ops.norm(w)
+            w, h_t = _orthogonalize(V, w, j, cfg, axis)
+            hj1_t = ops.norm(w, axis)
             hh = torch.cat([h_t, hj1_t.to(h_t.dtype)[None]]).cpu().numpy()
             hj1 = hh[-1].real
             V[j + 1] = w / hj1_t if hj1 > 0 else w

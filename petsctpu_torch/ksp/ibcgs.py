@@ -31,14 +31,13 @@ ITERATING = ConvergedReason.ITERATING
 
 
 def solve_ibcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
-    ops.require_serial(axis)
 
     def BA(v):
         return apply_pc(pc, A.mult(v))
 
     x = initial_guess(b, x0, cfg)
     r = preconditioned_residual(A, b, x, pc, cfg)
-    history, rnorm0, reason = start(cfg, ops.norm(r))
+    history, rnorm0, reason = start(cfg, ops.norm(r, axis))
     r0 = r
     u = BA(r)                                   # un_1 = B A rn_1
     f0 = A.multT(apply_pc(pc, r0))              # f0 = A' B' r0 (B symmetric)
@@ -50,7 +49,7 @@ def solve_ibcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     v = q = z = zero
     sigman_2 = pin_1 = taun_1 = z0
     alphan_1 = omegan_1 = one
-    rnormin = phin_1                            # lagged ‖r‖²
+    rnormin = z0                    # local ‖rn‖² of the last iteration
     its = 0
     while reason == ITERATING:
         its += 1
@@ -75,6 +74,8 @@ def solve_ibcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
             (torch.vdot(r0, sn), torch.vdot(r0, qn), torch.vdot(f0, sn),
              torch.vdot(f0, tn), torch.vdot(sn, tn), torch.vdot(tn, tn),
              rnormin), axis)
+        if its == 1:
+            rsum = phin_1                       # the lagged ‖r0‖², global
         bad_kt = (kappan == 0) | (thetan == 0)
         omegan = thetan / nonzero_or_one(kappan)
         sigman = gamman - omegan * etan
@@ -82,9 +83,11 @@ def solve_ibcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         rnormin = torch.vdot(rn, rn)            # reduced NEXT iteration
         xn = x + zn + omegan * sn
         # reference DEFAULT (!ksp->lagnorm, ibcgs.c:238-243): the
-        # convergence norm is ‖rn‖ of THIS iteration; -ksp_lag_norm
-        # takes the lagged one from the fused reduction
-        rnorm_sq = rsum if cfg.lag_norm else rnormin
+        # convergence norm is ‖rn‖ of THIS iteration, a second
+        # reduction; -ksp_lag_norm takes the lagged one from the fused
+        # reduction
+        rnorm_sq = rsum if cfg.lag_norm else \
+            ops.reduce_all((rnormin,), axis)[0]
         rnorm = torch.sqrt(torch.clamp(rnorm_sq.real, min=0.0))
         un = BA(rn)
         dp, bad = to_host(rnorm, bad_tau | bad_kt)
@@ -93,5 +96,5 @@ def solve_ibcgs(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         sigman_2, sigman_1, pin_1, phin_1 = sigman_1, sigman, pin, phin
         taun_1, alphan_1, omegan_1 = taun, alphan, omegan
     # the loop's norm may be lagged; report the true final residual norm
-    (rfinal,) = to_host(ops.norm(r))
+    (rfinal,) = to_host(ops.norm(r, axis))
     return make_result(x, its, reason, history, rnorm=rfinal)

@@ -32,14 +32,13 @@ def solve_lcd(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     directions: βⱼ = −(Pⱼ·Q_new)/(Pⱼ·Qⱼ), applied to both P and Q, one
     j after another like the reference's j-loop (lcd.c:106-112).
     Restart copies the last direction to slot 0 (lcd.c:116)."""
-    ops.require_serial(axis)
 
     def BA(v):
         return apply_pc(pc, A.mult(v))
 
     x = initial_guess(b, x0, cfg)
     r = preconditioned_residual(A, b, x, pc, cfg)
-    history, rnorm0, reason = start(cfg, ops.norm(r))
+    history, rnorm0, reason = start(cfg, ops.norm(r, axis))
     one = torch.ones((), dtype=b.dtype, device=b.device)
     P, Q, dens = [r], [None], []
     its = last = 0
@@ -57,13 +56,13 @@ def solve_lcd(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         alfa = num / nonzero_or_one(den)
         x = x + alfa * P[it]
         r = r - alfa * q_it
-        dp = ops.norm(r)
+        dp = ops.norm(r, axis)
         # build next direction: p = r, q = BA r, obliquely
         # orthogonalized sequentially (modified Gram-Schmidt)
         pn, qn = r, BA(r)
         for j in range(it + 1):
-            beta = -ops.dot(P[j], qn) / torch.where(dens[j] != 0, dens[j],
-                                                    one)
+            beta = -ops.dot(P[j], qn, axis) / torch.where(
+                dens[j] != 0, dens[j], one)
             pn = pn + beta * P[j]
             qn = qn + beta * Q[j]
         P.append(pn)
@@ -78,14 +77,13 @@ def solve_lcd(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
 def solve_tcqmr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     """KSPTCQMR (tcqmr.c): squared-Lanczos vectors + Givens rotations;
     monitors the QMR upper bound rnorm0·√(its+2)·Π|s| (tcqmr.c:130)."""
-    ops.require_serial(axis)
 
     def BA(v):
         return apply_pc(pc, A.mult(v))
 
     x = initial_guess(b, x0, cfg)
     r = preconditioned_residual(A, b, x, pc, cfg)
-    rnorm0_t = ops.norm(r)
+    rnorm0_t = ops.norm(r, axis)
     history, rnorm0, reason = start(cfg, rnorm0_t)
     rt = rnorm0_t.dtype                      # norms/products: real
     rdt = np_dtype(rt).type
@@ -113,7 +111,7 @@ def solve_tcqmr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         rhom1 = rho
         utmp = z - 2.0 * beta * p
         up1 = BA(utmp) - alpha * utmp + (f * beta * beta) * um1
-        dp1 = ops.norm(up1)
+        dp1 = ops.norm(up1, axis)
         f = 1.0 / positive_or_one(dp1)
         up1 = up1 * f
         p = f * (z - beta * p)
@@ -121,7 +119,7 @@ def solve_tcqmr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         beta_g = beta / nonzero_or_one(Gamma)
         eptmp = beta_g
         vp1 = BA(v) - alpha * v - beta_g * vm1
-        Gamma = ops.norm(vp1)
+        Gamma = ops.norm(vp1, axis)
         sG = positive_or_one(Gamma)
         vp1 = vp1 / sG
         vm1, v = v, vp1

@@ -28,13 +28,12 @@ def solve_minres(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     residual 2-norm like the reference: np0 = ||z||_2 (minres.c:98
     VecNorm(Z)) carried through the rotation recurrence
     np_k = np_{k-1}*|s_k| (minres.c:175)."""
-    ops.require_serial(axis)
     x = initial_guess(b, x0, cfg)
     r = b - A.mult(x) if cfg.guess_nonzero else b
     z = apply_pc(pc, r)
-    beta1_sq = torch.real(ops.dot(r, z))
+    beta1_sq = torch.real(ops.dot(r, z, axis))
     beta1 = torch.sqrt(torch.abs(beta1_sq))
-    dp0 = ops.norm(z)
+    dp0 = ops.norm(z, axis)
     history, rnorm0, reason = start(cfg, dp0, beta1_sq < 0, INDEFINITE_PC)
     # Hermitian operator: the Lanczos alpha is real — the rotation
     # algebra stays in the real dtype (minres.c works in PetscRealPart)
@@ -48,11 +47,11 @@ def solve_minres(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     while reason == ITERATING:
         v = z / beta
         Av = A.mult(v)
-        alpha = torch.real(ops.dot(v, Av))
+        alpha = torch.real(ops.dot(v, Av, axis))
         z_new = apply_pc(pc, Av) - (alpha / beta) * z \
             - (beta / beta_old) * z_old
         r_lanczos = Av - (alpha / beta) * r - (beta / beta_old) * r_old
-        beta_new_sq = torch.real(ops.dot(r_lanczos, z_new))
+        beta_new_sq = torch.real(ops.dot(r_lanczos, z_new, axis))
         beta_new = torch.sqrt(torch.abs(beta_new_sq))
         # QR via Givens on the tridiagonal
         delta = c * alpha - c_old * s * beta
@@ -86,22 +85,21 @@ def solve_lsqr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     runs on Z and the update basis W tracks Z — reproduced here. The
     monitored norm is the recursive estimate φ̄ (lsqr.c:209). Needs
     A.multT: an AIJ operator on the card."""
-    ops.require_serial(axis)
     n = A.shape[1]
     x = x0 if cfg.guess_nonzero else torch.zeros(n, dtype=b.dtype,
                                                  device=b.device)
     u = b - A.mult(x) if cfg.guess_nonzero else b
-    beta = ops.norm(u)
+    beta = ops.norm(u, axis)
     u = u / positive_or_one(beta)
 
     def bidiag(v):
         """(v, z, alpha) normalized: z = M⁻¹v, alpha = sqrt(vᴴz)."""
         if pc is None:
-            alpha = ops.norm(v)
+            alpha = ops.norm(v, axis)
             z = v
         else:
             z = apply_pc(pc, v)
-            alpha = torch.sqrt(torch.clamp(ops.dot(v, z).real, min=0.0))
+            alpha = torch.sqrt(torch.clamp(ops.dot(v, z, axis).real, min=0.0))
             z = z / positive_or_one(alpha)
         return v / positive_or_one(alpha), z, alpha
 
@@ -112,7 +110,7 @@ def solve_lsqr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     its = 0
     while reason == ITERATING:
         u = A.mult(v if pc is None else z) - alpha * u
-        beta = ops.norm(u)
+        beta = ops.norm(u, axis)
         u = u / positive_or_one(beta)
         v, z, alpha = bidiag(A.multT(u) - beta * v)
         rho = torch.sqrt(rhobar ** 2 + beta ** 2)

@@ -38,7 +38,6 @@ def solve_ir(A64, A32, b, pc32=None, cfg: KSPConfig = None,
     history the true residual norm after each sweep."""
     from petsctpu_torch.ksp.api import KSP_REGISTRY
 
-    ops.require_serial(axis)
     cfg = replace(cfg or KSPConfig(rtol=1e-12), **kw) if kw \
         else (cfg or KSPConfig(rtol=1e-12))
     inner_cfg = inner_cfg or KSPConfig(ksp_type="gmres", rtol=1e-5,
@@ -46,7 +45,7 @@ def solve_ir(A64, A32, b, pc32=None, cfg: KSPConfig = None,
     inner = KSP_REGISTRY[inner_cfg.ksp_type]
     b64 = b.to(torch.float64)
     x = torch.zeros_like(b64)
-    rnorm0 = float(to_host(ops.norm(b64))[0])
+    rnorm0 = float(to_host(ops.norm(b64, axis))[0])
     history = np.full(max_refine + 1, np.nan)
     history[0] = rnorm0
     its_total = 0
@@ -56,7 +55,7 @@ def solve_ir(A64, A32, b, pc32=None, cfg: KSPConfig = None,
         r32 = (b64 - A64.mult(x)).to(torch.float32)
         d = inner(A32, r32, torch.zeros_like(r32), pc32, inner_cfg, axis)
         x = x + d.x.to(torch.float64)
-        rn_prev, rn = rn, float(to_host(ops.norm(b64 - A64.mult(x)))[0])
+        rn_prev, rn = rn, float(to_host(ops.norm(b64 - A64.mult(x), axis))[0])
         its_total += int(d.its)
         history[k] = rn
         if not np.isfinite(rn):

@@ -40,17 +40,16 @@ def solve_symmlq(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     np0 = ||z||_2 then np = beta1·Π|s|/|c| (the CGNORM estimate,
     symmlq.c:91,163-167), and the exit move to the CG point
     x += (ceta/c)·w_bar. Requires symmetric A and SPD M."""
-    ops.require_serial(axis)
     x_base = initial_guess(b, x0, cfg)
     r = b - A.mult(x_base) if cfg.guess_nonzero else b
     z = apply_pc(pc, r)
-    dp0 = torch.real(ops.dot(r, z))
+    dp0 = torch.real(ops.dot(r, z, axis))
     beta1 = torch.sqrt(torch.clamp(dp0, min=0.0))
     sb1 = positive_or_one(beta1)
     v = r / sb1
     u = z / sb1
     wbar = u
-    np0 = ops.norm(z)
+    np0 = ops.norm(z, axis)
     history, np0_h, reason = start(cfg, np0, dp0 < 0, INDEFINITE_PC)
     zero = torch.zeros_like(b)
     one = torch.ones((), dtype=beta1.dtype, device=b.device)
@@ -74,12 +73,12 @@ def solve_symmlq(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
             ceta_oold, ceta_old = ceta_old, ceta
         # Lanczos
         r = A.mult(u)
-        alpha = torch.real(ops.dot(u, r))
+        alpha = torch.real(ops.dot(u, r, axis))
         z = apply_pc(pc, r)
         r = r - alpha * v - beta * vold
         z = z - alpha * u - beta * uold
         betaold = beta
-        dp = torch.real(ops.dot(r, z))
+        dp = torch.real(ops.dot(r, z, axis))
         beta = torch.sqrt(torch.clamp(dp, min=0.0))
         # QR factorization of the tridiagonal
         coold, cold = cold, c
@@ -116,12 +115,11 @@ def solve_gcr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     orthogonalization of the new direction against the stored A-images
     is one [k,n]@[n] product (the VecMDots of gcr.c:40); the window of
     m directions restarts when it wraps."""
-    ops.require_serial(axis)
     m = cfg.restart
     n = b.shape[0]
     x = initial_guess(b, x0, cfg)
     r = b - A.mult(x) if cfg.guess_nonzero else b
-    history, rnorm0, reason = start(cfg, ops.norm(r))
+    history, rnorm0, reason = start(cfg, ops.norm(r, axis))
     VV = torch.zeros((m, n), dtype=b.dtype, device=b.device)
     SS = torch.zeros((m, n), dtype=b.dtype, device=b.device)
     its = 0
@@ -130,7 +128,7 @@ def solve_gcr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         s = apply_pc(pc, r)
         v = A.mult(s)
         if k > 0:
-            betas = ops.mdot(v, VV[:k])
+            betas = ops.mdot(v, VV[:k], axis)
             v = v - betas @ VV[:k]
             s = s - betas @ SS[:k]
         # projection coefficient <v, r> = conj(v)·r
@@ -145,7 +143,7 @@ def solve_gcr(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         r = r - gamma * v
         VV[k] = v
         SS[k] = s
-        dp, bad = to_host(ops.norm(r), nv == 0)
+        dp, bad = to_host(ops.norm(r, axis), nv == 0)
         its += 1
         reason = advance(cfg, history, its, dp, rnorm0, bool(bad))
     return make_result(x, its, reason, history)
@@ -162,7 +160,6 @@ def solve_bcgsl(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     [l+1,n]@[n,l+1] product, then an SVD-based pseudo-inverse on the
     host (the residual stack goes numerically dependent near
     convergence; bcgsl.c uses LAPACK gelss with a drop tolerance)."""
-    ops.require_serial(axis)
     ell = max(1, int(cfg.bcgsl_ell))
     x = initial_guess(b, x0, cfg)
     r0 = preconditioned_residual(A, b, x, pc, cfg)
@@ -170,7 +167,7 @@ def solve_bcgsl(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     def B(v):
         return apply_pc(pc, A.mult(v))
 
-    history, rnorm0, reason = start(cfg, ops.norm(r0))
+    history, rnorm0, reason = start(cfg, ops.norm(r0, axis))
     zero = torch.zeros_like(b)
     R = [r0] + [zero] * ell
     U = [zero] * (ell + 1)
@@ -186,7 +183,7 @@ def solve_bcgsl(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         breakdown = torch.zeros((), dtype=torch.bool, device=b.device)
         # ---- BiCG part ----
         for j in range(ell):
-            rho1 = ops.dot(R[j], rt)
+            rho1 = ops.dot(R[j], rt, axis)
             safe = rho0 != 0
             beta = alpha * rho1 / torch.where(safe, rho0,
                                               torch.ones_like(rho0))
@@ -195,7 +192,7 @@ def solve_bcgsl(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
             for i in range(j + 1):
                 U[i] = R[i] - beta * U[i]
             U[j + 1] = B(U[j])
-            gamma_d = ops.dot(U[j + 1], rt)
+            gamma_d = ops.dot(U[j + 1], rt, axis)
             safe_g = gamma_d != 0
             alpha = rho0 / torch.where(safe_g, gamma_d,
                                        torch.ones_like(gamma_d))
@@ -216,7 +213,7 @@ def solve_bcgsl(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         R[0] = R[0] - g @ Rs[1:]
         U[0] = U[0] - g @ torch.stack(U[1:])
         omega = g[ell - 1]
-        (dp,) = to_host(ops.norm(R[0]))
+        (dp,) = to_host(ops.norm(R[0], axis))
         its += 1
         reason = advance(cfg, history, its, dp, rnorm0,
                          bool(hh[-1]) or g_h[ell - 1] == 0)
@@ -237,14 +234,13 @@ def solve_stcg(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     ||x|| <= radius, x moves to the boundary along p and the solve
     stops with CONVERGED_CG_NEG_CURVE / CONVERGED_CG_CONSTRAINED —
     exactly the semantics SNES NEWTONTR consumes."""
-    ops.require_serial(axis)
     bounded = cfg.radius > 0
     radius = cfg.radius
     x = torch.zeros_like(b)         # TR solves always start at the origin
     r = b
     z = apply_pc(pc, r)
-    rz = ops.dot(r, z)
-    history, rnorm0, reason = start(cfg, ops.norm(r))
+    rz = ops.dot(r, z, axis)
+    history, rnorm0, reason = start(cfg, ops.norm(r, axis))
     p = z
     its = 0
     false = torch.zeros((), dtype=torch.bool, device=b.device)
@@ -293,7 +289,6 @@ def solve_lgmres(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     cycle uses only (restart − aug_dim) directions even though no error
     approximations exist yet. The Hessenberg, rotations and
     least-squares solve are on the host, as in `ksp/gmres.py`."""
-    ops.require_serial(axis)
     m = cfg.restart
     k_aug = min(cfg.aug_dim, m - 1)
     n = b.shape[0]
@@ -305,7 +300,7 @@ def solve_lgmres(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
     its, reason, rnorm0, n_aug = 0, ITERATING, None, 0
     while reason == ITERATING:
         r = apply_pc(pc, b - A.mult(x))
-        beta_t = ops.norm(r)
+        beta_t = ops.norm(r, axis)
         (beta,) = to_host(beta_t)
         if its == 0:
             rnorm0 = beta
@@ -327,7 +322,7 @@ def solve_lgmres(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
             Z[j] = src
             w = apply_pc(pc, A.mult(src))
             w, h_t = _orthogonalize(V, w, j, cfg)
-            hj1_t = ops.norm(w)
+            hj1_t = ops.norm(w, axis)
             hh = torch.cat([h_t, hj1_t.to(h_t.dtype)[None]]).cpu().numpy()
             hj1 = hh[-1].real
             V[j + 1] = w / hj1_t if hj1 > 0 else w
@@ -344,6 +339,6 @@ def solve_lgmres(A, b, x0, pc, cfg: KSPConfig, axis=None) -> SolveResult:
         if k_aug > 0:
             # store the normalized error approximation for the next cycle
             AUG = torch.roll(AUG, 1, dims=0)
-            AUG[0] = dx / positive_or_one(ops.norm(dx))
+            AUG[0] = dx / positive_or_one(ops.norm(dx, axis))
         n_aug += 1
     return make_result(x, its, reason, history)

@@ -177,7 +177,9 @@ def solve_fgmres_host(A, b, x0, pc, cfg: KSPConfig, axis=None) \
     with cgs_refine "always"), fgmres.c conventions; restarts. The
     vectors are fp64 on b's device; H, the rotations and the cycle's
     solve are fp64 on the host."""
-    ops.require_serial(axis)
+    if axis is not None:
+        raise ValueError("fgmres_host is a serial/host path (between-cycle "
+                         "LAPACK on the host, as in petsctpu)")
     f64 = torch.float64
     bn = b.to(f64)
     x = x0.to(f64).clone()
@@ -185,7 +187,7 @@ def solve_fgmres_host(A, b, x0, pc, cfg: KSPConfig, axis=None) \
     restart = max(cfg.restart, 1)
     history = np.full(maxits + 1, np.nan)
     r = bn - A.mult(x).to(f64)
-    beta = float(to_host(ops.norm(r))[0])
+    beta = float(to_host(ops.norm(r, axis))[0])
     rnorm0 = beta
     history[0] = beta
     monitor(cfg, 0, beta)
@@ -217,7 +219,7 @@ def solve_fgmres_host(A, b, x0, pc, cfg: KSPConfig, axis=None) \
                 h2 = Vj @ w
                 w = w - h2 @ Vj
                 h = h + h2
-            hh = to_host(*h, ops.norm(w))
+            hh = to_host(*h, ops.norm(w, axis))
             H[:j + 1, j] = hh[:-1]
             hj1 = float(hh[-1])
             H[j + 1, j] = hj1
@@ -261,6 +263,6 @@ def solve_fgmres_host(A, b, x0, pc, cfg: KSPConfig, axis=None) \
         if reason != ConvergedReason.ITERATING:
             break
         r = bn - A.mult(x).to(f64)
-        beta = float(to_host(ops.norm(r))[0])
+        beta = float(to_host(ops.norm(r, axis))[0])
     return make_result(x.to(b.dtype), its, reason,
                        history.astype(real_dtype(b.dtype)))

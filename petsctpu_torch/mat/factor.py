@@ -40,7 +40,8 @@ import torch
 from petsctpu_torch.core.logging import log_event
 from petsctpu_torch.device import np_dtype, resolve_device
 from petsctpu_torch.mat import host_factor
-from petsctpu_torch.ops.sptrsv import (CLUSTER, SMEM_SHAPES, device_shape,
+from petsctpu_torch.ops.sptrsv import (CLUSTER, CLUSTER16, SMEM_SHAPES,
+                                      device_pair_shape, device_shape,
                                       level_order, segments, sptrsv,
                                       sptrsv_lu, with_slack)
 
@@ -411,7 +412,8 @@ class SpTRSVPlan:
             with log_event("MatSolveSegments"):
                 self.lseg = torch.from_numpy(segments(
                     order[0], order[1], n_, CLUSTER)).to(dev)
-        self._fuse = None            # (upper, whether the pair fuses)
+        self._fuse = None            # (upper, whether it fuses, shape)
+        self._lseg16 = None          # CLUSTER16 ranks' segments
 
     @property
     def stacked(self) -> bool:
@@ -439,21 +441,36 @@ class SpTRSVPlan:
         """Whether this plan (L) and `upper` (U, the same subdomains)
         solve in one sptrsv_lu launch: both level plans of one size, type
         and device whose pair takes a shared shape on that device
-        (ops/sptrsv.device_shape for the wider level; every pair on the
-        CPU, where the plain version runs). Decided once a pair: a PC
+        (ops/sptrsv.device_pair_shape for the wider level; every pair on
+        the CPU, where the plain version runs). Decided once a pair: a PC
         asks at every apply."""
-        if self._fuse is not None and self._fuse[0] is upper:
-            return self._fuse[1]
-        ok = (isinstance(upper, SpTRSVPlan)
-              and self.stacked == upper.stacked
-              and tuple(self.dinv.shape) == tuple(upper.dinv.shape)
-              and self.dtype == upper.dtype
-              and self.device == upper.device
-              and device_shape(self.nb, self.n, max(self.rmax, upper.rmax),
-                               self.dtype, self.device)
-              in SMEM_SHAPES + ("plain",))
-        self._fuse = (upper, ok)
-        return ok
+        if self._fuse is None or self._fuse[0] is not upper:
+            shape = None
+            if (isinstance(upper, SpTRSVPlan)
+                    and self.stacked == upper.stacked
+                    and tuple(self.dinv.shape) == tuple(upper.dinv.shape)
+                    and self.dtype == upper.dtype
+                    and self.device == upper.device):
+                shape = self.pair_shape(upper)
+            self._fuse = (upper, shape in SMEM_SHAPES + ("plain",), shape)
+        return self._fuse[1]
+
+    def pair_shape(self, upper) -> str:
+        """The fused solve's shape of this plan (L) and `upper` (U)."""
+        return device_pair_shape(self.nb, self.n, max(self.rmax, upper.rmax),
+                                 self.dtype, self.device)
+
+    def segments16(self) -> torch.Tensor:
+        """The plan's (level, rank) segments over CLUSTER16 ranks, which
+        the cluster16-smem shape of a fused solve reads; derived at the
+        first such solve and kept."""
+        if self._lseg16 is None:
+            with log_event("MatSolveSegments"):
+                lstart, lrows = (t.cpu().numpy() for t in self.order[:2])
+                self._lseg16 = torch.from_numpy(segments(
+                    lstart, lrows, self.dinv.shape[-1], CLUSTER16)).to(
+                        self.device)
+        return self._lseg16
 
 
 def lu_solve(Lplan, Uplan, b: torch.Tensor) -> torch.Tensor:
@@ -463,9 +480,11 @@ def lu_solve(Lplan, Uplan, b: torch.Tensor) -> torch.Tensor:
     plans)."""
     if not (isinstance(Lplan, SpTRSVPlan) and Lplan.fuses(Uplan)):
         return Uplan.solve(Lplan.solve(b))
+    lseg = (Lplan.lseg, Uplan.lseg)
+    if Lplan._fuse[2] == "cluster16-smem":
+        lseg = (Lplan.segments16(), Uplan.segments16())
     x = sptrsv_lu(Lplan.order, Uplan.order, b if Lplan.stacked else b[None],
-                  nlevs=(Lplan.nlevs, Uplan.nlevs),
-                  lseg=(Lplan.lseg, Uplan.lseg),
+                  nlevs=(Lplan.nlevs, Uplan.nlevs), lseg=lseg,
                   rmax=(Lplan.rmax, Uplan.rmax))
     return x if Lplan.stacked else x[0]
 
@@ -531,22 +550,29 @@ def sptrsv_arrays(T, lower: bool, unit_diag: bool, dtype=None,
     return level_rows, cols, vals, dinv, n, nlev
 
 
+def common_pad(tris, lower: bool, unit_diag: bool) -> tuple:
+    """The (nlev, rmax, K) that plans of all `tris` are padded to, so
+    that they stack (petsctpu/pc/parallel.py::_stacked_tri_plans)."""
+    nlev = rmax = K = 1
+    for T in tris:
+        T = sp.csr_matrix(T)
+        lev = _levels(T, lower)
+        nl = int(lev.max()) + 1 if T.shape[0] else 1
+        rm = max(int(np.bincount(lev, minlength=nl).max()), 1)
+        offk = max(int((np.diff(T.indptr) - (0 if unit_diag else 1))
+                       .max()) if T.nnz else 0, 1)
+        nlev, rmax, K = max(nlev, nl), max(rmax, rm), max(K, offk + 1)
+    return nlev, rmax, K
+
+
 def stacked_sptrsv_plan(tris, lower: bool, unit_diag: bool, dtype=None,
                         device=None) -> SpTRSVPlan:
     """One stacked plan of same-size triangles, each padded to the common
     (nlev, rmax, K): petsctpu/pc/parallel.py::_stacked_tri_plans, whose
     vmap over subdomains becomes the plan's leading axis."""
     with log_event("MatSolvePlan"):
-        nlev = rmax = K = 1
-        for T in tris:
-            T = sp.csr_matrix(T)
-            lev = _levels(T, lower)
-            nl = int(lev.max()) + 1 if T.shape[0] else 1
-            rm = max(int(np.bincount(lev, minlength=nl).max()), 1)
-            offk = max(int((np.diff(T.indptr) - (0 if unit_diag else 1))
-                           .max()) if T.nnz else 0, 1)
-            nlev, rmax, K = max(nlev, nl), max(rmax, rm), max(K, offk + 1)
-        parts = [sptrsv_arrays(T, lower, unit_diag, dtype, (nlev, rmax, K))
+        pad = common_pad(tris, lower, unit_diag)
+        parts = [sptrsv_arrays(T, lower, unit_diag, dtype, pad)
                  for T in tris]
         return SpTRSVPlan(*(np.stack([p[i] for p in parts])
                             for i in range(4)), parts[0][4], parts[0][5],

@@ -1,5 +1,6 @@
 """ctypes bindings of the host graph code (csrc/host_graph.cpp): the
-AMG setup's aggregation and the probe refresh's column coloring.
+AMG setup's aggregation, the probe refresh's column coloring and the
+multilevel k-way partition (mat/partition.py).
 
 The library is built by g++ into petsctpu_torch/_build/ at first use
 (ops/_build.py::load_host); a missing compiler or a failed build raises,
@@ -29,6 +30,9 @@ def _lib() -> ctypes.CDLL:
     lib.greedy_color.argtypes = [i64, i64, p64, p32, p64, p32, p32]
     lib.aggregate.restype = i64
     lib.aggregate.argtypes = [i64, p64, p32, p64]
+    lib.kway_partition.restype = i64
+    lib.kway_partition.argtypes = [i64, p64, p32, ctypes.c_void_p, i64,
+                                   ctypes.c_uint64, p32]
     return lib
 
 
@@ -54,3 +58,21 @@ def greedy_color(A) -> np.ndarray:
                         np.ascontiguousarray(A.indptr, np.int64),
                         np.ascontiguousarray(A.indices, np.int32), out)
     return out
+
+
+def kway_partition(indptr, indices, nparts: int, ewts=None,
+                   seed: int = 1) -> tuple:
+    """Multilevel k-way partition of a symmetric CSR graph (HEM coarsen,
+    greedy grow, FM refine): (int32 part a vertex, weighted edge cut)."""
+    n = len(indptr) - 1
+    part = np.zeros(n, np.int32)
+    if ewts is not None:
+        ewts = np.ascontiguousarray(ewts, np.int64)
+    cut = _lib().kway_partition(
+        n, np.ascontiguousarray(indptr, np.int64),
+        np.ascontiguousarray(indices, np.int32),
+        None if ewts is None else ewts.ctypes.data_as(ctypes.c_void_p),
+        nparts, seed, part)
+    if cut < 0:
+        raise ValueError("kway_partition failed")
+    return part, int(cut)

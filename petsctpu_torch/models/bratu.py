@@ -10,8 +10,8 @@ neighbours taken as 0; boundary rows 2(hy/hx + hx/hy)·u).
 A residual takes u of shape [n] or a batch [B, n] (the FD-coloring
 assembly evaluates every color at once), writes nothing in place and
 reads no value to the host, so torch.func.jvp and vjp run through it.
-The sharded residual waits for the distributed port (ROADMAP queue 1
-item 14).
+The sharded residual takes the rank's parallel.comm.Comm and fetches
+its neighbours' boundary rows with Comm.ppermute.
 """
 
 from __future__ import annotations
@@ -52,6 +52,48 @@ def bratu_residual(da, lam: float = 6.0):
         return torch.where(boundary, bscale * U, interior).reshape(u.shape)
 
     return F
+
+
+def bratu_residual_sharded(da, nshards: int, mloc: int = None,
+                           lam: float = 6.0):
+    """The rank's Bratu residual F(u_local, comm) for a World whose ranks
+    split the leading grid axis (the reference's DMDA x-partition): each
+    evaluation exchanges one boundary row with each neighbour rank (two
+    Comm.ppermute, the DMGlobalToLocal ghost scatter before
+    FormFunctionLocal, dm.c:1620). Rows past the true grid (padding to
+    nshards·mloc) have the identity residual F = u. Returns (F, padded
+    grid)."""
+    m, n = da.grid
+    if mloc is None:
+        mloc = -(-m // nshards)
+    assert mloc * nshards >= m
+    hx = 1.0 / (m - 1)
+    hy = 1.0 / (n - 1)
+    fwd = [(i, i + 1) for i in range(nshards - 1)]
+    bwd = [(i + 1, i) for i in range(nshards - 1)]
+
+    def F(u, comm):
+        U = u.reshape(*u.shape[:-1], mloc, n)
+        gi = comm.rank * mloc + torch.arange(mloc, device=u.device)[:, None]
+        j = torch.arange(n, device=u.device)[None, :]
+        boundary = (gi == 0) | (gi == m - 1) | (j == 0) | (j == n - 1)
+        pad_row = gi >= m
+        zero = torch.zeros((), dtype=u.dtype, device=u.device)
+        Ub = torch.where(boundary | pad_row, zero, U)  # ex5.c: bnd nbrs ≡ 0
+        above, below = comm.ppermutes([(Ub[..., -1:, :].contiguous(), fwd),
+                                       (Ub[..., :1, :].contiguous(), bwd)])
+        Ue = torch.cat([above, Ub, below], dim=-2)        # [mloc+2, n]
+        uW, uE = Ue[..., :-2, :], Ue[..., 2:, :]
+        Pj = TF.pad(Ub, (1, 1))
+        uS, uN = Pj[..., :-2], Pj[..., 2:]
+        interior = ((2 * U - uW - uE) * (hy / hx)
+                    + (2 * U - uS - uN) * (hx / hy)
+                    - lam * hx * hy * torch.exp(U))
+        bscale = 2.0 * (hy / hx + hx / hy)
+        out = torch.where(boundary, bscale * U, interior)
+        return torch.where(pad_row, U, out).reshape(u.shape)
+
+    return F, (mloc * nshards, n)
 
 
 def bratu_jacobian_template(da, dtype=np.float64, device=None):

@@ -8,8 +8,8 @@ in the reference's order (bottom, top, left, right: later edges own the
 corners). Defaults are ex19's: lidvelocity = 1/(mx·my), prandtl = 1,
 grashof = 1. The state is x.reshape(my, mx, 4), j (y) the slow axis as
 the reference's x[j][i]. A residual takes x of shape [n] or [B, n] and
-writes nothing in place. The sharded residual waits for the distributed
-port (ROADMAP queue 1 item 14).
+writes nothing in place. The sharded residual waits for slice 15 of the
+distributed port (ROADMAP queue 1 item 14).
 """
 
 from __future__ import annotations

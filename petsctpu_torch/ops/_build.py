@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from petsctpu_torch.core import rankctx
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
@@ -168,8 +170,20 @@ def launch(fn, index: int, args) -> int:
         torch.cuda._maybe_exchange_device(prev)
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def counted(wrapper) -> None:
     """Add one to wrapper.launches, unless the current stream is being
-    captured into a CUDA graph (a captured call launches nothing)."""
-    if not torch._C._cuda_isCurrentStreamCapturing():
+    captured into a CUDA graph (a captured call launches nothing). The
+    rank threads of a parallel.comm.World launch at once, so the count
+    is taken under a lock, and a launch on a rank's thread also counts
+    in the launches of the RankCounters bound to it (core/rankctx)."""
+    if torch._C._cuda_isCurrentStreamCapturing():
+        return
+    mine = rankctx.current()
+    with _COUNT_LOCK:
         wrapper.launches += 1
+        if mine is not None:
+            name = wrapper.__name__
+            mine.launches[name] = mine.launches.get(name, 0) + 1

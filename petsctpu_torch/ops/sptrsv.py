@@ -33,10 +33,11 @@ from petsctpu_torch.ops import _build
 
 # the kernel's launch shapes (csrc/sptrsv.cu), as launch_shape picks them
 SHAPES = {"block": 0, "cluster": 1, "grid": 2, "block-smem": 3,
-          "cluster-smem": 4}
-SMEM_SHAPES = ("block-smem", "cluster-smem")
+          "cluster-smem": 4, "cluster16-smem": 5}
+SMEM_SHAPES = ("block-smem", "cluster-smem", "cluster16-smem")
 BLOCK_ROWS = 1024     # the most threads a block
 CLUSTER = 8           # blocks a cluster, the ranks of a plan's rows
+CLUSTER16 = 16        # the fused solve's wider cluster (non-portable)
 STAGES = 4            # levels of the plan in the shared shapes' ring
 SLOTS = 4             # slots a row in the ring (K > SLOTS: none there)
 SLACK = 16            # bytes readable past a plan array's end (the ring
@@ -55,6 +56,12 @@ def consumers_for(rows: int) -> int:
     return most if rows >= most else -(-rows // 32) * 32
 
 
+def ranks_of(shape: str) -> int:
+    """The blocks of a cluster that share a plan's x in a shared shape."""
+    return {"cluster-smem": CLUSTER, "cluster16-smem": CLUSTER16}.get(
+        shape, 1)
+
+
 def _up16(b: int) -> int:
     return -(-b // 16) * 16
 
@@ -66,7 +73,7 @@ def smem_bytes(shape: str, n: int, rmax: int, itemsize: int) -> int:
     the ring (a 16-byte header, then the consumers' rows, 1/diag and
     SLOTS slots of cols and vals, each array with 32 bytes of alignment
     slack), each part 16-byte aligned (csrc/sptrsv.cu::smem_bytes)."""
-    ranks = CLUSTER if shape == "cluster-smem" else 1
+    ranks = ranks_of(shape)
     consumers = consumers_for(-(-rmax // ranks))
     stage = 16 + consumers * (1 + SLOTS) * (4 + itemsize) + 128
     return (_up16(-(-n // ranks) * itemsize) + _up16(8 * STAGES + 16)
@@ -110,6 +117,20 @@ def launch_shape(nb: int, n: int, rmax: int, itemsize: int,
     if rmax <= BLOCK_ROWS:
         return "block"
     return "grid" if nb == 1 else "cluster"
+
+
+def pair_shape(nb: int, n: int, rmax: int, itemsize: int, smem: int) -> str:
+    """The fused solve's shape (sptrsv_lu, rmax the wider plan's):
+    launch_shape's where that is a shared one, else, for one plan whose
+    x fits a cluster of CLUSTER16 blocks, cluster16-smem (a non-portable
+    cluster size, taken by the fused solve only: a single triangle keeps
+    launch_shape's), else launch_shape's, where no fused launch runs."""
+    shape = launch_shape(nb, n, rmax, itemsize, smem)
+    if shape in SMEM_SHAPES or nb != 1:
+        return shape
+    if smem_bytes("cluster16-smem", n, rmax, itemsize) <= smem:
+        return "cluster16-smem"
+    return shape
 
 
 def segments(lstart, lrows, n: int, ranks: int = CLUSTER) -> np.ndarray:
@@ -272,7 +293,11 @@ def _check(lstart, lrows, lcols, lvals, ldinv, b, nlevs, lseg, rmax,
               "b": (b, b.dtype, (nb, n)),
               "nlevs": (nlevs, torch.int32, (nb,))}
     if lseg is not None:
-        expect["lseg"] = (lseg, torch.int32, (nb, nlev * CLUSTER + 1))
+        # CLUSTER or CLUSTER16 ranks' segments (_need_segments matches
+        # them to the shape)
+        ranks = CLUSTER16 if lseg.dim() == 2 and lseg.shape[-1] == \
+            nlev * CLUSTER16 + 1 else CLUSTER
+        expect["lseg"] = (lseg, torch.int32, (nb, nlev * ranks + 1))
     for what, (t, dt, shape) in expect.items():
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {what} must be {dt} {shape}, got "
@@ -319,6 +344,16 @@ def _smem_optin(index: int) -> int:
     return out.value
 
 
+def device_pair_shape(nb: int, n: int, rmax: int, dtype,
+                      device: torch.device) -> str:
+    """pair_shape on CUDA device `device`; "plain" on the CPU."""
+    if device.type != "cuda":
+        return "plain"
+    return pair_shape(nb, n, rmax, dtype.itemsize, _smem_optin(
+        device.index if device.index is not None else
+        torch.cuda.current_device()))
+
+
 def device_shape(nb: int, n: int, rmax: int, dtype,
                  device: torch.device) -> str:
     """launch_shape on CUDA device `device` (its shared memory asked
@@ -330,11 +365,21 @@ def device_shape(nb: int, n: int, rmax: int, dtype,
         torch.cuda.current_device()))
 
 
-def _need_segments(name, shape, lsegs):
-    if shape == "cluster-smem" and any(t is None for t in lsegs):
-        raise ValueError(f"{name}: the cluster-smem shape reads the plan's "
+def _need_segments(name, shape, lsegs, nlevs=()):
+    """The cluster shapes read each plan's (level, rank) segments of
+    their own rank count."""
+    if shape not in ("cluster-smem", "cluster16-smem"):
+        return
+    if any(t is None for t in lsegs):
+        raise ValueError(f"{name}: the {shape} shape reads the plan's "
                          "(level, rank) segments: lseg must be given "
                          "(ops.sptrsv.segments)")
+    ranks = ranks_of(shape)
+    for t, nlev in zip(lsegs, nlevs):
+        if t.shape[-1] != nlev * ranks + 1:
+            raise ValueError(f"{name}: the {shape} shape reads segments of "
+                             f"{ranks} ranks, lseg has {t.shape[-1]} "
+                             f"entries for {nlev} levels")
 
 
 def _raise(name, rc):
@@ -365,7 +410,7 @@ def sptrsv(lstart, lrows, lcols, lvals, ldinv, b, *, nlevs, lseg,
         return x
     index = b.get_device()
     shape = launch_shape(nb, n, rmax, b.element_size(), _smem_optin(index))
-    _need_segments("sptrsv", shape, (lseg,))
+    _need_segments("sptrsv", shape, (lseg,), (nlev,))
     if shape in SMEM_SHAPES:
         _need_slack("sptrsv", (("lrows", lrows), ("lcols", lcols),
                                ("lvals", lvals), ("ldinv", ldinv)))
@@ -391,9 +436,9 @@ def sptrsv_lu(lower, upper, b, *, nlevs, lseg, rmax) -> torch.Tensor:
     """x = U⁻¹ L⁻¹ b for nb stacked pairs of plans in one launch: x [nb,
     n] (see sptrsv_lu_plain). lower and upper are L's and U's level order
     (lstart, lrows, lcols, lvals, ldinv); nlevs, lseg (either None
-    outside the cluster-smem shape) and rmax are pairs, L's and then U's
-    (see sptrsv). The pair must take a shared shape
-    (block-smem or cluster-smem for the wider rmax), where y = L⁻¹ b stays
+    outside the cluster shapes; of CLUSTER16 ranks in cluster16-smem)
+    and rmax are pairs, L's and then U's (see sptrsv). The pair must take
+    a shared shape (pair_shape for the wider rmax), where y = L⁻¹ b stays
     in shared memory between the triangles; else it raises, and the
     caller makes two sptrsv launches (mat/factor.lu_solve decides)."""
     for what, v in (("lower", lower), ("upper", upper), ("nlevs", nlevs),
@@ -413,12 +458,12 @@ def sptrsv_lu(lower, upper, b, *, nlevs, lseg, rmax) -> torch.Tensor:
         return x
     index = b.get_device()
     wide = max(rmax)
-    shape = launch_shape(nb, n, wide, b.element_size(), _smem_optin(index))
+    shape = pair_shape(nb, n, wide, b.element_size(), _smem_optin(index))
     if shape not in SMEM_SHAPES:
         raise ValueError(f"sptrsv_lu: {nb} plans of {n} rows take the "
                          f"{shape} shape, not a shared one: solve the two "
                          "triangles with sptrsv")
-    _need_segments("sptrsv_lu", shape, lseg)
+    _need_segments("sptrsv_lu", shape, lseg, (lnlev, unlev))
     _need_slack("sptrsv_lu", [(f"{tri} {what}", t)
                               for tri, plan in (("L", lower), ("U", upper))
                               for what, t in zip(("lrows", "lcols", "lvals",

@@ -11,8 +11,8 @@ and the rigid-body-mode and blocked routes for elasticity), asa
 PCs: fieldsplit, ksp, composite, mat, shell, eisenstat, galerkin,
 redistribute, lsc, svd, cp, spai, supportgraph, exotic/wb and tfs;
 and over the Mat formats, nn and bddc (on a MatIS) and fft (the DST
-Poisson solver). hmpi raises NotImplementedError naming its ROADMAP
-item.
+Poisson solver); and hmpi, an inner distributed solve over a World of
+rank threads (pc/parallel.py).
 """
 
 from __future__ import annotations
@@ -27,15 +27,9 @@ from petsctpu_torch.pc.sor import make_inode_sor, make_sor
 
 PC_REGISTRY = {}
 
-_Q = "ROADMAP queue 1 item"
-_LATER = {
-    # HMPI partitions over a device mesh (sharded AIJ)
-    "hmpi": f"{_Q} 14",
-}
-
-
 _PORTED = {"none", "jacobi", "pbjacobi", "lu", "cholesky", "redundant", "mg",
-           "gamg", "asa", "ilu", "icc", "sor", "bjacobi", "asm", "gasm"}
+           "gamg", "asa", "ilu", "icc", "sor", "bjacobi", "asm", "gasm",
+           "hmpi"}
 
 
 def register_pc(name: str, factory) -> None:
@@ -111,15 +105,15 @@ def make_pc(pc_type: str, A=None, A_host=None, options: Options = None,
         from petsctpu_torch.pc.asa import make_asa
         _require_host(A_host, "asa")
         return make_asa(A_host, dtype=dt, options=opts, device=dev)
+    if pc_type == "hmpi":
+        from petsctpu_torch.pc.parallel import make_hmpi
+        _require_host(A_host, "hmpi")
+        return make_hmpi(A_host, options=opts, dtype=dt, device=dev)
     if pc_type in _SLICE8:
         return _SLICE8[pc_type](A, A_host, opts, axis, dt, dev)
     if pc_type in _SLICE12:
         return _SLICE12[pc_type](A, A_host, opts, axis, dt, dev)
-    if pc_type in _LATER:
-        raise NotImplementedError(
-            f"pc_type={pc_type} is not ported yet ({_LATER[pc_type]})")
-    known = (set(PC_REGISTRY) | set(_LATER) | _PORTED | set(_SLICE8)
-             | set(_SLICE12))
+    known = set(PC_REGISTRY) | _PORTED | set(_SLICE8) | set(_SLICE12)
     raise ValueError(f"unknown pc_type {pc_type!r}; known: {sorted(known)}")
 
 

@@ -63,6 +63,15 @@ class SNESResult(NamedTuple):
         return int(self.reason) > 0
 
 
+def require_serial(axis) -> None:
+    """The nonlinear solvers whose distributed form waits for slice 15
+    of ROADMAP queue 1 item 14 (Anderson, NGMRES, NASM) raise on a Comm."""
+    if axis is not None:
+        raise NotImplementedError(
+            "this SNES type runs serially only; its distributed form is "
+            "ROADMAP queue 1 item 14, slice 15")
+
+
 def configure(cfg: Optional[SNESConfig], kw, base: SNESConfig = None):
     """cfg (or `base`, or the defaults) with the fields of kw replaced."""
     cfg = cfg or base or SNESConfig()

@@ -18,6 +18,7 @@ import torch
 from petsctpu_torch.ksp.common import KSPConfig
 from petsctpu_torch.snes.api import (Monitor, SNESConfig, SNESResult,
                                      configure, snes_solve)
+from petsctpu_torch.snes.api import require_serial
 from petsctpu_torch.vec import ops
 
 
@@ -45,7 +46,7 @@ def snes_nasm(F: Callable, x0: torch.Tensor, subdomains: Sequence,
       "restrict" — restricted additive Schwarz: solve on the overlapping
                    subdomain, write back only its `owned` points."""
     cfg = configure(cfg, kw)
-    ops.require_serial(axis)
+    require_serial(axis)
     dev = x0.device
     subs = [torch.as_tensor(np.asarray(s, np.int64), device=dev)
             for s in subdomains]

@@ -20,6 +20,7 @@ from petsctpu_torch.ksp.common import to_host
 from petsctpu_torch.snes.api import (Monitor, SNESConfig, SNESResult,
                                      _linesearch_cp, _linesearch_l2,
                                      configure, jacobian_builder)
+from petsctpu_torch.snes.api import require_serial
 from petsctpu_torch.vec import ops
 
 R = SNESConvergedReason
@@ -185,7 +186,7 @@ def snes_anderson(F: Callable, x0: torch.Tensor, window: int = 5,
     combines. npc: an optional nonlinear preconditioner x → x' applied
     to the accelerated point each iteration."""
     cfg = configure(cfg, kw)
-    ops.require_serial(axis)
+    require_serial(axis)
     dtype, dev = x0.dtype, x0.device
     n, w = x0.shape[0], window
     Fx = F(x0)
@@ -288,7 +289,7 @@ def snes_ngmres(F: Callable, x0: torch.Tensor, msize: int = 30,
     epsilonB, deltaB) and DIFFERENCE restart (gammaC, restart_it = 2)
     with the reference's default constants (snesngmres.c:726-742)."""
     cfg = configure(cfg, kw)
-    ops.require_serial(axis)
+    require_serial(axis)
     dtype, dev = x0.dtype, x0.device
     n, m = x0.shape[0], msize
     Fc = F(x0)

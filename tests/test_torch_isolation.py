@@ -56,7 +56,11 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "mat.nest", "mat.matis", "mat.fft", "pc.nn", "pc.bddc",
               "models.ddpoisson", "dm", "dm.section", "dm.dt", "dm.plex",
               "dm.label", "dm.interp", "dm.gmsh", "dm.exodus", "dm.ao",
-              "dm.composite", "dm.shell"):
+              "dm.composite", "dm.shell", "core.layout", "core.rankctx",
+              "core.commaudit", "parallel", "parallel.comm", "parallel.plan",
+              "parallel.pmat", "parallel.pbaij", "parallel.pstencil",
+              "parallel.api", "parallel.subcomm", "parallel.psnes",
+              "pc.parallel", "mat.partition", "dm.decomp"):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (

@@ -337,19 +337,17 @@ def test_exotic(etype, direct):
 
 
 def test_every_slice8_type_builds_and_later_types_name_their_item():
-    from petsctpu_torch.pc.api import _LATER, _SLICE8
+    from petsctpu_torch.pc.api import _SLICE8
 
     assert set(_SLICE8) == {
         "fieldsplit", "ksp", "composite", "mat", "shell", "eisenstat",
         "galerkin", "redistribute", "lsc", "svd", "cp", "supportgraph",
         "exotic", "wb", "tfs", "spai"}
     A, _ = ex2()
-    # bddc, nn and fft came with the Mat formats (slice 12); only hmpi
-    # still waits for its item
+    # bddc, nn and fft came with the Mat formats (slice 12), hmpi with
+    # the distributed layer (slice 14): no type waits for its item
     from petsctpu_torch.pc.api import _SLICE12
+    from petsctpu_torch.pc.parallel import HMPIPC
     assert set(_SLICE12) == {"bddc", "nn", "fft"}
-    assert set(_LATER) == {"hmpi"}
-    for name, item in (("hmpi", 14),):
-        assert _LATER[name] == f"ROADMAP queue 1 item {item}"
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            make_pc(name, A=aij_from_scipy(A, device=CPU), A_host=A)
+    assert isinstance(make_pc("hmpi", A=aij_from_scipy(A, device=CPU),
+                              A_host=A), HMPIPC)

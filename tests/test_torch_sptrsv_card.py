@@ -217,3 +217,32 @@ def test_cluster_smem_barriers_hold_over_seeds_and_repeats(dt):
         for _ in range(25):
             assert torch.equal(L.solve(b), ref), seed
             assert torch.equal(tfactor.lu_solve(L, U, b), ref_lu), seed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_cluster16_fused_solve_equals_plain_over_seeds(dt):
+    """A single plan whose x fits no cluster of 8 blocks but one of 16
+    fuses in the cluster16-smem shape (a non-portable cluster size, the
+    fused solve only; each triangle alone keeps launch_shape's): the
+    fused solve through lu_solve against the plain version, bit for bit,
+    on plans whose every level reads across the 16 ranks, 4 seeds, each
+    solved 10 times (the one-rank-a-plan bjacobi ILU(0) of ex45 at 128³
+    over 4 ranks, 524,288 fp32 rows, takes it)."""
+    dev = _card()
+    n = (1 << 21) // np.dtype(dt).itemsize    # x of 2 MiB: 256 KiB a rank
+    for seed in range(4):                     # of 8, 128 KiB of 16
+        rng = np.random.default_rng(200 + seed)
+        L = tfactor.make_sptrsv_plan(_spread(n, 256, rng), True, False, dt,
+                                     device=dev)
+        U = tfactor.make_sptrsv_plan(_mirror(_spread(n, 229, rng)), False,
+                                     False, dt, device=dev)
+        assert trsv.device_shape(1, n, max(L.rmax, U.rmax), L.dtype,
+                                 L.device) not in trsv.SMEM_SHAPES
+        assert L.pair_shape(U) == "cluster16-smem" and L.fuses(U)
+        b = torch.from_numpy(rng.standard_normal(n)).to(dev, L.dtype)
+        ref = trsv.sptrsv_lu_plain(L.order, U.order, b[None])[0]
+        before = trsv.sptrsv_lu.launches
+        for _ in range(10):
+            assert torch.equal(tfactor.lu_solve(L, U, b), ref), seed
+        assert trsv.sptrsv_lu.launches == before + 10

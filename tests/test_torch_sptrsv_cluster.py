@@ -321,3 +321,46 @@ def test_icc_apply_keeps_two_solves(monkeypatch):
         "sptrsv") or real(*a, **k))
     pc.apply(torch.ones(512, dtype=torch.float64))
     assert calls == ["sptrsv", "sptrsv"]
+
+
+# (nb, n, rmax, itemsize, smem) -> (launch_shape, pair_shape)
+PAIR_TABLE = [
+    ((8, 262144, 1984, 4, H100), ("cluster-smem", "cluster-smem")),
+    # one rank's block of ex45 128³ over 4 ranks, fp32: x fits a cluster
+    # of 16 blocks only, which the fused solve alone takes
+    ((1, 524288, 3840, 4, H100), ("grid", "cluster16-smem")),
+    ((2, 524288, 3840, 4, H100), ("cluster", "cluster")),
+    ((1, 2097152, 12288, 4, H100), ("grid", "grid")),
+    ((1, 4194304, 1, 4, H100), ("block", "block")),
+    ((1, 300, 3000, 8, 0), ("grid", "grid")),
+]
+
+
+@pytest.mark.parametrize("args,shapes", PAIR_TABLE,
+                         ids=[f"{s[1]}-{a[:4]}" for a, s in PAIR_TABLE])
+def test_pair_shape_takes_a_cluster_of_16_for_one_plan_only(args, shapes):
+    assert (trsv.launch_shape(*args), trsv.pair_shape(*args)) == shapes
+    nb, n, rmax, es, smem = args
+    if shapes[1] in trsv.SMEM_SHAPES:
+        assert trsv.smem_bytes(shapes[1], n, rmax, es) <= smem
+    assert trsv.ranks_of(shapes[1]) == {"cluster-smem": 8,
+                                        "cluster16-smem": 16}.get(shapes[1],
+                                                                  1)
+
+
+def test_fused_solve_reads_segments_of_its_shapes_ranks(plans):
+    """sptrsv_lu in cluster16-smem needs 16 ranks' segments (lu_solve
+    derives them once a plan, segments16); 8 ranks' raise first."""
+    plan = plans["ASM(4, overlap 1) L"]
+    lstart, lrows = (t.numpy() for t in plan.order[:2])
+    nlev = lstart.shape[1] - 1
+    for ranks in (8, 16):
+        lseg = torch.from_numpy(trsv.segments(lstart, lrows, plan.n, ranks))
+        assert lseg.shape == (plan.nb, nlev * ranks + 1)
+        if ranks == 8:
+            with pytest.raises(ValueError, match="segments of 16 ranks"):
+                trsv._need_segments("sptrsv_lu", "cluster16-smem", (lseg,),
+                                    (nlev,))
+        else:
+            trsv._need_segments("sptrsv_lu", "cluster16-smem", (lseg,),
+                                (nlev,))

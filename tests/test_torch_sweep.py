@@ -44,6 +44,12 @@ oracle Timestep streams with tests/test_sweep.py::run_ts_ex4's bounds
 against the analytic solution within 2e-5 + 1e-12), in one integration
 whose state is read after each step (ts_solve's post_step), where
 run_ts_ex4 integrates again from t = 0 for every step.
+
+NP holds the 25 np > 1 cases (slice 14) over np CPU rank threads with
+gloo groups (parallel.comm.World), as tests/test_sweep.py::
+run_distributed and ::run_snes_ex5_np hold petsctpu's distributed path;
+with them the port replays all 200 cases. test_ex2_2_bjacobi_two_ranks
+is tests/test_golden.py's two-rank golden run truly over two ranks.
 """
 
 import os
@@ -324,7 +330,7 @@ def port_options(flags):
 def test_sweep_case_through_port(tag, monkeypatch):
     case = BY_TAG[tag]
     if tag in PETSC_DOT_ORDER:
-        monkeypatch.setattr(ops, "dot", petsc_order_dot)
+        monkeypatch.setattr(ops, "local_dot", petsc_order_dot)
         monkeypatch.setattr(ops, "norm", petsc_order_norm)
     flags = parse_args(case.args)
     if flags.get("pc_type") == "asm" and flags.get("pc_asm_type") == "basic":
@@ -525,3 +531,128 @@ def test_ts_sweep_case_through_port(tag):
             (k, e2, e2_ref)
         assert abs(emax - emax_ref) <= 2e-5 * max(emax_ref, 1e-12) \
             + 1e-12, (k, emax, emax_ref)
+
+
+# ---------------------------------------------------------------------------
+# np > 1: the port's distributed path (slice 14)
+# ---------------------------------------------------------------------------
+NP = tuple(c.tag for c in CASES if c.np > 1)
+_WORLDS = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _close_worlds():
+    yield
+    for w in _WORLDS.values():
+        w.close()
+    _WORLDS.clear()
+
+
+def world(nranks: int):
+    """One World of CPU rank threads (gloo groups) of each size, closed
+    when the module's tests end."""
+    from petsctpu_torch.parallel import World
+
+    w = _WORLDS.get(nranks)
+    if w is None or w.closed:
+        w = _WORLDS[nranks] = World(nranks, "cpu", timeout=60.0)
+    return w
+
+
+def test_np_is_every_distributed_case():
+    """With the 25 np > 1 cases the port replays all 200."""
+    assert len(NP) == 25 and len(NP) + 175 == len(CASES) == 200
+    assert {BY_TAG[t].np for t in NP} == {2, 4, 8}
+
+
+@pytest.mark.parametrize("tag", NP)
+def test_np_sweep_case_through_port(tag):
+    """An np > 1 case over np CPU rank threads, as
+    tests/test_sweep.py::run_distributed (the default halo style, the
+    ELL product, -pc_type jacobi or per-rank block Jacobi ILU(0)/LU)
+    and ::run_snes_ex5_np (the sharded Bratu residual, the sharded
+    colored-FD Jacobian, FGMRES steps) hold petsctpu: the oracle is the
+    serial equivalent of the np-rank default (-pc_bjacobi_blocks np),
+    its iterations exact and the stream within the case's rtol."""
+    from petsctpu_torch.parallel import par_ksp_solve, sharded_aij_from_scipy
+    from petsctpu_torch.pc.parallel import make_par_pc
+
+    case = BY_TAG[tag]
+    flags = parse_args(case.args)
+    w = world(case.np)
+    if case.check == "snes_np":
+        _snes5_np(case, flags, w)
+        return
+    monit = oracle_stream(case.tag)
+    A, b = build_system(case.sys)
+    opts, cfg = port_options(flags)
+    Ash, part = sharded_aij_from_scipy(A, case.np, device="cpu")
+    pc = make_par_pc(flags.get("pc_type", "jacobi"), Ash, part,
+                     options=opts)
+    r = par_ksp_solve(w, Ash, b, pc=pc, cfg=cfg)
+    expected_its = {"tfqmr": len(monit) // 2}.get(cfg.ksp_type,
+                                                  len(monit) - 1)
+    if case.check == "its":
+        assert int(r.its) == max(expected_its, 1), (int(r.its), len(monit))
+        return
+    assert case.check == "stream"
+    assert int(r.its) == expected_its, (int(r.its), expected_its)
+    hist = r.history[: len(monit)].numpy()
+    idx = [i for i, v in enumerate(monit) if v is not None]
+    vals = np.array([monit[i] for i in idx])
+    np.testing.assert_allclose(hist[idx], vals, rtol=case.rtol,
+                               atol=1e-11 * vals.max())
+
+
+def _snes5_np(case, flags, w):
+    from petsctpu_torch.dm import DA
+    from petsctpu_torch.models.bratu import (bratu_initial_guess,
+                                             bratu_residual_sharded)
+    from petsctpu_torch.parallel import ShardedFDJac, par_snes_solve
+    from petsctpu_torch.snes.api import SNESConfig
+
+    p = dict(kv.split("=") for kv in case.sys.split(":")[1].split(","))
+    m, lam = int(p["m"]), float(p["par"])
+    monit = [v for v in _snes_monitor(case.tag) if v is not None]
+    da = DA((m, m))
+    Fp, _ = bratu_residual_sharded(da, case.np, lam=lam)
+    star5 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
+    r = par_snes_solve(
+        w, Fp, bratu_initial_guess(da, lam, device="cpu").numpy(),
+        jac=ShardedFDJac.plan((m, m), star5, case.np, device="cpu"),
+        cfg=SNESConfig(rtol=float(flags.get("snes_rtol", 1e-8)), atol=1e-50),
+        ksp_cfg=KSPConfig(ksp_type="fgmres", rtol=1e-10, maxits=1000,
+                          restart=200))
+    assert int(r.its) >= len(monit) - 1, (int(r.its), len(monit) - 1)
+    head = max(len(monit) - 2, 1)
+    np.testing.assert_allclose(r.history[:head].numpy(), monit[:head],
+                               rtol=6e-4)
+    for k in range(head, len(monit)):
+        assert float(r.history[k]) <= 3.5 * monit[k] + 1e-11, \
+            (k, float(r.history[k]), monit[k])
+
+
+def test_ex2_2_bjacobi_two_ranks():
+    """tests/test_golden.py::test_ex2_2_bjacobi_two_ranks run truly over
+    two ranks: output/ex2_2.out (makefile:322: mpiexec -n 2), GMRES +
+    per-rank ILU(0) block Jacobi on the 13/12-row PETSC_DECIDE split of
+    -m 5 -n 5, against the same golden digits."""
+    from petsctpu_torch.parallel import (par_ksp_solve,
+                                         sharded_aij_from_scipy,
+                                         unshard_vector)
+    from petsctpu_torch.pc.parallel import make_par_pc
+
+    A, b, u = ex2_system(5, 5)
+    Ash, part = sharded_aij_from_scipy(sp.csr_matrix(A), 2, device="cpu")
+    assert [D.shape[0] - (part.layout.n_padded - part.layout.n) * (p == 1)
+            for p, D in enumerate(part.diag_blocks)] == [13, 12]
+    r = par_ksp_solve(world(2), Ash, np.asarray(b),
+                      pc=make_par_pc("bjacobi", Ash, part), ksp_type="gmres",
+                      rtol=1e-2 / 36, atol=1e-50, cgs_refine="always")
+    golden = [2.73499, 0.795482, 0.261984, 0.0752998, 0.0230031,
+              0.00521255, 0.00145783, 0.000277319]
+    assert int(r.its) == 7
+    np.testing.assert_allclose(r.history[:8].numpy(), golden, rtol=2e-5)
+    np.testing.assert_allclose(
+        np.linalg.norm(unshard_vector(r.x, part.layout) - u), 0.000292349,
+        rtol=1e-3)

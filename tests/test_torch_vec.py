@@ -75,10 +75,12 @@ def test_dot_conjugates_first_argument():
 
 
 def test_axis_other_than_none_raises():
+    """The SPMD axis is a parallel.comm.Comm; petsctpu's mesh-axis name
+    (a string) is refused, not taken as serial."""
     a = torch.ones(4, dtype=torch.float64)
     for call in (lambda: tops.dot(a, a, axis="rows"),
                  lambda: tops.norm(a, axis="rows"),
                  lambda: tops.norm_inf(a, axis="rows"),
                  lambda: tops.reduce_all((a,), "rows")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        with pytest.raises(TypeError, match="parallel.comm.Comm"):
             call()
