@@ -442,9 +442,35 @@ through pinned host memory by the Comm), after slice 13:
 after asking in three processes which gloo collectives take CUDA
 tensors (gloo aborts the process on a CUDA `send`).
 
+Slice 15, distributed multigrid and the two-axis mesh, over S15_RANKS = 4
+rank threads, after slice 14:
+48. the main path: ksp ex45 at 129³ (fp64 StencilMat) with CG +
+   make_dist_mg at the default options (levels 129-9 sharded, 5³ and the
+   27-row LU replicated) to rtol 1e-8, the launch counts reset just before
+   and read just after (K1 and sptrsv_lu on every rank): its at most the
+   serial -pc_type mg solve's + 4, the true residual, the setup by part, ms
+   an iteration and idle share of a profiled repeat, the time in the
+   collectives, the collectives an iteration, the ranks' true and padded
+   rows, a rank's slab product as PyTorch ops against K1;
+49. a 2 x 2 (dcn, ici) World: ex45 at 128³ (fp32) through
+   sharded_aij_hier_from_scipy, CG + Jacobi, bit for bit the flat
+   ShardedAIJ's solve; make_dist_mg_hier on 2 x 2;
+50. ex45 at 128³ (fp32), make_dist_gamg with -pc_gamg_mat_type sell (K2
+   on the rank blocks) against the serial GAMG of the same hierarchy;
+51. Bratu λ 6 at 1025², FGMRES + a lagged make_dist_mg, against the
+   serial Newton; 52. ex19's cavity at 12 x 16, FGMRES + a lagged
+   make_dist_gamg, against the serial Newton;
+53. distribute_plex of a 512² P1 mesh: the device assembly against the
+   host's, assembled(κ) timed, CG against the serial solve;
+54. Anderson, NGMRES and NASM on Bratu 8², card against CPU;
+55. K1, sptrsv_lu, K2 and ELL on the path's inputs against their plain
+   versions, bit for bit.
+`python3 chip_smoke.py slice15` runs the build and phases 48-55 alone.
+
 The whole script runs ex55 (slices 7 and 12, the NC route and refresh
-of slice 7 too) and ex43 (slice 8) at FULL_SCRIPT_NE = 383, phase 27 at
-mx = FULL_SCRIPT_SCHUR_MX = 127, and phase 41 without the CPU solve:
+of slice 7 too) and ex43 (slice 8) at FULL_SCRIPT_NE = 255, phase 27 at
+mx = FULL_SCRIPT_SCHUR_MX = 127, phase 41 without the CPU solve, phase
+43 at FULL_SCRIPT_DIST_GRID = 64 and phases 49-54 at S15_WHOLE_SIZES:
 otherwise it would pass the 1,200 s it must end in. Each `sliceN` runs
 at 1023 (phase 27 at 255).
 
@@ -508,7 +534,7 @@ from petsctpu_torch.mat.fold import fold_plan
 from petsctpu_torch.mat.factor import (SpTRSVPlan, ilu0, lu_solve,
                                        make_sptrsv_plan, stacked_sptrsv_plan)
 from petsctpu_torch.mat.sell import (SellMat, sell_from_scipy, sell_pack,
-                                     sell_to_scipy)
+                                     sell_to_scipy, sell_viable)
 from petsctpu_torch.models import (ex2_system, ex45_system, laplacian_2d,
                                    poisson_3d)
 from petsctpu_torch.models.bratu import (bratu3d_fd_jacobian,
@@ -553,17 +579,23 @@ from petsctpu_torch.pc.asa import asa_tentatives
 from petsctpu_torch.pc.extra import make_eisenstat_system
 from petsctpu_torch.pc.factor import ILUPC, make_ilu
 from petsctpu_torch.pc.fieldsplit import make_fieldsplit
-from petsctpu_torch.pc.gamg import rigid_body_modes
-from petsctpu_torch.pc.mg import make_geometric_mg_device
+from petsctpu_torch.pc.distmg import (make_dist_gamg, make_dist_mg,
+                                      make_dist_mg_hier)
+from petsctpu_torch.pc.gamg import gamg_hierarchy, make_gamg, rigid_body_modes
+from petsctpu_torch.pc.mg import (make_algebraic_mg_from_hierarchy,
+                                  make_geometric_mg,
+                                  make_geometric_mg_device)
 from petsctpu_torch.pc.parallel import make_par_pc
+from petsctpu_torch.parallel.plan import partition_csr
 from petsctpu_torch.pc.gamg_device import (GAMGProbeLevelPlan, PPair,
                                            csr_data_of_matching,
                                            gamg_device_plan, gamg_probe_plan)
 from petsctpu_torch.pc.simple import make_jacobi
 from petsctpu_torch.pc.sor import make_sor
 from petsctpu_torch.snes import (SNES, ColoredJacobian, fas_levels_from_da,
-                                 snes_fas, snes_nasm, snes_ncg, snes_ngmres,
-                                 snes_qn, snes_solve, snes_vinewtonrsls)
+                                 snes_anderson, snes_fas, snes_nasm,
+                                 snes_ncg, snes_ngmres, snes_qn, snes_solve,
+                                 snes_vinewtonrsls)
 from petsctpu_torch.snes.api import SNESConfig
 from petsctpu_torch.ts import (TSConfig, ts_alpha, ts_arkimex,
                                ts_characteristic, ts_gl, ts_pseudo, ts_rosw,
@@ -5606,8 +5638,8 @@ def profiled_ms(fn, its):
     return 1e3 * wall / its, 1.0 - busy / (wall * 1e6)
 
 
-def drive_dist_path(rng, world):
-    """Phase 43: ksp ex45 at DIST_GRID³ (fp32) over DIST_RANKS rank
+def drive_dist_path(rng, world, grid=DIST_GRID):
+    """Phase 43: ksp ex45 at grid³ (fp32) over DIST_RANKS rank
     threads on the card, sharded with fmt="sell" (K2 on each rank's
     diagonal block; the ppermute halo), GMRES + block Jacobi ILU(0) (one
     sptrsv_lu launch a rank an apply) and CG + Jacobi to rtol 1e-5,
@@ -5618,7 +5650,7 @@ def drive_dist_path(rng, world):
     of each, timed and profiled, its collectives an iteration (the
     audit) and its host stagings. Returns (launches on the path, the
     sharded operator, its part, the ILU PC)."""
-    A, b, _ = ex45_system(DIST_GRID, DIST_GRID, DIST_GRID)
+    A, b, _ = ex45_system(grid, grid, grid)
     b32 = b.astype(np.float32)
     P = world.size
     t = time.perf_counter()
@@ -5628,7 +5660,7 @@ def drive_dist_path(rng, world):
     pc_j = make_par_pc("jacobi", A_sh, part)
     setup_s = time.perf_counter() - t
     parts = dict(part.timings, **pc_bj.timings)
-    print(f"slice14 ex45 {DIST_GRID}^3 over {P} ranks: setup {setup_s:.2f} s "
+    print(f"slice14 ex45 {grid}^3 over {P} ranks: setup {setup_s:.2f} s "
           f"= " + " + ".join(f"{k} {v:.2f}" for k, v in parts.items())
           + f" + the rest {setup_s - sum(parts.values()):.2f}; style "
           f"{A_sh.style} (ring offsets {A_sh.offsets}), halo smax "
@@ -5788,7 +5820,6 @@ def drive_dist_bratu(world):
     a rank) against the port's serial Newton on the card with the same
     Jacobian, KSP and PC (the ranks' ILU factors in series): equal Newton
     its, x within 1e-6."""
-    from petsctpu_torch.parallel.plan import partition_csr
     from petsctpu_torch.pc.parallel import make_bjacobi
 
     m = BRATU_M
@@ -5916,7 +5947,7 @@ def nccl_world_solve():
                 os.environ[k] = v
 
 
-def slice14_phases(rng, kernels, probe_gloo=False):
+def slice14_phases(rng, kernels, probe_gloo=False, grid=DIST_GRID):
     """Slice 14: the distributed ex45 path over 4 rank threads (phase 43),
     its kernels against their plain versions and the fp64 ELL product
     (44), Bratu through par_snes_solve (45), the sweep's ex2 cases card
@@ -5928,7 +5959,7 @@ def slice14_phases(rng, kernels, probe_gloo=False):
     if probe_gloo:
         print(f"slice14 gloo takes CUDA tensors: {gloo_takes_cuda()}")
     world = World(DIST_RANKS, "cuda")
-    launched, A, A_sh, part, pc_bj = drive_dist_path(rng, world)
+    launched, A, A_sh, part, pc_bj = drive_dist_path(rng, world, grid)
     print(f"slice14: phase 43 done at {time.perf_counter() - t:.1f} s")
     k2_err, lu_err, ell_err, ell_launches = check_dist_kernels(
         rng, world, A, A_sh, part, pc_bj)
@@ -5951,13 +5982,631 @@ def slice14_phases(rng, kernels, probe_gloo=False):
           f" small cases card vs cpu within {worst:.2e}·‖r0‖)")
 
 
+# ---------------------------------------------------------------------------
+# slice 15: distributed multigrid, the two-axis mesh, the distributed Plex
+# and the distributed nonlinear variants
+# ---------------------------------------------------------------------------
+S15_RANKS = 4
+S15_MESH = (2, 2)          # the two-axis (dcn, ici) World of phase 49
+S15_MG_GRID = 129          # phase 48: ksp ex45 at 129³, CG + make_dist_mg
+S15_RTOL = 1e-8
+S15_CG = {"ksp_type": "cg", "pc_type": "jacobi", "ksp_rtol": "1e-5"}
+S15_SIZES = dict(          # `slice15`: phases 49-54 at full width
+    hier=128,              # phase 49: ex45 at 128³ on the two-axis AIJ
+    hier_mg=65,            # phase 49: make_dist_mg_hier on 2 x 2
+    gamg=128,              # phase 50: ex45 at 128³, make_dist_gamg (SELL)
+    bratu=1025,            # phase 51: Bratu λ 6 (slice 9's ex5 size)
+    cavity=(12, 16),       # phase 52: ex19 at tests/test_psnes.py's 12 x 16
+                           # (PERF.md §6: from 64² the serial FGMRES + GAMG
+                           # does not converge; at 32² an FGMRES iteration
+                           # over the ranks took 1.6 s)
+    plex=512,              # phase 53: create_box_mesh(512, 512), P1
+    small=8)               # phase 54: Bratu at 8² (Anderson, NGMRES, NASM)
+# the whole script: phase 48 at full width, 49-54 smaller (it must end
+# within 1,200 s; PERF.md §4)
+S15_WHOLE_SIZES = dict(hier=64, hier_mg=33, gamg=64, bratu=257,
+                       cavity=(8, 8), plex=128, small=8)
+S15_NASM_ITS = 5           # phase 54's NASM outer iterations (matrix-free
+                           # inner solves: slow on both devices)
+S15_SMALL_RTOL = 1e-8      # phase 54: card against CPU, of the first norm
+
+
+def per_rank_launches(world, name):
+    return [c.launches.get(name, 0) for c in world.comms]
+
+
+def padded_rows_text(pc):
+    """Each sharded level's true and padded leading-axis rows a rank."""
+    out = []
+    for lv, g in zip(pc.levels, pc.grids):
+        m, mloc = g[0], lv.A.grid[0] // pc.nshards
+        true = [max(0, min(mloc, m - p * mloc)) for p in range(pc.nshards)]
+        out.append(f"{m}: {true}/{mloc}")
+    return "; ".join(out)
+
+
+def audit_text(audit):
+    per = audit.per_iteration
+    return ", ".join(f"{k} {n} ({per.bytes[k]:.0f} B)"
+                     for k, n in sorted(per.counts.items()))
+
+
+def comm_seconds_text(world, its):
+    """Rank 0's wall ms an iteration inside its collectives, by kind (the
+    wait for the other ranks, staging and transport), and their sum."""
+    sec = world.comms[0].seconds
+    return ("in collectives a rank an iteration " + ", ".join(
+        f"{k} {1e3 * v / its:.1f} ms" for k, v in sorted(sec.items()))
+        + f" (sum {1e3 * sum(sec.values()) / its:.1f} ms)")
+
+
+def slab_mult_ms(pc, rng):
+    """A rank's fine-level slab product as PyTorch ops (RankStencil.mult,
+    no halo: a Comm of one) against K1 (StencilMat.mult) on the same slab,
+    rank 0's and rank 3's (identity pad rows only); (ms ops, ms K1) of
+    rank 0, both bit-compared."""
+    from petsctpu_torch.parallel.pstencil import RankStencil
+
+    one = types.SimpleNamespace(size=1, rank=0)
+    A = pc.A
+    out = []
+    for p in (0, A.nshards - 1):
+        C = A.coeffs[p]
+        R = RankStencil(C, A.offsets, A.grid, one, A.halo)
+        S = StencilMat(C, A.offsets, (C.shape[1],) + tuple(A.grid[1:]))
+        x = torch.from_numpy(rng.standard_normal(R.shape[0])).cuda()
+        d = float((R.mult(x) - S.mult(x)).abs().max())
+        ops_ms = time_ms(lambda: R.mult(x), runs=20, inner=5)
+        k1_ms = time_ms(lambda: S.mult(x), runs=20, inner=5)
+        print(f"slice15 rank {p}'s {tuple(S.grid)} slab: PyTorch ops "
+              f"{ops_ms:.4f} ms a product, K1 {k1_ms:.4f} ms; max|ops - "
+              f"K1| = {d:.2e}")
+        out.append((ops_ms, k1_ms))
+    return out
+
+
+def drive_dist_mg_path(rng, world):
+    """Phase 48 (the main path): ksp ex45 at S15_MG_GRID³ (fp64) on a
+    StencilMat split over the ranks, CG + make_dist_mg at the default
+    options (the levels 129, 65, 33, 17 and 9 sharded, 5³ and the 27-row
+    LU replicated) to rtol 1e-8, the launch counts reset just before the
+    solve and read just after (K1 on the replicated levels, sptrsv_lu on
+    the coarse LU, on every rank); its at most the serial -pc_type mg
+    solve's on the card + 4 (tests/test_distmg.py:34); the true
+    residual; the setup by part; ms an iteration and idle share of a
+    profiled repeat; the collectives a rank an iteration by kind; the
+    ranks' true and padded rows. Returns (launches, the PC)."""
+    g = S15_MG_GRID
+    t = time.perf_counter()
+    A, b, _ = ex45_system(g, g, g)
+    sys_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pc = make_dist_mg(A, (g, g, g), world.size, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    parts = dict(pc.timings)
+    print(f"slice15 ex45 {g}^3 over {world.size} ranks: system {sys_s:.2f} "
+          f"s; make_dist_mg {setup_s:.2f} s = " + " + ".join(
+              f"{k} {v:.2f}" for k, v in parts.items())
+          + f" + the rest {setup_s - sum(parts.values()):.2f}")
+    print(f"slice15 sharded levels {[lv.A.grid for lv in pc.levels]}; "
+          f"replicated {[lv.A.grid for lv in pc.coarse.levels]} and a "
+          f"{pc.coarse.coarse_A.shape[0]}-row LU; true/padded leading rows "
+          f"a rank: {padded_rows_text(pc)}")
+    reset_dist(world)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = par_ksp_solve(world, pc.A, b, pc=pc, ksp_type="cg", rtol=S15_RTOL)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    its, reason = int(res.its), int(res.reason)
+    launched = {k: HAND_KERNELS[k].launches for k in HAND_KERNELS}
+    k1 = per_rank_launches(world, "stencil_mult")
+    lu = per_rank_launches(world, "sptrsv_lu")
+    x = res.x[:A.shape[0]].cpu().numpy()
+    if not np.isfinite(x).all():
+        raise AssertionError("slice15: the distributed MG solution has NaNs")
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    # the serial -pc_type mg solve on the card (slice 2's device setup)
+    S = stencil_from_scipy(A, (g, g, g))
+    ser = KSP(Options({**MG_OPTS, "ksp_rtol": str(S15_RTOL),
+                       "pc_mg_da": DA((g, g, g))})).set_operators(S) \
+        .solve(torch.from_numpy(b).cuda())
+    del S
+    print(f"slice15 CG + make_dist_mg: its={its} reason={reason} "
+          f"{secs:.3f} s = {1e3 * secs / its:.4f} ms/it; true rel residual "
+          f"{relres:.3e}; serial CG + -pc_type mg its={int(ser.its)} "
+          f"reason={int(ser.reason)}; launches on each rank: K1 {k1}, "
+          f"sptrsv_lu {lu}; other kernels "
+          f"{ {k: v for k, v in launched.items() if v and k not in ('stencil_mult', 'sptrsv_lu')} }")
+    if reason <= 0 or not relres <= 1e-7:
+        raise AssertionError(f"slice15 CG + make_dist_mg: reason {reason}, "
+                             f"residual {relres}")
+    if its > int(ser.its) + 4:
+        raise AssertionError(f"slice15: {its} its against the serial MG's "
+                             f"{int(ser.its)}")
+    if min(k1) < its or min(lu) < its:
+        raise AssertionError(f"slice15: a rank launched K1 {k1} / "
+                             f"sptrsv_lu {lu} in {its} its")
+    world.reset_counts()
+    ms, idle = profiled_ms(lambda: par_ksp_solve(
+        world, pc.A, b, pc=pc, ksp_type="cg", rtol=S15_RTOL), its)
+    st = world.comms[0].staging
+    print(f"slice15 CG + make_dist_mg repeated: {ms:.4f} ms/it, idle share "
+          f"{idle:.3f}; host stagings a rank an iteration {st[0] / its:.1f} "
+          f"copies, {st[1] / its / 1024:.2f} KiB, {1e3 * st[2] / its:.4f} ms;"
+          f" {comm_seconds_text(world, its)}")
+    audit = audit_par_ksp(world, pc.A, b, pc=pc, ksp_type="cg",
+                          its=(1, 2), key=f"slice15 cg+distmg[{world.size}]")
+    print(f"slice15 CG + make_dist_mg collectives an iteration (a rank): "
+          f"{audit_text(audit)}; once {audit.once.summary()['by_op']}")
+    slab = slab_mult_ms(pc, rng)
+    return dict(stencil_mult=launched["stencil_mult"],
+                sptrsv_lu=launched["sptrsv_lu"]), pc, dict(
+        its=its, ms=ms, idle=idle, slab=slab)
+
+
+def drive_hier_paths(rng, world, n=None, n_mg=None):
+    """Phase 49: the two-axis (dcn, ici) World of S15_MESH. ksp ex45 at
+    n³ (fp32) through sharded_aij_hier_from_scipy, CG + Jacobi to rtol
+    1e-5, against the same solve on the flat World with slice 14's flat
+    ShardedAIJ (fmt="ell", the all_to_all halo): equal its and reason,
+    the history bit for bit (a psum over both axes is the flat Comm's, in
+    global rank order, and both products fold the same ELL rows), x bit
+    for bit; ELL launched on every rank; the collectives an iteration
+    (all_to_all 2 and psum 2 on the two-axis AIJ). Then make_dist_mg_hier
+    on n_mg³ (fp64) over the mesh, CG to rtol 1e-8. Returns (ELL
+    launches, the two-axis operator and its part)."""
+    from petsctpu_torch.parallel.hier import sharded_aij_hier_from_scipy
+
+    n = n or S15_SIZES["hier"]
+    n_mg = n_mg or S15_SIZES["hier_mg"]
+    H, C = S15_MESH
+    A, b, _ = ex45_system(n, n, n)
+    b32 = b.astype(np.float32)
+    t = time.perf_counter()
+    Ah, part = sharded_aij_hier_from_scipy(A, H, C, dtype=np.float32)
+    hier_s = time.perf_counter() - t
+    Af, fpart = sharded_aij_from_scipy(A, H * C, dtype=np.float32,
+                                       style="alltoall", fmt="ell")
+    print(f"slice15 ex45 {n}^3 on the {H}x{C} mesh: two-axis plan and "
+          f"packs {hier_s:.2f} s; s1max {Ah.plan.s1max} s2max "
+          f"{Ah.plan.s2max} gmax {Ah.plan.gmax}; flat halo smax "
+          f"{fpart.halo.smax}")
+    out = {}
+    with World(H * C, "cuda", mesh=S15_MESH) as wh:
+        for label, w, M, pt in (("two-axis", wh, Ah, part),
+                                ("flat", world, Af, fpart)):
+            pc = make_par_pc("jacobi", M, pt)
+            reset_dist(w)
+            cfg = ksp_api.config_from_options(Options(dict(S15_CG)))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = par_ksp_solve(w, M, b32, pc=pc, cfg=cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            ell = per_rank_launches(w, "ell_spmv")
+            its = int(res.its)
+            audit = audit_par_ksp(w, M, b32, pc=pc, cfg=cfg,
+                                  key=f"slice15 cg+jacobi {label}[{w.size}]")
+            out[label] = (res, ell, secs, audit)
+            print(f"slice15 {label} CG + Jacobi: its={its} reason="
+                  f"{int(res.reason)} {secs:.3f} s = {1e3 * secs / its:.4f}"
+                  f" ms/it; ELL launches a rank {ell}; collectives an "
+                  f"iteration {audit_text(audit)}")
+        (rh, ellh, _, ah), (rf, _, _, _) = out["two-axis"], out["flat"]
+        same_hist = np.array_equal(rh.history.numpy(), rf.history.numpy(),
+                                   equal_nan=True)
+        same_x = torch.equal(rh.x, rf.x)
+        hd = float(np.nanmax(np.abs(rh.history.numpy()
+                                    - rf.history.numpy())))
+        print(f"slice15 two-axis against flat: its {int(rh.its)}/"
+              f"{int(rf.its)}, history bit for bit {same_hist} (max diff "
+              f"{hd:.3e}), x bit for bit {same_x}")
+        if (int(rh.its), int(rh.reason)) != (int(rf.its), int(rf.reason)) \
+                or int(rh.reason) <= 0 or not (same_hist and same_x):
+            raise AssertionError("slice15: the two-axis solve differs from "
+                                 "the flat one")
+        if min(ellh) < int(rh.its) or ah.per_iteration.counts != {
+                "all_to_all": 2, "psum": 2}:
+            raise AssertionError(f"slice15: two-axis ELL launches {ellh}, "
+                                 f"collectives {ah.per_iteration.counts}")
+        Am, bm, um = ex45_system(n_mg, n_mg, n_mg)
+        t = time.perf_counter()
+        pch = make_dist_mg_hier(Am, (n_mg,) * 3, H, C, device="cuda")
+        setup_s = time.perf_counter() - t
+        reset_dist(wh)
+        t = time.perf_counter()
+        r = par_ksp_solve(wh, pch.A, bm, pc=pch, ksp_type="cg", rtol=S15_RTOL)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        x = r.x[:Am.shape[0]].cpu().numpy()
+        relres = float(np.linalg.norm(bm - Am @ x) / np.linalg.norm(bm))
+        audit = audit_par_ksp(wh, pch.A, bm, pc=pch, ksp_type="cg",
+                              its=(1, 2),
+                              key=f"slice15 cg+distmg_hier[{H}x{C}]")
+        inner = (f"inner {[lv.A.grid for lv in pch.inner.levels]} over "
+                 f"{pch.inner.nshards}" if pch.inner is not None
+                 else "no inner stage")
+        print(f"slice15 make_dist_mg_hier {n_mg}^3 on {H}x{C}: setup "
+              f"{setup_s:.2f} s ({pch.timings}); outer "
+              f"{[lv.A.grid for lv in pch.levels]} over {pch.nshards}, "
+              f"{inner}; CG its={int(r.its)} reason={int(r.reason)} "
+              f"{1e3 * secs / int(r.its):.4f} ms/it, true rel residual "
+              f"{relres:.3e}; collectives an iteration {audit_text(audit)}")
+        if int(r.reason) <= 0 or not relres <= 1e-7 or pch.nshards != H * C:
+            raise AssertionError("slice15: make_dist_mg_hier's solve failed")
+    return sum(ellh), Ah, part
+
+
+def drive_dist_gamg_path(rng, world, n=None):
+    """Phase 50: ksp ex45 at n³ (fp32), make_dist_gamg with
+    -pc_gamg_mat_type sell (K2 on every rank's diagonal block of each
+    sharded level) and the serial GAMG of the same hierarchy on the card
+    (make_algebraic_mg_from_hierarchy, a SELL operator), CG to rtol 1e-5:
+    its within 1 (tests/test_distmg.py:198), K2 launched on every rank.
+    The levels whose rank blocks are all SELL-viable stay sharded
+    (pc_mg_repl_size is set to the first other level's rows: the default
+    512 would shard levels whose blocks K2 cannot take, and
+    fmt="sell" raises there, as petsctpu's does). Returns (K2 launches,
+    the PC)."""
+    n = n or S15_SIZES["gamg"]
+    A, b, _ = ex45_system(n, n, n)
+    A32 = sp.csr_matrix(A).astype(np.float32)
+    b32 = b.astype(np.float32)
+    t = time.perf_counter()
+    hier = gamg_hierarchy(A32)
+    hier_s = time.perf_counter() - t
+    t = time.perf_counter()
+    L = 1
+    while L < len(hier[0]) - 1 and all(
+            sell_viable(D) for D in partition_csr(hier[0][L],
+                                                  world.size).diag_blocks):
+        L += 1
+    repl = hier[0][L].shape[0]
+    pc = make_dist_gamg(A32, world.size, dtype=np.float32, options=Options(
+        {"pc_gamg_mat_type": "sell", "pc_mg_repl_size": str(repl)}),
+        hierarchy=hier, device="cuda")
+    setup_s = time.perf_counter() - t
+    print(f"slice15 ex45 {n}^3 GAMG hierarchy {hier_s:.2f} s (rows "
+          f"{[a.shape[0] for a in hier[0]]}); make_dist_gamg {setup_s:.2f} "
+          f"s ({pc.timings}); {len(pc.levels)} sharded levels "
+          f"{[lv.A.shape[0] for lv in pc.levels]} (SELL diagonal blocks; "
+          f"pc_mg_repl_size {repl})")
+    reset_dist(world)
+    t = time.perf_counter()
+    res = par_ksp_solve(world, pc.A, b32, pc=pc, ksp_type="cg", rtol=1e-5)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    k2 = per_rank_launches(world, "sell_spmv")
+    k2_all = sell_spmv.launches
+    its = int(res.its)
+    x = res.x[:A.shape[0]].double().cpu().numpy()
+    relres = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+    M, _ = mat_from_options(A, Options({"mat_type": "sell",
+                                        "mat_ordering_type": "natural"}),
+                            dtype=torch.float32)
+    ser_pc = make_algebraic_mg_from_hierarchy(*hier, dtype=np.float32,
+                                              device="cuda")
+    ser = ksp_solve(M, torch.from_numpy(b32).cuda(), pc=ser_pc,
+                    ksp_type="cg", rtol=1e-5)
+    audit = audit_par_ksp(world, pc.A, b32, pc=pc, ksp_type="cg",
+                          its=(1, 2),
+                          key=f"slice15 cg+distgamg[{world.size}]")
+    print(f"slice15 CG + make_dist_gamg: its={its} reason={int(res.reason)}"
+          f" {secs:.3f} s = {1e3 * secs / its:.4f} ms/it, true rel residual "
+          f"{relres:.3e}; serial GAMG its={int(ser.its)}; K2 launches a rank "
+          f"{k2}; collectives an iteration {audit_text(audit)}")
+    if int(res.reason) <= 0 or not relres <= 1e-4 \
+            or abs(its - int(ser.its)) > 1:
+        raise AssertionError(f"slice15 distributed GAMG: reason "
+                             f"{int(res.reason)}, its {its} against "
+                             f"{int(ser.its)}, residual {relres}")
+    if min(k2) < its:
+        raise AssertionError(f"slice15: a rank launched K2 {k2} in {its} its")
+    del M, ser_pc
+    return k2_all, pc
+
+
+def drive_dist_mg_bratu(world, m=None):
+    """Phase 51: Bratu λ 6 at m² through par_snes_solve with FGMRES
+    (rtol 1e-8) and a lagged make_dist_mg of the colored-FD Jacobian at x0
+    (pc_mg_repl_size 600; tests/test_psnes.py::test_bratu_newton_distmg),
+    the residual and plan padded to the PC's mloc; against the port's
+    serial Newton on the card with the same KSP and a lagged serial MG of
+    the same Jacobian: equal Newton its, x within 1e-6."""
+    m = m or S15_SIZES["bratu"]
+    da = DA((m, m))
+    x0 = bratu_initial_guess(da, BRATU_LAM)
+    F = bratu_residual(da, BRATU_LAM)
+    jac = ColoredJacobian.from_stencil(bratu_jacobian_template(da))
+    J0h = stencil_to_scipy(jac.assemble(F, x0, F(x0)))
+    opts = Options({"pc_mg_repl_size": 600})
+    t = time.perf_counter()
+    pc = make_dist_mg(J0h, (m, m), world.size, options=opts, device="cuda")
+    setup_s = time.perf_counter() - t
+    ser_pc = make_geometric_mg(J0h, da, options=opts, device="cuda")
+    kcfg = KSPConfig(ksp_type="fgmres", rtol=1e-8, maxits=100)
+    scfg = SNESConfig(rtol=1e-8, atol=1e-12)
+    t = time.perf_counter()
+    rs = snes_solve(F, x0, jac=jac, ksp_cfg=kcfg, cfg=scfg,
+                    pc_builder=lambda J: ser_pc)
+    torch.cuda.synchronize()
+    ser_s = time.perf_counter() - t
+    mloc = pc.A.mloc
+    Fp, _ = bratu_residual_sharded(da, world.size, mloc=mloc, lam=BRATU_LAM)
+    t = time.perf_counter()
+    rp = par_snes_solve(world, Fp, x0.cpu().numpy(),
+                        jac=ShardedFDJac.plan((m, m), STAR5, world.size,
+                                              mloc=mloc),
+                        pc=pc, cfg=scfg, ksp_cfg=kcfg)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t
+    xs = rs.x.cpu().numpy()
+    xp = rp.x[:m * m].cpu().numpy()
+    rel = float(np.abs(xp - xs).max() / np.abs(xs).max())
+    print(f"slice15 Bratu {m}^2 lambda {BRATU_LAM} with FGMRES + "
+          f"make_dist_mg (setup {setup_s:.2f} s, {len(pc.levels)} sharded "
+          f"levels): Newton its={int(rp.its)} reason={int(rp.reason)} "
+          f"{dist_s:.2f} s; serial its={int(rs.its)} reason="
+          f"{int(rs.reason)} {ser_s:.2f} s; max|x - x_serial| / max|x| = "
+          f"{rel:.3e}")
+    if int(rp.reason) <= 0 or (int(rp.its), int(rp.reason)) != \
+            (int(rs.its), int(rs.reason)) or not rel <= 1e-6:
+        raise AssertionError("slice15: the distributed-MG Bratu differs "
+                             "from the serial one")
+
+
+def drive_dist_cavity(world, shape=None):
+    """Phase 52: snes ex19's cavity at mx x my (4 dofs a node) through
+    cavity_residual_sharded (one (mx, 4) row each way a rank), the sharded
+    colored-FD Jacobian, FGMRES (rtol 1e-8) and a lagged make_dist_gamg of
+    the Jacobian at x0 (pc_mg_repl_size 200; FGMRES(100), at most 2,000
+    its), against the port's serial Newton on the card with the same KSP
+    and a lagged serial GAMG of that Jacobian: equal Newton its, x within
+    1e-5."""
+    from petsctpu_torch.models.cavity import (cavity_initial_guess,
+                                              cavity_jacobian_pattern,
+                                              cavity_residual,
+                                              cavity_residual_sharded)
+
+    mx, my = shape or S15_SIZES["cavity"]
+    patt = cavity_jacobian_pattern(mx, my)
+    F = cavity_residual(mx, my)
+    x0 = cavity_initial_guess(mx, my, device="cuda")
+    jac = ColoredJacobian.from_sparsity(patt, aij_from_scipy(patt))
+    J0h = aij_to_scipy(jac.assemble(F, x0, F(x0)))
+    opts = Options({"pc_mg_repl_size": 200})
+    t = time.perf_counter()
+    pc = make_dist_gamg(J0h, world.size, options=opts, device="cuda")
+    setup_s = time.perf_counter() - t
+    ser_pc = make_gamg(J0h, options=opts, device="cuda")
+    kcfg = KSPConfig(ksp_type="fgmres", rtol=1e-8, maxits=2000, restart=100)
+    scfg = SNESConfig(rtol=1e-8, atol=1e-12)
+    t = time.perf_counter()
+    rs = snes_solve(F, x0, jac=jac, ksp_cfg=kcfg, cfg=scfg,
+                    pc_builder=lambda J: ser_pc)
+    torch.cuda.synchronize()
+    ser_s = time.perf_counter() - t
+    Fp, grid = cavity_residual_sharded(mx, my, world.size)
+    offs = tuple((oj, oi, od) for (oj, oi) in STAR5 for od in range(-3, 4))
+    t = time.perf_counter()
+    rp = par_snes_solve(world, Fp, x0.cpu().numpy(),
+                        jac=ShardedFDJac.plan(grid, offs, world.size),
+                        pc=pc, cfg=scfg, ksp_cfg=kcfg)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t
+    n = 4 * mx * my
+    xs = rs.x.cpu().numpy()
+    xp = rp.x[:n].cpu().numpy()
+    rel = float(np.abs(xp - xs).max() / np.abs(xs).max())
+    print(f"slice15 cavity {mx}x{my} (n = {n}) with FGMRES + make_dist_gamg "
+          f"(setup {setup_s:.2f} s, {len(pc.levels)} sharded levels "
+          f"{[lv.A.shape[0] for lv in pc.levels]}): Newton its="
+          f"{int(rp.its)} reason={int(rp.reason)} {dist_s:.2f} s; serial "
+          f"its={int(rs.its)} reason={int(rs.reason)} {ser_s:.2f} s; "
+          f"max|x - x_serial| / max|x| = {rel:.3e}")
+    if int(rp.reason) <= 0 or (int(rp.its), int(rp.reason)) != \
+            (int(rs.its), int(rs.reason)) or not rel <= 1e-5:
+        raise AssertionError("slice15: the distributed cavity differs from "
+                             "the serial one")
+
+
+def drive_dist_plex(rng, world, n=None):
+    """Phase 53: distribute_plex of Plex.create_box_mesh(n, n) (P1) over
+    the ranks: the host plan by part; the device assembly (element
+    kernels, one all_to_all, the fold into the ELL slots) against the
+    serial fem_assemble_poisson's values (the sharded template), to
+    1e-13 of the largest; assembled(κ) with random per-cell κ timed (no
+    host work) and checked; CG (rtol 1e-5: unpreconditioned P1, about 30
+    ms an iteration over the ranks) against the serial CG on the card:
+    its within 2 % (the orderings differ), x[perm] within 1e-4 of the
+    largest; ELL launched on every rank. Returns (ELL launches, the
+    DistPlex, the assembled operator)."""
+    from petsctpu_torch.dm.plexdist import distribute_plex
+
+    n = n or S15_SIZES["plex"]
+    pl = Plex.create_box_mesh(n, n)
+    t = time.perf_counter()
+    dp = distribute_plex(pl, world.size, device="cuda")
+    plan_s = time.perf_counter() - t
+    world.reset_counts()
+    t = time.perf_counter()
+    M = dp.assembled(world)
+    torch.cuda.synchronize()
+    asm_s = time.perf_counter() - t
+    T_ = dp.template
+    diff = max(float((M.diag_vals[p] - T_.diag_vals[p]).abs().max())
+               for p in range(world.size))
+    diff = max(diff, max(float((M.off_vals[p] - T_.off_vals[p]).abs().max())
+                         for p in range(world.size)))
+    scale = max(float(T_.diag_vals[p].abs().max()) for p in range(world.size))
+    kappa = np.exp(rng.standard_normal(pl.num_cells))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    Mk = dp.assembled(world, kappa=kappa)
+    torch.cuda.synchronize()
+    kap_s = time.perf_counter() - t
+    kap_ms = time_ms(lambda: dp.assembled(world, kappa=kappa), runs=3,
+                     inner=1, warmup=1)
+    print(f"slice15 distribute_plex P1 {n}x{n} ({pl.num_vertices} vertices, "
+          f"{pl.num_cells} cells) over {world.size} ranks: host plan "
+          f"{plan_s:.2f} s = " + " + ".join(f"{k} {v:.2f}" for k, v in
+                                            dp.timings.items())
+          + f"; device assembly {1e3 * asm_s:.1f} ms (first), assembled(kappa)"
+          f" {1e3 * kap_s:.1f} ms first, {kap_ms:.2f} ms repeated; max|device "
+          f"- host| = {diff:.2e} of {scale:.2e}; emax "
+          f"{dp.send_idx[0].shape[1]}, K1 {dp.K1}, K2 {dp.K2}")
+    if not diff <= 1e-13 * scale or not all(
+            torch.isfinite(v).all() for v in Mk.diag_vals):
+        raise AssertionError(f"slice15: the distributed assembly differs "
+                             f"by {diff}")
+    reset_dist(world)
+    t = time.perf_counter()
+    rp = par_ksp_solve(world, M, dp.b, ksp_type="cg", rtol=1e-5,
+                       maxits=10000)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    ell = per_rank_launches(world, "ell_spmv")
+    ell_all = ell_spmv.launches
+    Ad, _, b = fem_assemble_poisson(pl, device="cuda")
+    rs = ksp_solve(Ad, b, ksp_type="cg", rtol=1e-5, maxits=10000)
+    xs = rs.x.cpu().numpy()
+    xp = rp.x.cpu().numpy()[dp.perm]
+    rel = float(np.abs(xp - xs).max() / np.abs(xs).max())
+    its, its_s = int(rp.its), int(rs.its)
+    print(f"slice15 distributed P1 CG: its={its} reason={int(rp.reason)} "
+          f"{1e3 * secs / its:.4f} ms/it; serial its={its_s}; max|x[perm] - "
+          f"x_serial| / max|x| = {rel:.3e}; ELL launches a rank {ell}")
+    if int(rp.reason) <= 0 or abs(its - its_s) > max(2, 0.02 * its_s) \
+            or not rel <= 1e-4:
+        raise AssertionError("slice15: the distributed Plex solve differs "
+                             "from the serial one")
+    if min(ell) < its:
+        raise AssertionError(f"slice15: a rank launched ELL {ell} in {its}")
+    return ell_all, dp, M
+
+
+def dist_variant_solve(dev, name, m):
+    """One of phase 54's solves on a World of S15_RANKS on `dev`."""
+    lam = 5.0
+    Fp, grid = bratu_residual_sharded(DA((m, m)), S15_RANKS, lam=lam)
+    x0 = bratu_initial_guess(DA((m, m)), lam).cpu().numpy()
+    nloc = grid[0] * grid[1] // S15_RANKS
+    solver, kw, maxits = {
+        "anderson": (snes_anderson, dict(window=5, beta=0.2), 100),
+        "ngmres": (snes_ngmres, {}, 60),
+        "nasm": (snes_nasm, dict(subdomains=[
+            np.arange(0, nloc // 2 + m), np.arange(nloc // 2 - m, nloc)]),
+            S15_NASM_ITS)}[name]
+    with World(S15_RANKS, dev, timeout=120.0) as w:
+        return par_snes_solve(w, Fp, x0, cfg=SNESConfig(
+            rtol=1e-8, atol=1e-12, maxits=maxits), n_pad=grid[0] * grid[1],
+            solver=solver, solver_kw=kw)
+
+
+def check_dist_variants_against_cpu(devices=("cuda", "cpu"), m=None):
+    """Phase 54: Anderson (window 5, β 0.2), NGMRES and NASM (two
+    subdomains a rank, halos frozen at the outer iterate; S15_NASM_ITS
+    outer its) on Bratu λ 5 at m² over S15_RANKS rank threads, on the
+    card and on the port's CPU: equal its and reason, histories within
+    S15_SMALL_RTOL of the first norm. Returns the largest difference."""
+    m = m or S15_SIZES["small"]
+    worst = 0.0
+    for name in ("anderson", "ngmres", "nasm"):
+        t = time.perf_counter()
+        card, cpu = (dist_variant_solve(d, name, m) for d in devices)
+        k = int(cpu.its) + 1
+        hc, hh = card.history.numpy()[:k], cpu.history.numpy()[:k]
+        diff = float(np.abs(hc - hh).max() / hh[0])
+        print(f"slice15 distributed {name} Bratu {m}^2: its "
+              f"{int(card.its)}/{int(cpu.its)} reason {int(card.reason)}/"
+              f"{int(cpu.reason)} history diff {diff:.2e} of the first "
+              f"norm ({time.perf_counter() - t:.1f} s)")
+        if (int(card.its), int(card.reason)) != (int(cpu.its),
+                                                 int(cpu.reason)) \
+                or not diff <= S15_SMALL_RTOL:
+            raise AssertionError(f"slice15 {name}: card and CPU differ")
+        worst = max(worst, diff)
+    return worst
+
+
+def check_dist_kernels15(rng, pc_mg, Ah, part_h, pc_gamg, dp, M_plex):
+    """Phase 55: each kernel of slice 15's paths on its inputs there
+    against its plain version, bit for bit: K1 on the replicated MG's
+    level operators, sptrsv_lu on its coarse LU, K2 on rank 0's SELL
+    block of the GAMG fine level, ELL on rank 0's block of the two-axis
+    AIJ and of the distributed Plex operator. Returns the max errors."""
+    errs = {}
+    for lv in pc_mg.coarse.levels:
+        errs["stencil_mult"] = max(errs.get("stencil_mult", 0.0), check_k1(
+            f"slice15 replicated level {lv.A.grid}", lv.A, rng)[0])
+    lu = pc_mg.coarse.coarse
+    errs["sptrsv_lu"] = check_lu_pair("slice15 replicated coarse LU",
+                                      lu.Lplan, lu.Uplan, rng)
+    op = pc_gamg.levels[0].A.diag_ops[0]
+    D0 = sell_to_scipy(op).astype(np.float32)
+    _, errs["sell_spmv"] = check_k2(D0, op, "cuda", rng,
+                                    "slice15 GAMG rank 0 fine block")
+    e1 = ell_check("slice15 two-axis rank 0 block fp32",
+                   part_h.diag_blocks[0], Ah.diag_ops[0], rng)
+    op = M_plex.diag_ops[0]
+    e2 = ell_check("slice15 distributed Plex rank 0 block",
+                   aij_to_scipy(op), op, rng)
+    errs["ell_spmv"] = max(e1, e2)
+    return errs
+
+
+def slice15_phases(rng, kernels, sizes=None):
+    """Slice 15: CG + make_dist_mg at 129³ over S15_RANKS rank threads
+    (phase 48, the main path), the two-axis mesh (49), distributed GAMG
+    on SELL (50), Bratu and the cavity with distributed MG/GAMG (51-52),
+    the distributed Plex (53), Anderson/NGMRES/NASM card against CPU (54)
+    and the path's kernels against their plain versions (55). Adds the
+    launches of 48's counted solve (K1, sptrsv_lu), 49's two-axis solve
+    and 53's solve (ELL) and 50's (K2) and the errors to `kernels`."""
+    sizes = dict(S15_SIZES, **(sizes or {}))
+    t = time.perf_counter()
+    world = World(S15_RANKS, "cuda")
+    launched, pc_mg, a = drive_dist_mg_path(rng, world)
+    print(f"slice15: phase 48 done at {time.perf_counter() - t:.1f} s")
+    ell_h, Ah, part_h = drive_hier_paths(rng, world, sizes["hier"],
+                                         sizes["hier_mg"])
+    print(f"slice15: phase 49 done at {time.perf_counter() - t:.1f} s")
+    k2, pc_gamg = drive_dist_gamg_path(rng, world, sizes["gamg"])
+    print(f"slice15: phase 50 done at {time.perf_counter() - t:.1f} s")
+    drive_dist_mg_bratu(world, sizes["bratu"])
+    print(f"slice15: phase 51 done at {time.perf_counter() - t:.1f} s")
+    drive_dist_cavity(world, sizes["cavity"])
+    print(f"slice15: phase 52 done at {time.perf_counter() - t:.1f} s")
+    ell_p, dp, M_plex = drive_dist_plex(rng, world, sizes["plex"])
+    world.close()
+    print(f"slice15: phase 53 done at {time.perf_counter() - t:.1f} s")
+    worst = check_dist_variants_against_cpu(m=sizes["small"])
+    print(f"slice15: phase 54 done at {time.perf_counter() - t:.1f} s")
+    errs = check_dist_kernels15(rng, pc_mg, Ah, part_h, pc_gamg, dp, M_plex)
+    launched["sell_spmv"] = k2
+    launched["ell_spmv"] = ell_h + ell_p
+    for name, err in errs.items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    for name, n in launched.items():
+        kernels[name]["launches"] += n
+    print(f"slice 15 in {time.perf_counter() - t:.1f} s (launches "
+          f"{launched}; CG + make_dist_mg {a['its']} its, "
+          f"{a['ms']:.4f} ms/it, idle {a['idle']:.3f}; variants card vs "
+          f"cpu within {worst:.2e})")
+
+
 T0 = time.perf_counter()
 # ex55's ne (slices 7 and 12, with slice 7's NC route and refresh) and
-# ex43's mx (slice 8) in the whole script: 295,936 and 442,368 dofs. At
-# 1023 the whole script would take 1,255 s or more (PERF.md §4); at 511
-# (PR 17) slice 14's 160 s would take a slow host past the 1,200 s it
-# must end in.
-FULL_SCRIPT_NE = 383
+# ex43's mx (slice 8) in the whole script: 131,072 and 196,608 dofs. At
+# 1023 the whole script would take 1,255 s or more (PERF.md §4); 511 (PR
+# 17) and 383 (PR 18) leave no room for slice 15 on a slow host within
+# the 1,200 s it must end in.
+FULL_SCRIPT_NE = 255
+# phase 43's ex45 in the whole script (128³ in `slice14`): 262,144 dofs,
+# which gives back slice 15's time (PERF.md §4)
+FULL_SCRIPT_DIST_GRID = 64
 # phase 27's Schur check in the whole script (196,608 dofs at 255 in
 # `slice8`, a 64 s CPU solve): 49,152 dofs, which gives back slice 14's
 # time
@@ -5975,6 +6624,18 @@ def main(argv=()):
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
+    if list(argv) == ["slice15"]:
+        kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
+                   for k in ("stencil_mult", "sptrsv_lu", "sell_spmv",
+                             "ell_spmv")}
+        slice15_phases(rng, kernels)
+        print(smi)
+        print(f"slice15 in {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"slice15": list(kernels.values())}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if list(argv) == ["slice14"]:
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
                    for k in ("sell_spmv", "sptrsv", "sptrsv_lu", "ell_spmv")}
@@ -6088,8 +6749,11 @@ def main(argv=()):
     kernels.append(slice13_phases(rng, {k["name"]: k for k in kernels},
                                   triad, ilu_against_cpu=False))
     stamp("slice 13")
-    slice14_phases(rng, {k["name"]: k for k in kernels})
+    slice14_phases(rng, {k["name"]: k for k in kernels},
+                   grid=FULL_SCRIPT_DIST_GRID)
     stamp("slice 14")
+    slice15_phases(rng, {k["name"]: k for k in kernels}, S15_WHOLE_SIZES)
+    stamp("slice 15")
     kernels += probes_phase()
     print(smi)
     print(f"chip_smoke.py in {time.perf_counter() - T0:.1f} s")

@@ -9,7 +9,10 @@ port counts at run time: every parallel.comm.Comm call adds itself and
 its operand's bytes (per rank, the jaxpr's aval bytes), and
 `audit_runs` splits two runs of one program that differ only in their
 iteration counts into a per-iteration part (the difference over the
-extra iterations) and a one-time part (the rest).
+extra iterations) and a one-time part (the rest). A two-axis World's row
+and column Comms count into their rank's flat Comm, so the audit of a
+program over both axes (the hierarchical halo, make_dist_mg_hier's
+re-sharded stage) counts every collective of it, as the jaxpr does.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ in the reference's order (bottom, top, left, right: later edges own the
 corners). Defaults are ex19's: lidvelocity = 1/(mx·my), prandtl = 1,
 grashof = 1. The state is x.reshape(my, mx, 4), j (y) the slow axis as
 the reference's x[j][i]. A residual takes x of shape [n] or [B, n] and
-writes nothing in place. The sharded residual waits for slice 15 of the
-distributed port (ROADMAP queue 1 item 14).
+writes nothing in place. cavity_residual_sharded is the rank's residual
+of a World whose ranks split the j axis.
 """
 
 from __future__ import annotations
@@ -78,6 +78,82 @@ def cavity_residual(mx: int, my: int, lidvelocity: float = None,
         return Fg.reshape(xflat.shape)
 
     return F
+
+
+def cavity_residual_sharded(mx: int, my: int, nshards: int,
+                            mloc: int = None, lidvelocity: float = None,
+                            prandtl: float = 1.0, grashof: float = 1.0):
+    """The rank's ex19 residual F(x_local, comm) for a World whose ranks
+    split the j (my) axis (petsctpu's cavity_residual_sharded, the DMDA
+    ghost scatter of the reference's distributed ex19): each evaluation
+    sends one full (mx, 4) boundary row to each neighbour rank (two
+    Comm.ppermute), then takes the serial residual's formulas, the
+    boundary rows by global row in the reference's bottom, top, left,
+    right order; rows past the true grid have the identity residual.
+    Returns (F, padded grid (my_pad, mx, 4))."""
+    if lidvelocity is None:
+        lidvelocity = 1.0 / (mx * my)
+    if mloc is None:
+        mloc = -(-my // nshards)
+    assert mloc * nshards >= my
+    dhx, dhy = float(mx - 1), float(my - 1)
+    hx, hy = 1.0 / dhx, 1.0 / dhy
+    hxdhy, hydhx = hx * dhy, hy * dhx
+    fwd = [(i, i + 1) for i in range(nshards - 1)]
+    bwd = [(i + 1, i) for i in range(nshards - 1)]
+
+    def F(xflat, comm):
+        X = xflat.reshape(*xflat.shape[:-1], mloc, mx, 4)
+        gj = comm.rank * mloc + torch.arange(mloc, device=X.device)[:, None,
+                                                                    None]
+        i = torch.arange(mx, device=X.device)[None, :, None]
+        pad_row = gj >= my
+        Xt = torch.where(pad_row, torch.zeros((), dtype=X.dtype,
+                                              device=X.device), X)
+        above, below = comm.ppermutes([
+            (Xt[..., -1:, :, :].contiguous(), fwd),      # my j-1 halo
+            (Xt[..., :1, :, :].contiguous(), bwd)])      # my j+1 halo
+        Xe = torch.cat([above, Xt, below], dim=-3)
+        S, N = Xe[..., :-2, :, :], Xe[..., 2:, :, :]
+        Pi = TF.pad(Xt, (0, 0, 1, 1))
+        W, E = Pi[..., :-2, :], Pi[..., 2:, :]
+        u, v, om, te = X[..., 0], X[..., 1], X[..., 2], X[..., 3]
+
+        avx, avy = torch.abs(u), torch.abs(v)
+        vxp, vxm = 0.5 * (u + avx), 0.5 * (u - avx)
+        vyp, vym = 0.5 * (v + avy), 0.5 * (v - avy)
+
+        def lap(c, w, e, s, n):
+            return (2.0 * c - w - e) * hydhx + (2.0 * c - s - n) * hxdhy
+
+        fu = lap(u, W[..., 0], E[..., 0], S[..., 0], N[..., 0]) \
+            - 0.5 * (N[..., 2] - S[..., 2]) * hx
+        fv = lap(v, W[..., 1], E[..., 1], S[..., 1], N[..., 1]) \
+            + 0.5 * (E[..., 2] - W[..., 2]) * hy
+        fo = lap(om, W[..., 2], E[..., 2], S[..., 2], N[..., 2]) \
+            + (vxp * (om - W[..., 2]) + vxm * (E[..., 2] - om)) * hy \
+            + (vyp * (om - S[..., 2]) + vym * (N[..., 2] - om)) * hx \
+            - 0.5 * grashof * (E[..., 3] - W[..., 3]) * hy
+        ft = lap(te, W[..., 3], E[..., 3], S[..., 3], N[..., 3]) \
+            + prandtl * ((vxp * (te - W[..., 3])
+                          + vxm * (E[..., 3] - te)) * hy
+                         + (vyp * (te - S[..., 3])
+                            + vym * (N[..., 3] - te)) * hx)
+        Fg = torch.stack([fu, fv, fo, ft], dim=-1)
+
+        edges = (
+            (gj == 0, (u, v, om + (N[..., 0] - u) * dhy, te - N[..., 3])),
+            (gj == my - 1, (u - lidvelocity, v, om + (u - S[..., 0]) * dhy,
+                            te - S[..., 3])),
+            (i == 0, (u, v, om - (E[..., 1] - v) * dhx, te)),
+            (i == mx - 1, (u, v, om - (v - W[..., 1]) * dhx,
+                           te - float(grashof > 0))),
+        )
+        for where, vals in edges:
+            Fg = torch.where(where, torch.stack(vals, dim=-1), Fg)
+        return torch.where(pad_row, X, Fg).reshape(xflat.shape)
+
+    return F, (mloc * nshards, mx, 4)
 
 
 def cavity_initial_guess(mx: int, my: int, grashof: float = 1.0,

@@ -42,12 +42,15 @@ def shard_vector(world, x, layout: Layout) -> list:
             .to(world.device) for p in range(layout.nshards)]
 
 
-def unshard_vector(x, layout: Layout) -> np.ndarray:
+def unshard_vector(x, layout) -> np.ndarray:
     """The true (unpadded) global host vector of per-rank pieces or of a
-    padded global tensor."""
+    padded global tensor. layout: the operator's Layout (a ShardedAIJ's,
+    flat or two-axis), or the true size n where the padding trails the
+    true entries (a DistMGPC's grid, padded along its leading axis)."""
     if isinstance(x, (list, tuple)):
         x = torch.cat([t.reshape(-1) for t in x])
-    return np.asarray(x.detach().cpu().numpy())[: layout.n]
+    n = layout if isinstance(layout, (int, np.integer)) else layout.n
+    return np.asarray(x.detach().cpu().numpy())[:n]
 
 
 def split_vector(world, v, npad: int, nshards: int, dtype=None) -> list:
@@ -83,10 +86,12 @@ def _config(cfg, kw) -> KSPConfig:
 
 def par_ksp_solve(world, A, b, x0=None, pc=None, cfg: KSPConfig = None,
                   **kw) -> SolveResult:
-    """Distributed KSP solve of a sharded operator A with a sharded PC
-    (or None). b, x0: host global vectors (padded here) or per-rank
-    tensors. The result's x is the padded global vector on the device
-    (this process's ranks' pieces, in rank order)."""
+    """Distributed KSP solve of a sharded operator A (ShardedAIJ,
+    ShardedBAIJ, ShardedStencil, or a two-axis World's ShardedAIJHier)
+    with a sharded PC (RankPCs, a DistMGPC, ...) or None. b, x0: host
+    global vectors (padded here) or per-rank tensors. The result's x is
+    the padded global vector on the device (this process's ranks'
+    pieces, in rank order)."""
     from petsctpu_torch.ksp.api import KSP_REGISTRY
 
     cfg = _config(cfg, kw)

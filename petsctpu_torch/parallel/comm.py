@@ -24,7 +24,8 @@ convention, core/commaudit.py), in `counts`.
   several at once and waits for all (each counts as one).
 * Between rank threads a gloo message costs about a millisecond
   (thread wake-ups; scripts/bench_comm.py), which the halo's shifts
-  pay once a product by going out together.
+  pay once a product by going out together. `seconds` keeps each kind's
+  wall time in its calls (waiting for the others included).
 
 Over gloo, a CUDA operand is copied to pinned host memory and back by
 the Comm itself, explicitly, counted and timed in `staging` (copies,
@@ -47,6 +48,7 @@ by torchrun, the same Comm over an NCCL group.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import threading
@@ -77,10 +79,13 @@ class Comm:
         self.stage = backend == "gloo" and self.device.type == "cuda"
         self.counts: dict = {}        # label -> [calls, bytes]
         self.staging = [0, 0, 0.0]    # host copies, bytes, seconds
+        self.seconds: dict = {}       # label -> wall seconds in its calls
         # this rank's kernel launches and log events, bound to its thread
         # while a World runs it (core/rankctx)
         self.counters = RankCounters()
         self._tag = 0
+        self.axes: dict = {}          # mesh axis name -> Comm (two-axis World)
+        self._halo_record = self._halo_replay = None
 
     @property
     def launches(self) -> dict:
@@ -96,10 +101,29 @@ class Comm:
         c[0] += 1
         c[1] += nbytes
 
+    @contextlib.contextmanager
+    def _timed(self, label: str):
+        """Add the wall time of the block (waiting for the other ranks,
+        staging and transport) to seconds[label]."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[label] = self.seconds.get(label, 0.0) \
+                + time.perf_counter() - t0
+
     def reset_counts(self) -> None:
-        self.counts = {}
-        self.staging = [0, 0, 0.0]
+        # in place: a mesh axis's Comm shares these with its rank's flat one
+        self.counts.clear()
+        self.seconds.clear()
+        self.staging[:] = [0, 0, 0.0]
         self.counters.reset()
+
+    def sub(self, axis) -> "Comm":
+        """The Comm of a mesh axis of this rank ("ici": its row, "dcn":
+        its column of a two-axis World); any other axis (None, "rows", the
+        pair of both) is the flat Comm itself."""
+        return self.axes.get(axis, self) if isinstance(axis, str) else self
 
     def close(self) -> None:
         """Shut the group down and drop it (World.close)."""
@@ -154,7 +178,8 @@ class Comm:
         """Σ over ranks of x, summed in rank order on every rank."""
         x = torch.as_tensor(x)
         self._count("psum", _nbytes(x))
-        parts = self._gather(x)
+        with self._timed("psum"):
+            parts = self._gather(x)
         out = parts[0]
         for k in range(1, self.size):
             out = out + parts[k]
@@ -163,22 +188,25 @@ class Comm:
     def pmax(self, x):
         x = torch.as_tensor(x)
         self._count("pmax", _nbytes(x))
-        return self._gather(x).amax(0)
+        with self._timed("pmax"):
+            return self._gather(x).amax(0)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's x concatenated along dim 0 (tiled)."""
         self._count("all_gather", _nbytes(x))
-        return self._gather(x).reshape(-1, *x.shape[1:])
+        with self._timed("all_gather"):
+            return self._gather(x).reshape(-1, *x.shape[1:])
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """x [P, ...] with x[d] for rank d -> out [P, ...] with out[s]
         from rank s."""
         assert x.shape[0] == self.size, (x.shape, self.size)
         self._count("all_to_all", _nbytes(x))
-        w = self._wire(x)
-        out = self._empty(w)
-        self.pg.alltoall_base(out, w, [], []).wait()
-        return self._unwire(out, x)
+        with self._timed("all_to_all"):
+            w = self._wire(x)
+            out = self._empty(w)
+            self.pg.alltoall_base(out, w, [], []).wait()
+            return self._unwire(out, x)
 
     def ppermute(self, x: torch.Tensor, pairs: Sequence) -> torch.Tensor:
         """Send x along (src, dst) pairs; receive from my source or 0."""
@@ -187,6 +215,12 @@ class Comm:
     def ppermutes(self, shifts: Sequence) -> list:
         """Several ppermutes [(x, pairs), ...] at once: every send and
         receive posted, then all waited for (each counts as one)."""
+        if self._halo_replay is not None:
+            return self._replayed(shifts)
+        with self._timed("ppermute"):
+            return self._ppermutes(shifts)
+
+    def _ppermutes(self, shifts: Sequence) -> list:
         out, works, recvs = [], [], []
         for x, pairs in shifts:
             self._count("ppermute", _nbytes(x))
@@ -207,6 +241,43 @@ class Comm:
             wk.wait()
         for k, buf, x in recvs:
             out[k] = self._unwire(buf, x)
+        if self._halo_record is not None:
+            self._halo_record += [o.detach().clone() for o in out]
+        return out
+
+    # -- frozen halos -----------------------------------------------------
+    @contextlib.contextmanager
+    def recording_halos(self):
+        """Keep what this rank's ppermutes receive inside the block (a
+        list, in call order) for replaying_halos."""
+        rec = []
+        self._halo_record = rec
+        try:
+            yield rec
+        finally:
+            self._halo_record = None
+
+    @contextlib.contextmanager
+    def replaying_halos(self, rec: list):
+        """Inside the block a ppermute sends nothing: it returns, in call
+        order (cycling through `rec`), what recording_halos kept,
+        broadcast over the operand's leading batch dimensions. A residual
+        evaluated there sees its neighbours' rows as they were when
+        recorded: the subdomain problems of nonlinear additive Schwarz,
+        solved on each rank with no message (and so with as many inner
+        iterations as each rank needs)."""
+        self._halo_replay, self._halo_k = rec, 0
+        try:
+            yield
+        finally:
+            self._halo_replay = None
+
+    def _replayed(self, shifts) -> list:
+        out = []
+        for x, _ in shifts:
+            r = self._halo_replay[self._halo_k % len(self._halo_replay)]
+            self._halo_k += 1
+            out.append(r.to(x.dtype).expand(x.shape))
         return out
 
     def barrier(self) -> None:
@@ -227,7 +298,9 @@ def _gloo_group(store, rank: int, size: int, timeout: float):
 class World:
     """P rank threads of this process, each with its own gloo group, all
     on one device: the counterpart of a 1-D Mesh (see the module
-    docstring). `timeout` bounds how long a rank waits in a collective.
+    docstring), or with mesh=(H, C) of petsctpu's two-axis ("dcn",
+    "ici") Mesh (`_mesh_axes`). `timeout` bounds how long a rank waits
+    in a collective.
 
     The groups are gloo's: NCCL refuses two ranks on one card ("Duplicate
     GPU detected"), so the NCCL route is world_from_env(), a process per
@@ -235,7 +308,8 @@ class World:
 
     backend = "gloo"
 
-    def __init__(self, nranks: int, device=None, timeout: float = 120.0):
+    def __init__(self, nranks: int, device=None, timeout: float = 120.0,
+                 mesh: tuple = None):
         self.size = int(nranks)
         self.device = resolve_device(device)
         self.timeout = float(timeout)
@@ -245,6 +319,36 @@ class World:
         self._failure = None
         self._all: list = []          # every Comm made, splits' too
         self.comms = self._groups("world", self.size, range(self.size))
+        self.mesh = None
+        if mesh is not None:
+            self._mesh_axes(*mesh)
+
+    def _mesh_axes(self, H: int, C: int) -> None:
+        """The two-axis (dcn, ici) mesh of H x C ranks, rank p = h*C + c
+        (petsctpu's Mesh(devices.reshape(H, C), ("dcn", "ici"))): each
+        rank's Comm gets axes["ici"], a group over its row (the same h;
+        rank c in it), and axes["dcn"], a group over its column (the same
+        c; rank h). The axes' Comms count into their rank's flat Comm
+        (counts, stagings, launches), as petsctpu's audit counts every
+        collective of a program whatever its axis; a reduction over both
+        axes is the flat Comm's, in global rank order."""
+        H, C = int(H), int(C)
+        if H * C != self.size:
+            raise ValueError(f"mesh {H}x{C} for a World of {self.size} "
+                             "ranks")
+        self.mesh = (H, C)
+        ici, dcn = [], [None] * self.size
+        for h in range(H):
+            ici += self._groups(f"ici{h}", C, range(C))
+        for c in range(C):
+            for h, cm in enumerate(self._groups(f"dcn{c}", H, range(H))):
+                dcn[h * C + c] = cm
+        for p, comm in enumerate(self.comms):
+            for name, sub in (("ici", ici[p]), ("dcn", dcn[p])):
+                sub.counts, sub.staging = comm.counts, comm.staging
+                sub.seconds = comm.seconds
+                sub.counters = comm.counters
+                comm.axes[name] = sub
 
     def _groups(self, prefix: str, size: int, ranks) -> list:
         """One Comm per rank in `ranks` (ranks 0..size-1 of a group over

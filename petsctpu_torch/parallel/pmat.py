@@ -106,6 +106,18 @@ class ShardedAIJ:
         return 2.0 * self.nnz - self.shape[0]
 
 
+def real_slots(targets: torch.Tensor) -> torch.Tensor:
+    """keep-mask of a plan's index table [..., n] whose rows are padded
+    with trailing zeros and whose real entries are distinct within a row
+    (a halo plan's send_idx, ghost_src): every nonzero and the first zero
+    of each row. It keeps the real entries and drops the padding, whose
+    contributions are zeros; folded, each would be one more rank of the
+    plan (thousands where ranks' ghost counts differ)."""
+    t = targets.reshape(-1, targets.shape[-1])
+    z = t == 0
+    return (~z | (z & (torch.cumsum(z, dim=1) == 1))).reshape(targets.shape)
+
+
 class RankAIJ:
     """One rank's view of a ShardedAIJ, bound to its Comm: the operator
     the solvers call (petsctpu's ShardedAIJ.local())."""
@@ -140,10 +152,13 @@ class RankAIJ:
         return y + (self.off_vals * g[self.off_cols]).sum(1)
 
     def _fold(self, key, targets, keep=None):
+        """The cached fold plan of `targets` (keep: a mask, or a function
+        of targets giving one, evaluated when the plan is built)."""
         folds = self.M._folds
         k = (self.p, key)
         if k not in folds:
-            folds[k] = fold_plan(targets, keep)
+            folds[k] = fold_plan(targets, keep(targets) if callable(keep)
+                                 else keep)
         return folds[k]
 
     def multT(self, x: torch.Tensor) -> torch.Tensor:
@@ -171,7 +186,7 @@ class RankAIJ:
             return y + tot[p * M.nloc:(p + 1) * M.nloc]
         send = M.send_idx[p]
         P, smax = send.shape
-        rbuf = self._fold("r", gsrc).fold(
+        rbuf = self._fold("r", gsrc, real_slots).fold(
             torch.zeros(P * smax, dtype=dt, device=dev), gbuf)
         if M.style == "ppermute":
             rb = rbuf.reshape(P, smax)
@@ -180,10 +195,12 @@ class RankAIJ:
                                     for d in M.offsets])
             for d, back in zip(M.offsets, backs):
                 dst = (p + d) % P
-                y = self._fold(("s", dst), send[dst]).fold(y, back)
+                y = self._fold(("s", dst), send[dst],
+                               real_slots).fold(y, back)
             return y
         back = comm.all_to_all(rbuf.reshape(P, smax))
-        return self._fold("s", send).fold(y, back.reshape(-1))
+        return self._fold("s", send, real_slots).fold(
+            y, back.reshape(-1))
 
     def diagonal(self) -> torch.Tensor:
         dc, dv = self.M.diag_cols[self.p], self.M.diag_vals[self.p]

@@ -158,15 +158,20 @@ class RankFDJac:
 
 def par_snes_solve(world, F_local: Callable, x0, jac=None, pc=None,
                    cfg: SNESConfig = None, ksp_cfg: KSPConfig = None,
-                   n_pad: int = None, **kw) -> SNESResult:
+                   n_pad: int = None, solver: Callable = None,
+                   solver_kw: dict = None, **kw) -> SNESResult:
     """Distributed Newton-Krylov solve of F(x) = 0 over the World.
 
     F_local(u_local, comm): the rank's residual (halos through comm);
     x0: the TRUE global vector (host) or per-rank pieces;
     jac: a ShardedFDJac plan, "jvp" or "fd" (matrix-free), or a
          callable (x, Fx) -> operator;
-    pc: a distributed PC (RankPCs, ...), lagged: built once, reused
-        every Newton step (-snes_lag_preconditioner)."""
+    pc: a distributed PC (RankPCs, a DistMGPC, ...), lagged: built once,
+        reused every Newton step (-snes_lag_preconditioner);
+    solver: another nonlinear solver of the axis-parametric signature
+        solver(F, x0, cfg=, axis=, **solver_kw) in Newton's place
+        (snes_anderson, snes_ngmres, snes_nasm, ...); jac, pc and
+        ksp_cfg are then unused."""
     cfg = replace(cfg or SNESConfig(), **kw) if kw else (cfg or SNESConfig())
     ksp_cfg = ksp_cfg or KSPConfig(ksp_type="gmres", rtol=1e-5, maxits=200)
     if n_pad is None:
@@ -175,11 +180,14 @@ def par_snes_solve(world, F_local: Callable, x0, jac=None, pc=None,
     xs = split_vector(world, x0, n_pad, P)
 
     def body(comm, x0_loc):
+        F = (lambda u: F_local(u, comm))
+        if solver is not None:
+            return solver(F, x0_loc, cfg=cfg, axis=comm,
+                          **(solver_kw or {}))
         pc_loc = rank_view(pc, comm)
         pb = (lambda J: pc_loc) if pc_loc is not None else None
-        return snes_solve(lambda u: F_local(u, comm), x0_loc,
-                          jac=rank_view(jac, comm), pc_builder=pb,
-                          ksp_cfg=ksp_cfg, cfg=cfg, axis=comm)
+        return snes_solve(F, x0_loc, jac=rank_view(jac, comm),
+                          pc_builder=pb, ksp_cfg=ksp_cfg, cfg=cfg, axis=comm)
 
     res = world.run(body, [(x,) for x in xs])
     its = {int(r.its) for r in res}

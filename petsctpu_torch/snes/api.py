@@ -63,15 +63,6 @@ class SNESResult(NamedTuple):
         return int(self.reason) > 0
 
 
-def require_serial(axis) -> None:
-    """The nonlinear solvers whose distributed form waits for slice 15
-    of ROADMAP queue 1 item 14 (Anderson, NGMRES, NASM) raise on a Comm."""
-    if axis is not None:
-        raise NotImplementedError(
-            "this SNES type runs serially only; its distributed form is "
-            "ROADMAP queue 1 item 14, slice 15")
-
-
 def configure(cfg: Optional[SNESConfig], kw, base: SNESConfig = None):
     """cfg (or `base`, or the defaults) with the fields of kw replaced."""
     cfg = cfg or base or SNESConfig()
@@ -102,10 +93,14 @@ def _check(fnorm, fnorm0, snorm, xnorm, its: int, cfg: SNESConfig) -> int:
 
 
 class Monitor:
-    """A solve's history, monitor and convergence test on the host."""
+    """A solve's history, monitor and convergence test on the host. On a
+    Comm (`axis`) the step and solution norms of the test are global, so
+    every rank takes the same decision."""
 
-    def __init__(self, cfg: SNESConfig, x0, fnorm0: torch.Tensor):
-        f0, xn = to_host(fnorm0, ops.norm(x0))
+    def __init__(self, cfg: SNESConfig, x0, fnorm0: torch.Tensor,
+                 axis=None):
+        f0, xn = to_host(fnorm0, ops.norm(x0, axis))
+        self.axis = axis
         self.cfg = cfg
         self.dt = f0.dtype.type
         self.fnorm0 = f0
@@ -134,7 +129,8 @@ class Monitor:
 
     def step_from(self, xn, x, fn_t, fail_if=None) -> int:
         """step() with ‖F‖, ‖xn − x‖ and ‖xn‖ copied in one transfer."""
-        fn, snorm, xnorm = to_host(fn_t, ops.norm(xn - x), ops.norm(xn))
+        fn, snorm, xnorm = to_host(fn_t, ops.norm(xn - x, self.axis),
+                                   ops.norm(xn, self.axis))
         return self.step(fn, snorm, xnorm, fail_if)
 
     def result(self, x, fnorm) -> SNESResult:
@@ -304,7 +300,7 @@ def snes_solve(F: Callable, x0: torch.Tensor,
     x = x0
     Fx = F(x)
     fnorm_t = ops.norm(Fx, axis)
-    mon = Monitor(cfg, x, fnorm_t)
+    mon = Monitor(cfg, x, fnorm_t, axis)
     fnorm = mon.fnorm0
     while mon.iterating:
         its = mon.its
@@ -368,7 +364,7 @@ def snes_nrichardson(F, x0, cfg: SNESConfig = None, axis=None,
     x = x0
     Fx = F(x)
     fn_t = ops.norm(Fx, axis)
-    mon = Monitor(cfg, x, fn_t)
+    mon = Monitor(cfg, x, fn_t, axis)
     fnorm = mon.fnorm0
     while mon.iterating:
         xn, Fn, fn_t, _, _ = _linesearch_l2(F, x, damping * Fx, fnorm, axis)

@@ -63,7 +63,7 @@ def snes_ngs(F: Callable, x0: torch.Tensor, colors: np.ndarray,
     cfg = configure(cfg, kw)
     colors_t = torch.as_tensor(np.asarray(colors), device=x0.device)
     nc = ncolors if ncolors is not None else int(np.max(colors)) + 1
-    mon = Monitor(cfg, x0, ops.norm(F(x0), axis))
+    mon = Monitor(cfg, x0, ops.norm(F(x0), axis), axis)
     x = x0
     while mon.iterating:
         xn = ngs_sweep(F, x, None, colors_t, nc, omega)
@@ -223,7 +223,7 @@ def snes_fas(levels: Sequence[FASLevel], x0: torch.Tensor,
 
     cycle = acycle if fas_type == "additive" else vcycle
     F0 = levels[0].F
-    mon = Monitor(cfg, x0, ops.norm(F0(x0), axis))
+    mon = Monitor(cfg, x0, ops.norm(F0(x0), axis), axis)
     zero_b = torch.zeros_like(x0)
     x = x0
     while mon.iterating:
@@ -250,7 +250,7 @@ def snes_ncg(F: Callable, x0: torch.Tensor, beta_type: str = "prp",
     cfg = configure(cfg, kw)
     Fx = F(x0)
     fnorm_t = ops.norm(Fx, axis)
-    mon = Monitor(cfg, x0, fnorm_t)
+    mon = Monitor(cfg, x0, fnorm_t, axis)
     x, p = x0, Fx
     while mon.iterating:
         xn, Fn, fn_t, _, _ = _linesearch_cp(F, x, p, Fx, axis, ls_its)

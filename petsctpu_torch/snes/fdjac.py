@@ -6,7 +6,11 @@ FD coloring — MatFDColoringApply, src/mat/matfd/fdmatrix.c — and the
 matrix-free MFFD of src/mat/impls/mffd):
 
   * `jvp_operator` — exact J(x)·v by forward-mode AD (torch.func.jvp;
-    the transpose product by torch.func.vjp);
+    the transpose product by torch.func.vjp), one product at a time in
+    the process: PyTorch's forward-AD level is the process's, not a
+    thread's, so the rank threads of a World take turns (F must not
+    communicate inside it; snes_nasm's subdomain solves replay their
+    halos);
   * `mffd_operator` — (F(x + h v) − F(x))/h with wp.c's h;
   * `ColoredJacobian` — the FD-coloring assembly as ONE batched residual
     evaluation F(x + dx·D) over the color indicator rows D [C, n] (the
@@ -17,6 +21,7 @@ matrix-free MFFD of src/mat/impls/mffd):
 
 from __future__ import annotations
 
+import threading
 from typing import Callable
 
 import numpy as np
@@ -29,17 +34,22 @@ from petsctpu_torch.mat.ell import AIJ
 from petsctpu_torch.mat.stencil import StencilMat
 
 
+_AD_LOCK = threading.Lock()        # one AD product at a time (see above)
+
+
 def jvp_operator(F: Callable, x: torch.Tensor, Fx: torch.Tensor) -> Shell:
     """Exact J(x)·v (and Jᵀ(x)·v) by automatic differentiation."""
     n = x.shape[0]
 
     def mv(ctx, v):
         xx, = ctx
-        return torch.func.jvp(F, (xx,), (v,))[1]
+        with _AD_LOCK:
+            return torch.func.jvp(F, (xx,), (v,))[1]
 
     def mtv(ctx, v):
         xx, = ctx
-        return torch.func.vjp(F, xx)[1](v)[0]
+        with _AD_LOCK:
+            return torch.func.vjp(F, xx)[1](v)[0]
 
     return Shell(ctx=(x,), mult_fn=mv, multT_fn=mtv, shape=(n, n))
 

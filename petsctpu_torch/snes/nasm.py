@@ -1,5 +1,5 @@
 """SNES NASM (nonlinear additive Schwarz), multiblock and MS (multi-stage
-smoothers), serial.
+smoothers).
 
 Counterpart of petsctpu/snes/nasm.py (reference:
 src/snes/impls/nasm/nasm.c — subdomain nonlinear solves combined
@@ -10,6 +10,7 @@ Jameson and van Leer-Tai-Powell schemes).
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -18,7 +19,6 @@ import torch
 from petsctpu_torch.ksp.common import KSPConfig
 from petsctpu_torch.snes.api import (Monitor, SNESConfig, SNESResult,
                                      configure, snes_solve)
-from petsctpu_torch.snes.api import require_serial
 from petsctpu_torch.vec import ops
 
 
@@ -44,9 +44,17 @@ def snes_nasm(F: Callable, x0: torch.Tensor, subdomains: Sequence,
       "basic"    — additive with partition-of-unity weights on the
                    overlap (and `damping`);
       "restrict" — restricted additive Schwarz: solve on the overlapping
-                   subdomain, write back only its `owned` points."""
+                   subdomain, write back only its `owned` points.
+
+    On a Comm (F the rank's residual, its halos Comm.ppermute), the
+    subdomains are index arrays of the rank's piece and every rank
+    solves its own: the halo rows that F(x) received at the outer
+    iterate are recorded and replayed in the subdomain solves
+    (Comm.recording_halos / replaying_halos), so a subdomain problem
+    holds the other ranks' unknowns at their current values, as the
+    serial method holds every unknown outside it, and its inner Newton
+    sends no message. The outer norms are the Comm's."""
     cfg = configure(cfg, kw)
-    require_serial(axis)
     dev = x0.device
     subs = [torch.as_tensor(np.asarray(s, np.int64), device=dev)
             for s in subdomains]
@@ -77,18 +85,29 @@ def snes_nasm(F: Callable, x0: torch.Tensor, subdomains: Sequence,
                          cfg=inner_cfg, ksp_cfg=inner_ksp)
         return res.x - x[idx]
 
-    mon = Monitor(cfg, x0, ops.norm(F(x0), axis))
+    def recorded(x):
+        """F(x), and the halos its evaluation received (on a Comm)."""
+        if axis is None:
+            return F(x), None
+        with axis.recording_halos() as halos:
+            return F(x), halos
+
+    Fx, halos = recorded(x0)
+    mon = Monitor(cfg, x0, ops.norm(Fx, axis), axis)
     x = x0
     while mon.iterating:
         dx = torch.zeros_like(x)
-        if nasm_type == "restrict":
-            for idx, og, pos in zip(subs, owned_t, own_pos):
-                dx[og] = local_correction(x, idx)[pos]
-        else:
-            for idx, w in zip(subs, wts):
-                dx.index_add_(0, idx, w * local_correction(x, idx))
+        with (nullcontext() if axis is None
+              else axis.replaying_halos(halos)):
+            if nasm_type == "restrict":
+                for idx, og, pos in zip(subs, owned_t, own_pos):
+                    dx[og] = local_correction(x, idx)[pos]
+            else:
+                for idx, w in zip(subs, wts):
+                    dx.index_add_(0, idx, w * local_correction(x, idx))
         xn = x + damping * dx
-        mon.step_from(xn, x, ops.norm(F(xn), axis))
+        Fx, halos = recorded(xn)
+        mon.step_from(xn, x, ops.norm(Fx, axis))
         x = xn
     return mon.result(x, ops.norm(F(x), axis))
 
@@ -108,7 +127,7 @@ def snes_multiblock(F: Callable, x0: torch.Tensor, fields: Sequence,
             for s in fields]
     inner_cfg = SNESConfig(maxits=inner_its, rtol=1e-8, linesearch="bt")
     inner_ksp = KSPConfig(ksp_type="gmres", rtol=1e-6, maxits=100)
-    mon = Monitor(cfg, x0, ops.norm(F(x0), axis))
+    mon = Monitor(cfg, x0, ops.norm(F(x0), axis), axis)
     x = x0
     while mon.iterating:
         xn = x
@@ -148,7 +167,7 @@ def snes_ms(F: Callable, x0: torch.Tensor, scheme: str = "jameson83",
     def S(v):
         return v if scale is None else scale * v
 
-    mon = Monitor(cfg, x0, ops.norm(F(x0), axis))
+    mon = Monitor(cfg, x0, ops.norm(F(x0), axis), axis)
     x = x0
     while mon.iterating:
         xn = x

@@ -20,7 +20,6 @@ from petsctpu_torch.ksp.common import to_host
 from petsctpu_torch.snes.api import (Monitor, SNESConfig, SNESResult,
                                      _linesearch_cp, _linesearch_l2,
                                      configure, jacobian_builder)
-from petsctpu_torch.snes.api import require_serial
 from petsctpu_torch.vec import ops
 
 R = SNESConvergedReason
@@ -79,7 +78,7 @@ def snes_newtontr(F: Callable, x0: torch.Tensor, cfg: SNESConfig = None,
         return p
 
     f0, _ = phi(x0)
-    mon = Monitor(cfg, x0, torch.sqrt(2.0 * f0))
+    mon = Monitor(cfg, x0, torch.sqrt(2.0 * f0), axis)
     x = x0
     delta = torch.tensor(delta0, dtype=x0.dtype, device=x0.device)
     while mon.iterating:
@@ -132,7 +131,7 @@ def snes_tr(F: Callable, x0: torch.Tensor, jac=None, pc_builder=None,
     x = x0
     Fx = F(x)
     fnorm_t = ops.norm(Fx, axis)
-    mon = Monitor(cfg, x, fnorm_t)
+    mon = Monitor(cfg, x, fnorm_t, axis)
     dt = mon.dt
     fnorm = mon.fnorm0
     delta = dt(delta0) * fnorm                            # tr.c:134
@@ -184,13 +183,14 @@ def snes_anderson(F: Callable, x0: torch.Tensor, window: int = 5,
     """Anderson mixing / nonlinear GMRES (src/snes/impls/ngmres): a window
     of (x, F) pairs; each step solves min‖F_k + Σαᵢ(Fᵢ−F_k)‖ and
     combines. npc: an optional nonlinear preconditioner x → x' applied
-    to the accelerated point each iteration."""
+    to the accelerated point each iteration. On a Comm the small Gram
+    system's two contractions are summed over the ranks (two psums an
+    iteration), so every rank solves the same one."""
     cfg = configure(cfg, kw)
-    require_serial(axis)
     dtype, dev = x0.dtype, x0.device
     n, w = x0.shape[0], window
     Fx = F(x0)
-    mon = Monitor(cfg, x0, ops.norm(Fx, axis))
+    mon = Monitor(cfg, x0, ops.norm(Fx, axis), axis)
     x = x0
     Xh = torch.zeros((w, n), dtype=dtype, device=dev)
     Fh = torch.zeros((w, n), dtype=dtype, device=dev)
@@ -204,8 +204,9 @@ def snes_anderson(F: Callable, x0: torch.Tensor, window: int = 5,
         valid = ((ar < k) & (ar != slot)) | ((ar == slot) & (k == w))
         D = Fx[None, :] - Fh
         Dm = torch.where(valid[:, None], D, torch.zeros_like(D))
-        G = Dm @ Dm.T + 1e-12 * torch.eye(w, dtype=dtype, device=dev)
-        alpha = torch.linalg.solve(G, Dm @ Fx)
+        G = ops.psum(Dm @ Dm.T, axis) \
+            + 1e-12 * torch.eye(w, dtype=dtype, device=dev)
+        alpha = torch.linalg.solve(G, ops.psum(Dm @ Fx, axis))
         alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
         x_mix = x + (Xh - x[None, :]).T @ alpha
         F_mix = Fx - Dm.T @ alpha
@@ -232,7 +233,7 @@ def snes_qn(F: Callable, x0: torch.Tensor, history_len: int = 10,
     dtype, dev = x0.dtype, x0.device
     n, m = x0.shape[0], history_len
     Fx = F(x0)
-    mon = Monitor(cfg, x0, ops.norm(Fx, axis))
+    mon = Monitor(cfg, x0, ops.norm(Fx, axis), axis)
     dX = torch.zeros((m, n), dtype=dtype, device=dev)
     dF = torch.zeros((m, n), dtype=dtype, device=dev)
     dXtdF = [None] * m
@@ -287,14 +288,18 @@ def snes_ngmres(F: Callable, x0: torch.Tensor, msize: int = 30,
     subspace through the Gram matrix (H β = ν − ξ), forms the
     accelerated XA, then applies the DIFFERENCE selection (gammaA,
     epsilonB, deltaB) and DIFFERENCE restart (gammaC, restart_it = 2)
-    with the reference's default constants (snesngmres.c:726-742)."""
+    with the reference's default constants (snesngmres.c:726-742). On a
+    Comm the subspace's inner products (ξ, the new Q column) and the
+    distances to it are summed over the ranks, so every rank takes the
+    same selection and restart: the serial method's iterates. (petsctpu
+    under shard_map reduces them per shard, and its shards then
+    disagree; ROADMAP queue 3.)"""
     cfg = configure(cfg, kw)
-    require_serial(axis)
     dtype, dev = x0.dtype, x0.device
     n, m = x0.shape[0], msize
     Fc = F(x0)
     fnorm_t = ops.norm(Fc, axis)
-    mon = Monitor(cfg, x0, fnorm_t)
+    mon = Monitor(cfg, x0, fnorm_t, axis)
     fnorm = mon.fnorm0
     Xdot = torch.zeros((m, n), dtype=dtype, device=dev)
     Fdot = torch.zeros((m, n), dtype=dtype, device=dev)
@@ -316,7 +321,7 @@ def snes_ngmres(F: Callable, x0: torch.Tensor, msize: int = 30,
         nu = fMnorm * fMnorm
         fminnorm = torch.minimum(fminnorm, fMnorm)
         mask = (ar < l).to(dtype)
-        xi = (Fdot @ FM) * mask
+        xi = ops.psum(Fdot @ FM, axis) * mask
         rhs = (nu - xi) * mask
         H = (Q - xi[:, None] - xi[None, :] + nu) * (mask[:, None]
                                                     * mask[None, :])
@@ -336,7 +341,8 @@ def snes_ngmres(F: Callable, x0: torch.Tensor, msize: int = 30,
         FA = F(XA)
         fAnorm = ops.norm(FA, axis)
         dnorm = ops.norm(XA - XM, axis)
-        dall = torch.sqrt(torch.sum((Xdot - XA[None, :]) ** 2, dim=1))
+        dall = torch.sqrt(ops.psum(torch.sum((Xdot - XA[None, :]) ** 2,
+                                             dim=1), axis))
         dminnorm = torch.min(torch.where(mask > 0, dall,
                                          torch.full_like(dall, np.inf)))
         # DIFFERENCE selection (snesngmres.c:440-470)
@@ -361,7 +367,7 @@ def snes_ngmres(F: Callable, x0: torch.Tensor, msize: int = 30,
         else:
             l_app = min(l + 1, m)
             Xdot[ivec], Fdot[ivec] = Xn, Fn
-            xi2 = (Fdot @ Fn) * (ar < l_app).to(dtype)
+            xi2 = ops.psum(Fdot @ Fn, axis) * (ar < l_app).to(dtype)
             Q[:, ivec] = xi2
             Q[ivec, :] = xi2
             l, k_restart = l_app, k_restart + 1

@@ -74,7 +74,7 @@ def snes_vinewtonrsls(F: Callable, x0: torch.Tensor, lb, ub,
         return x - proj(x - Fx)
 
     x = proj(x0)
-    mon = Monitor(cfg, x, ops.norm(natural_residual(x, F(x)), axis))
+    mon = Monitor(cfg, x, ops.norm(natural_residual(x, F(x)), axis), axis)
     rn = mon.fnorm0
     while mon.iterating:
         Fx = F(x)
@@ -172,7 +172,7 @@ def snes_vinewtonssls(F: Callable, x0: torch.Tensor, lb, ub,
                      shape=(x.shape[0], x.shape[0]))
 
     x = torch.minimum(torch.maximum(x0, lb), ub)
-    mon = Monitor(cfg, x, ops.norm(Phi(x), axis))
+    mon = Monitor(cfg, x, ops.norm(Phi(x), axis), axis)
     rn = mon.fnorm0
     dt = mon.dt
     while mon.iterating:

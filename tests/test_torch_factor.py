@@ -23,6 +23,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from tests.test_torch_refnative import ensure_reference_native
 from petsctpu.mat import factor as jfactor
 from petsctpu.mat import order as jorder
 from petsctpu.pc import parallel as jparallel
@@ -33,6 +34,9 @@ from petsctpu_torch.models import ex2_system, ex45_system
 # one intra-op thread: the suite runs in parallel workers (pytest -n), and
 # PyTorch's default of a thread a core oversubscribes the host's cores
 torch.set_num_threads(1)
+# the reference's native library loaded, not half-built by another
+# test process (tests/test_torch_refnative.py)
+ensure_reference_native()
 
 CPU = "cpu"
 

@@ -32,6 +32,7 @@ import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 
+from tests.test_torch_refnative import ensure_reference_native
 from petsctpu import native
 from petsctpu.core.options import Options as JOptions
 from petsctpu.ksp import KSP as JKSP
@@ -58,6 +59,9 @@ from petsctpu_torch.pc.mg import pack_hierarchy
 # one intra-op thread: the suite runs in parallel workers (pytest -n), and
 # PyTorch's default of a thread a core oversubscribes the host's cores
 torch.set_num_threads(1)
+# the reference's native library loaded, not half-built by another
+# test process (tests/test_torch_refnative.py)
+ensure_reference_native()
 
 CPU = "cpu"
 GAMG_OPTS = {"pc_gamg_coarse_eq_limit": "64"}

@@ -36,6 +36,7 @@ import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 
+from tests.test_torch_refnative import ensure_reference_native
 from petsctpu import native
 from petsctpu.ksp import ksp_solve as jksp_solve
 from petsctpu.mat import aij_from_scipy as jaij_from_scipy
@@ -58,6 +59,9 @@ from petsctpu_torch.pc import gamg_device as tgd
 # one intra-op thread: the suite runs in parallel workers (pytest -n), and
 # PyTorch's default of a thread a core oversubscribes the host's cores
 torch.set_num_threads(1)
+# the reference's native library loaded, not half-built by another
+# test process (tests/test_torch_refnative.py)
+ensure_reference_native()
 
 CPU = "cpu"
 

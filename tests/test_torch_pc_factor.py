@@ -29,6 +29,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from tests.test_torch_refnative import ensure_reference_native
 from petsctpu.core.options import Options as JOptions
 from petsctpu.ksp import KSP as JKSP
 from petsctpu.mat import aij_from_scipy as jaij_from_scipy
@@ -44,6 +45,9 @@ from petsctpu_torch.pc import make_pc
 # one intra-op thread: the suite runs in parallel workers (pytest -n), and
 # PyTorch's default of a thread a core oversubscribes the host's cores
 torch.set_num_threads(1)
+# the reference's native library loaded, not half-built by another
+# test process (tests/test_torch_refnative.py)
+ensure_reference_native()
 
 CPU = "cpu"
 
