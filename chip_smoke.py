@@ -467,12 +467,52 @@ rank threads, after slice 14:
    versions, bit for bit.
 `python3 chip_smoke.py slice15` runs the build and phases 48-55 alone.
 
+Slice 16, the entry points (petsctpu_torch.examples, io, -mat_type auto,
+entry.py), after slice 15:
+56. ksp ex45's 7-point operator at S16_GRID = 128³ (2,097,152 rows,
+   14,581,760 nonzeros, fp64) with its rows and columns in one random
+   permutation (seed S16_SEED), written by the port's PETSc binary writer
+   into a temporary directory and read back: every array byte-equal,
+   write and read seconds;
+57. -mat_type auto's card tree on the file: reader, griddetect, stencil
+   pack and upload timed; the recovered order at most 7 col − row
+   offsets; the StencilMat's product against CSR `mv` of the permuted
+   matrix within 1e-12; K1 bit for bit against its plain version and
+   timed; auto on an fp32 copy in natural order, the kernel its gates
+   pick (K2 or K1) bit for bit against its plain version;
+58. ksp ex10 through petsctpu_torch.examples.ex10.main on the file, runs
+   1-3 of S16_RUNS (auto + CG + Jacobi, auto + GMRES + bjacobi(8) ILU,
+   aij + CG + Jacobi; rtol 1e-8), the counts reset just before each and
+   read just after: its, reason, true relative residual ≤ 1e-7, setup by
+   part, ms an iteration of a repeat; K1 launched on every StencilMat
+   product of runs 1-2 (in run 2 SpTRSV too: one sptrsv_lu launch an
+   apply where the block pair takes a shared-memory shape, else two
+   sptrsv launches; the pair bit for bit against its plain version), the
+   ELL kernel on every AIJ product of run 3; runs 1 and 3 within one
+   iteration;
+59. ksp ex39 at EX39_SIZE = 1024² through examples.ex39_lattice.main (CG
+   on HᴴH, complex128 ELL, launches counted), then the ELL kernel on HᴴH
+   bit for bit against its plain version and timed beside CSR `mv`;
+60. every CLI of S16_CLIS at its default size on the card against the
+   port's CPU (equal words, its and reasons; numbers within 1e-5 or the
+   case's floor); -ksp_monitor_draw's ASCII graph printed;
+61. entry() on the card against the CPU, and dryrun_multichip(4) over 4
+   rank threads on the card against DRYRUN_4 (the its petsctpu's dryrun
+   prints, to which tests/test_torch_entry.py holds the port's CPU run).
+`python3 chip_smoke.py slice16` runs the build and phases 56-61 alone.
+
 The whole script runs ex55 (slices 7 and 12, the NC route and refresh
 of slice 7 too) and ex43 (slice 8) at FULL_SCRIPT_NE = 255, phase 27 at
-mx = FULL_SCRIPT_SCHUR_MX = 127, phase 41 without the CPU solve, phase
-43 at FULL_SCRIPT_DIST_GRID = 64 and phases 49-54 at S15_WHOLE_SIZES:
-otherwise it would pass the 1,200 s it must end in. Each `sliceN` runs
-at 1023 (phase 27 at 255).
+mx = FULL_SCRIPT_SCHUR_MX = 127, phase 40 on the box
+FULL_SCRIPT_EX12_N = 512 refined once, phase 41 without the CPU solve,
+phase 43 at FULL_SCRIPT_DIST_GRID = 64, phase 48 at
+FULL_SCRIPT_S15_MG_GRID = 65³ and phases 49-54 at S15_WHOLE_SIZES:
+otherwise it would pass the time it must end in. Each `sliceN` runs at
+full width (ex55 and ex43 at 1023, phase 27 at 255, ex12 at 1024, phase
+48 at 129³).
+
+The kernels line gains K1 on the recovered 128³ stencil and the ELL
+kernel on ex39's HᴴH (complex128).
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -485,6 +525,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3579,13 +3620,14 @@ def measure_ell(label, A, Ad, x, triad_gbs):
     calls from a CUDA graph), and the bound: the ELL arrays (int32
     columns), x and y moved once at 3.35 TB/s (and at the measured STREAM
     triad; beside it the bound of the int64 columns the port stored
-    before) against 2 flops a slot at the fp64 or fp32 peak."""
+    before) against 2 flops a slot (8 in complex) at the fp64 or fp32
+    peak."""
     call_ms = time_ms(lambda: Ad.mult(x), runs=20, inner=5)
     device_ms = graph_ms(lambda: Ad.mult(x))
     plain_ms = time_ms(lambda: ell_spmv_plain(Ad.cols, Ad.vals, x),
                        runs=ELL_PLAIN_RUNS, inner=1, warmup=1)
-    csr = csr_tensor(A, np.float64 if Ad.dtype == torch.float64
-                     else np.float32)
+    csr = csr_tensor(A, {torch.float64: np.float64, torch.float32: np.float32,
+                         torch.complex128: np.complex128}[Ad.dtype])
     y, y_lib = Ad.mult(x), torch.mv(csr, x)
     rel = float((y - y_lib).abs().max() / y_lib.abs().max())
     library_ms = time_ms(lambda: torch.mv(csr, x), runs=20, inner=5)
@@ -3595,12 +3637,15 @@ def measure_ell(label, A, Ad, x, triad_gbs):
                                      lambda: Ad.mult(x))]
     m, K = Ad.cols.shape
     es = Ad.vals.element_size()
+    cplx = Ad.vals.is_complex()
+    real_es = es // 2 if cplx else es          # bytes of a real part
     ell = m * K * (es + Ad.cols.element_size()) + (A.shape[1] + m) * es
     ell64 = m * K * (es + 8) + (A.shape[1] + m) * es
     csr_b = A.nnz * (es + 4) + (m + 1) * 4 + (A.shape[1] + m) * es
     bytes_ms = ell / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * m * K / (FP64_FLOPS_PER_S if es == 8
-                            else FP32_FLOPS_PER_S) * 1e3
+    # a slot's multiply-add: 2 flops, 8 in complex arithmetic
+    ops_ms = (8.0 if cplx else 2.0) * m * K / (
+        FP64_FLOPS_PER_S if real_es == 8 else FP32_FLOPS_PER_S) * 1e3
     triad_ms = ell / (triad_gbs * 1e9) * 1e3
     print(f"ell_spmv (AIJ.mult) at {label}: m={m} K={K} nnz={A.nnz} "
           f"({A.nnz / m:.1f} a row, {100 * (1 - A.nnz / (m * K)):.1f} % ELL "
@@ -3620,7 +3665,7 @@ def measure_ell(label, A, Ad, x, triad_gbs):
           f"{kernel_ms:.4f} against CSR {csr_ms:.4f} "
           f"({kernel_ms / csr_ms:.3f}×): {100 * bytes_ms / kernel_ms:.1f} % "
           f"of the byte bound, {100 * triad_ms / kernel_ms:.1f} % at the triad")
-    if not rel <= 1e-12 * (1e7 if es == 4 else 1):
+    if not rel <= 1e-12 * (1e7 if real_es == 4 else 1):
         raise AssertionError(f"ell_spmv disagrees with CSR mv: {rel}")
     return dict(ms=call_ms, device_ms=device_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
@@ -5232,22 +5277,22 @@ def gamg_levels_text(pc):
             f"{pc.formats}, coarse {type(pc.coarse).__name__}")
 
 
-def drive_ex12_path(rng, triad_gbs):
-    """Phase 40: snes ex12's P1 Poisson at full width (module docstring).
-    Returns (the kernels-line entry of the fine operator's ELL product,
-    {kernel: launches on the path}, max |kernel − plain| of the ELL kernel
-    and of SpTRSV)."""
+def drive_ex12_path(rng, triad_gbs, box=EX12_N):
+    """Phase 40: snes ex12's P1 Poisson on the box `box`² refined once
+    (module docstring; EX12_N in `slice13`). Returns (the kernels-line
+    entry of the fine operator's ELL product, {kernel: launches on the
+    path}, max |kernel − plain| of the ELL kernel and of SpTRSV)."""
     t0 = time.perf_counter()
-    plex, Ad, Ah, b, parts = ex12_system(EX12_N)
+    plex, Ad, Ah, b, parts = ex12_system(box)
     n = Ah.shape[0]
-    print(f"slice 13: ex12 P1 on the box {EX12_N}² refined once and jittered "
+    print(f"slice 13: ex12 P1 on the box {box}² refined once and jittered "
           f"±{EX12_JITTER}h: {plex.num_vertices} vertices, {plex.num_cells} "
           f"triangles, n={n} nnz={Ah.nnz} ({Ah.nnz / n:.2f} a row), ELL K "
           f"{Ad.cols.shape[1]} fp64 {Ad.cols.dtype} cols "
           f"({(Ad.cols.numel() * 4 + Ad.vals.numel() * 8) / 1e9:.3f} GB), "
           f"{int(np.count_nonzero(Ah.data == 0.0))} stored zeros; setup "
           f"{parts_text(parts)} s")
-    if (n != (2 * EX12_N + 1) ** 2 or Ad.dtype != torch.float64
+    if (n != (2 * box + 1) ** 2 or Ad.dtype != torch.float64
             or Ad.device.type != port_device.resolve_device().type):
         raise AssertionError("ex12: the system is not the expected one")
     assembly = ex12_assembly_parts_on_card(plex)
@@ -5297,7 +5342,7 @@ def drive_ex12_path(rng, triad_gbs):
                  operator=f"snes ex12 P1, {n} rows, K {Ad.cols.shape[1]}, "
                           f"fp64",
                  launches=launched["ell_spmv"], max_abs_err=ell_err,
-                 **measure_ell(f"ex12 {2 * EX12_N}² P1", Ah, Ad, x,
+                 **measure_ell(f"ex12 {2 * box}² P1", Ah, Ad, x,
                                triad_gbs))
     print(f"slice 13: phase 40 in {time.perf_counter() - t0:.1f} s; "
           f"assembly {json.dumps(assembly)}")
@@ -5480,7 +5525,8 @@ def check_ex12_small_against_cpu(devices=("cuda", "cpu")):
     return worst
 
 
-def slice13_phases(rng, kernels, triad_gbs, ilu_against_cpu=True):
+def slice13_phases(rng, kernels, triad_gbs, ilu_against_cpu=True,
+                   box=EX12_N):
     """Slice 13: snes ex12's P1 Poisson through DM Plex at 4,198,401 dofs
     with CG + GAMG (phase 40), CG + ILU(0) at 263,169 dofs, with
     ilu_against_cpu against the port's CPU (41), the small assemblies
@@ -5488,7 +5534,8 @@ def slice13_phases(rng, kernels, triad_gbs, ilu_against_cpu=True):
     errors to `kernels`; returns the kernels-line entry of the ex12
     operator's ELL product."""
     t = time.perf_counter()
-    entry, launched, ell_err, trsv_err = drive_ex12_path(rng, triad_gbs)
+    entry, launched, ell_err, trsv_err = drive_ex12_path(rng, triad_gbs,
+                                                         box)
     ilu_launched, ilu_err = drive_ex12_ilu(rng, ilu_against_cpu)
     worst = check_ex12_small_against_cpu()
     for name in kernels:
@@ -6065,7 +6112,7 @@ def slab_mult_ms(pc, rng):
     return out
 
 
-def drive_dist_mg_path(rng, world):
+def drive_dist_mg_path(rng, world, g=S15_MG_GRID):
     """Phase 48 (the main path): ksp ex45 at S15_MG_GRID³ (fp64) on a
     StencilMat split over the ranks, CG + make_dist_mg at the default
     options (the levels 129, 65, 33, 17 and 9 sharded, 5³ and the 27-row
@@ -6076,7 +6123,6 @@ def drive_dist_mg_path(rng, world):
     residual; the setup by part; ms an iteration and idle share of a
     profiled repeat; the collectives a rank an iteration by kind; the
     ranks' true and padded rows. Returns (launches, the PC)."""
-    g = S15_MG_GRID
     t = time.perf_counter()
     A, b, _ = ex45_system(g, g, g)
     sys_s = time.perf_counter() - t
@@ -6557,7 +6603,7 @@ def check_dist_kernels15(rng, pc_mg, Ah, part_h, pc_gamg, dp, M_plex):
     return errs
 
 
-def slice15_phases(rng, kernels, sizes=None):
+def slice15_phases(rng, kernels, sizes=None, mg_grid=S15_MG_GRID):
     """Slice 15: CG + make_dist_mg at 129³ over S15_RANKS rank threads
     (phase 48, the main path), the two-axis mesh (49), distributed GAMG
     on SELL (50), Bratu and the cavity with distributed MG/GAMG (51-52),
@@ -6568,7 +6614,7 @@ def slice15_phases(rng, kernels, sizes=None):
     sizes = dict(S15_SIZES, **(sizes or {}))
     t = time.perf_counter()
     world = World(S15_RANKS, "cuda")
-    launched, pc_mg, a = drive_dist_mg_path(rng, world)
+    launched, pc_mg, a = drive_dist_mg_path(rng, world, mg_grid)
     print(f"slice15: phase 48 done at {time.perf_counter() - t:.1f} s")
     ell_h, Ah, part_h = drive_hier_paths(rng, world, sizes["hier"],
                                          sizes["hier_mg"])
@@ -6597,6 +6643,460 @@ def slice15_phases(rng, kernels, sizes=None):
           f"cpu within {worst:.2e})")
 
 
+
+# ---------------------------------------------------------------------------
+# Slice 16: the entry points (phases 56-61)
+# ---------------------------------------------------------------------------
+
+S16_GRID = 128             # ksp ex45's 7-point operator at 128³ in a file
+S16_SEED = 16              # the file's row and column permutation
+S16_RTOL = "1e-8"
+S16_TRUE_RTOL = 1e-7       # each run's true relative residual
+S16_RUNS = (               # ksp ex10 on the file (the CLI's options)
+    ("run 1", ["-mat_type", "auto", "-ksp_type", "cg", "-pc_type",
+               "jacobi"]),
+    ("run 2", ["-mat_type", "auto", "-ksp_type", "gmres", "-pc_type",
+               "bjacobi", "-pc_bjacobi_blocks", "8", "-sub_pc_type",
+               "ilu"]),
+    ("run 3", ["-mat_type", "aij", "-ksp_type", "cg", "-pc_type",
+               "jacobi"]))
+EX39_SIZE = 1024           # ksp ex39's lattice at 1024²: 2,097,152 unknowns
+# every CLI at its default size, card against the port's CPU: name ->
+# (argv, floor). Printed words and integers (its, reasons, sizes) must be
+# equal, other numbers within 1e-5 relative (the bound of
+# tests/test_torch_examples.py) or both at most `floor`: the solve's own
+# tolerance (rtol × the first printed norm), below which a printed norm
+# is rounding noise (ex5's last Newton norm is 4e-16, ex39's residual a
+# CG stopped at 1e-6·‖Hᵀb‖, ex_stokes's div u the pressure rows'
+# residual at rtol 1e-8).
+S16_CLIS = {
+    "ex2": (["-ksp_monitor_short", "-ksp_gmres_cgs_refinement_type",
+             "refine_always", "-ksp_monitor_draw"], 0.0),
+    "ex45": (["-ksp_type", "cg", "-pc_type", "mg"], 0.0),
+    "ex9": (["-pc_type", "jacobi", "-ksp_monitor_short", "-ksp_type",
+             "gmres", "-ksp_gmres_cgs_refinement_type", "refine_always",
+             "-s2_ksp_type", "bcgs", "-s2_pc_type", "jacobi",
+             "-s2_ksp_monitor_short"], 1e-11),
+    "ex11_complex": (["-ksp_monitor_short"], 0.0),
+    "ex39_lattice": ([], 1e-6 * 1.436141),
+    "ex5": (["-snes_monitor"], 1e-8 * 0.207564),
+    "ex5_fas": (["-snes_monitor"], 1e-8 * 1.18879),
+    "ex19": (["-snes_monitor_short"], 1e-8 * 0.0406612),
+    "ex12_plex": (["-ksp_type", "cg", "-pc_type", "gamg"], 0.0),
+    "ex22_imex": ([], 0.0),
+    "ex_elasticity": ([], 0.0),
+    "ex_stokes": ([], 1e-8),
+    "ex10": (["-f", os.path.join(TESTS_DATA, "ex10_poisson.bin"),
+              "-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_monitor_draw"],
+             0.0),
+}
+# what dryrun_multichip(4) solves to: (its, reason) a solve, Newton its
+# and TS steps for the nonlinear ones; the its are those petsctpu's own
+# dryrun prints on 4 CPU devices, to which tests/test_torch_entry.py holds
+# the port's dryrun on the CPU, the reasons the port's CPU run's
+DRYRUN_4 = {"gmres_bjacobi": (13, 2), "pipecg_stencil": (10, 2),
+            "ibcgs": (9, 2), "dist_mg": (4, 2), "dist_gamg": (4, 2),
+            "subcomm": ((10, 10), (2, 2)), "hier_cg": (10, 2),
+            "hier_mg": (4, 2), "newton_dist_mg": (3, 3),
+            "newton_dist_gamg": (2, 2), "plex_cg": (15, 2),
+            "ts_beuler": (3, 0)}
+_NUMBER = re.compile(r"[-+]?(\d+\.\d*|\.\d+|\d+)([eE][-+]?\d+)?")
+
+
+@contextlib.contextmanager
+def counted_calls(cls, meth="mult"):
+    """The calls of cls.meth while the context is open, as [n]."""
+    real = getattr(cls, meth)
+    n = [0]
+
+    def counting(self, *a, **kw):
+        n[0] += 1
+        return real(self, *a, **kw)
+
+    setattr(cls, meth, counting)
+    try:
+        yield n
+    finally:
+        setattr(cls, meth, real)
+
+
+def write_scrambled(path):
+    """Phase 56: ksp ex45's 7-point operator at S16_GRID³ with its rows
+    and columns in one random permutation (seed S16_SEED), written by the
+    port's writer and read back: every array byte-equal."""
+    from petsctpu_torch.io import petsc_binary_read_mat, \
+        petsc_binary_write_mat
+
+    g = S16_GRID
+    A = ex45_system(g, g, g)[0].tocsr()
+    p = np.random.default_rng(S16_SEED).permutation(A.shape[0])
+    As = A[p][:, p].tocsr()
+    As.sort_indices()
+    t = time.perf_counter()
+    petsc_binary_write_mat(path, As)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    Ar = petsc_binary_read_mat(path)
+    read_s = time.perf_counter() - t
+    # scipy keeps int32 indices where they fit: compare them as int64
+    same = (Ar.shape == As.shape and all(
+        getattr(Ar, k).astype(np.int64).tobytes()
+        == getattr(As, k).astype(np.int64).tobytes()
+        for k in ("indptr", "indices"))
+        and Ar.data.tobytes() == As.data.tobytes())
+    print(f"slice16 file: ex45 {g}^3 scrambled (seed {S16_SEED}), n="
+          f"{As.shape[0]} nnz={As.nnz}, {os.path.getsize(path)} B; write "
+          f"{write_s:.2f} s, read {read_s:.2f} s; arrays byte-equal: {same}")
+    if not same:
+        raise AssertionError("slice16: the file did not read back as "
+                             "written")
+    return A, As
+
+
+def recovered_grid(rng, path, A_nat):
+    """Phase 57: -mat_type auto's card tree on the file (fp64): the
+    reader, griddetect, the stencil pack and its upload timed by part;
+    the recovered order a true grid order (at most 7 distinct col − row
+    offsets); the StencilMat's product against CSR `mv` of the permuted
+    matrix within fp64 rounding; K1 against its plain version, bit for
+    bit, and timed. Then auto on an fp32 copy in natural order, whichever
+    kernel its gates pick checked against its plain version."""
+    from petsctpu_torch.io import petsc_binary_read_mat
+    from petsctpu_torch.mat.factory import auto_format
+
+    log_begin()
+    t = time.perf_counter()
+    Ar = petsc_binary_read_mat(path)
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    M, perm = auto_format(Ar, accel=True, device="cuda")
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t
+    ev = log_events()
+    parts = {k: ev[k].time for k in ("MatGridDetect", "MatStencilPack",
+                                     "MatUpload") if k in ev}
+    print(f"slice16 grid recovery: reader {read_s:.2f} s, auto "
+          f"{auto_s:.2f} s = griddetect {parts.get('MatGridDetect', 0):.2f}"
+          f" + stencil pack {parts.get('MatStencilPack', 0):.2f} + upload "
+          f"{parts.get('MatUpload', 0):.3f} s + the rest; -> "
+          f"{type(M).__name__} grid {getattr(M, 'grid', None)}")
+    if type(M).__name__ != "StencilMat" or perm is None:
+        raise AssertionError(f"slice16: auto gave {type(M).__name__}, not a "
+                             "StencilMat in the recovered order")
+    n = Ar.shape[0]
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    co = Ar.tocoo()
+    noffs = len(np.unique(inv[co.col] - inv[co.row]))
+    print(f"slice16: the recovered order has {noffs} distinct col - row "
+          f"offsets (the scrambled file {len(np.unique(co.col - co.row))})")
+    if noffs > 7:
+        raise AssertionError(f"slice16: {noffs} offsets, not a grid order")
+    Ap = Ar[perm][:, perm].tocsr()
+    Ap.sort_indices()                  # a CSR tensor's invariant
+    x = torch.from_numpy(rng.standard_normal(n)).cuda()
+    y_csr = torch.mv(csr_tensor(Ap, np.float64), x)
+    rel = float((M.mult(x) - y_csr).abs().max() / y_csr.abs().max())
+    print(f"slice16: StencilMat.mult against CSR mv of the permuted matrix: "
+          f"rel diff {rel:.2e}")
+    if not rel <= 1e-12:
+        raise AssertionError(f"slice16: the stencil's product differs from "
+                             f"CSR mv by {rel}")
+    err, xk = check_k1(f"recovered {S16_GRID}^3", M, rng, Ap)
+    times = measure_k1(f"recovered {S16_GRID}^3 7-point fp64", M, xk, Ap)
+    t = time.perf_counter()
+    A32 = A_nat.astype(np.float32)
+    M32, p32 = auto_format(A32, dtype=np.float32, accel=True, device="cuda")
+    torch.cuda.synchronize()
+    kind = type(M32).__name__
+    print(f"slice16: auto on an fp32 copy in natural order -> {kind}"
+          f"{'' if p32 is None else ' (permuted)'} in "
+          f"{time.perf_counter() - t:.2f} s")
+    A32p = A32 if p32 is None else A32[p32][:, p32].tocsr()
+    A32p.sort_indices()
+    if kind == "SellMat":
+        _, err32 = check_k2(A32p, M32, "cuda", rng, "slice16 fp32 auto")
+        held = "sell_spmv"
+    elif kind == "StencilMat":
+        err32 = check_k1("slice16 fp32 auto", M32, rng, A32p)[0]
+        held = "stencil_mult"
+    else:
+        raise AssertionError(f"slice16: fp32 auto gave {kind}")
+    return dict(err=err, times=times, fp32=(held, err32))
+
+
+def ex10_runs(rng, path):
+    """Phase 58: the three ex10 runs of S16_RUNS on the file through
+    petsctpu_torch.examples.ex10.main, each with the counts reset just
+    before and read just after: its, reason, true relative residual, the
+    setup by part (log events) and ms an iteration of a repeat; K1
+    launched on every StencilMat product of runs 1-2 (sptrsv_lu too in
+    run 2), the ELL kernel on every AIJ product of run 3."""
+    from petsctpu_torch.examples import ex10 as ex10_cli
+    from petsctpu_torch.mat.ell import AIJ
+
+    out, launched = {}, collections.Counter()
+    for label, opts in S16_RUNS:
+        argv = ["-f", path, *opts, "-ksp_rtol", S16_RTOL]
+        log_begin()
+        reset_counts()
+        with counted_calls(StencilMat) as ns, counted_calls(AIJ) as na:
+            t = time.perf_counter()
+            r = ex10_cli.main(argv)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t
+        counts = {k: HAND_KERNELS[k].launches for k in
+                  ("stencil_mult", "sptrsv_lu", "sptrsv", "ell_spmv",
+                   "sell_spmv")}
+        ev = dict(log_events())
+        its, reason = int(r.res.its), int(r.res.reason)
+        rel = r.rnorm / float(np.linalg.norm(r.b))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r2 = r.ksp.solve(r.b_solve)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / max(int(r2.its), 1)
+        solve_key = f"KSPSolve[{opts[3]}]"
+        parts = {k: ev[k].time for k in
+                 ("MatLoad", "MatSetFromOptions", "MatGridDetect",
+                  "MatStencilPack", "MatUpload", "KSPSetUp", solve_key)
+                 if k in ev}
+        print(f"slice16 ex10 {label} ({' '.join(opts)}): "
+              f"{type(r.M).__name__}, its={its} reason={reason} true "
+              f"relative residual {rel:.3e}; {total_s:.2f} s = "
+              + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+              + f" s; {ms:.4f} ms an iteration repeated ({int(r2.its)} its);"
+              f" launches {counts}; StencilMat.mult {ns[0]}, AIJ.mult "
+              f"{na[0]}")
+        if reason <= 0 or not rel <= S16_TRUE_RTOL:
+            raise AssertionError(f"slice16 {label}: reason {reason}, true "
+                                 f"relative residual {rel}")
+        if opts[1] == "auto":
+            if type(r.M).__name__ != "StencilMat" or r.perm is None:
+                raise AssertionError(f"slice16 {label}: auto gave "
+                                     f"{type(r.M).__name__}")
+            if counts["stencil_mult"] != ns[0] or ns[0] < its:
+                raise AssertionError(f"slice16 {label}: {counts} K1 "
+                                     f"launches for {ns[0]} products")
+        else:
+            if counts["ell_spmv"] != na[0] or na[0] < its:
+                raise AssertionError(f"slice16 {label}: {counts} ELL "
+                                     f"launches for {na[0]} products")
+        # a PC apply is one sptrsv_lu launch where the block pair takes a
+        # shared-memory shape, else two sptrsv launches (fp64 blocks of
+        # 262,144 rows: a cluster rank's x, 256 KB, is over the card's
+        # shared memory)
+        if "bjacobi" in opts and counts["sptrsv_lu"] < its \
+                and counts["sptrsv"] < 2 * its:
+            raise AssertionError(f"slice16 {label}: {counts} SpTRSV "
+                                 f"launches in {its} its")
+        launched.update({k: v for k, v in counts.items() if k != "sell_spmv"})
+        out[label] = dict(its=its, reason=reason, rel=rel, ms=ms,
+                          setup=parts, ksp=r.ksp)
+    d = out["run 1"]["its"] - out["run 3"]["its"]
+    print(f"slice16: run 1 (StencilMat, recovered order) {out['run 1']['its']}"
+          f" its, run 3 (AIJ, file order) {out['run 3']['its']} its")
+    if abs(d) > 1:
+        raise AssertionError(f"slice16: runs 1 and 3 differ by {d} its")
+    pc = out["run 2"]["ksp"].pc
+    trsv = "sptrsv_lu" if pc.Lplans.fuses(pc.Uplans) else "sptrsv"
+    lu_err = check_lu_pair(f"ex10 run 2 bjacobi(8) ILU at {S16_GRID}^3 "
+                           f"({shape_of(pc.Lplans, pc.Uplans)} shape)",
+                           pc.Lplans, pc.Uplans, rng)
+    for v in out.values():
+        del v["ksp"]
+    return out, launched, (trsv, lu_err)
+
+
+def ex39_phase(rng, triad_gbs):
+    """Phase 59: ksp ex39's lattice at EX39_SIZE² through
+    petsctpu_torch.examples.ex39_lattice.main, CG on HᴴH (complex128)
+    counted; then the ELL kernel on HᴴH against its plain version, bit
+    for bit, and timed beside CSR `mv` and its byte bound."""
+    from petsctpu_torch.examples import ex39_lattice
+    from petsctpu_torch.mat.ell import AIJ
+    from petsctpu_torch.models.lattice import lattice_gauge_system
+
+    reset_counts()
+    with counted_calls(AIJ) as na:
+        t = time.perf_counter()
+        r = ex39_lattice.main(["-size", str(EX39_SIZE)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    launches = ell_spmv.launches
+    print(f"slice16 ex39 -size {EX39_SIZE}: its={int(r.its)} reason="
+          f"{int(r.reason)} in {secs:.2f} s; ELL launches {launches} for "
+          f"{na[0]} AIJ products")
+    if launches != na[0] or launches < int(r.its):
+        raise AssertionError(f"slice16 ex39: {launches} ELL launches for "
+                             f"{na[0]} products")
+    if not torch.isfinite(r.x).all():
+        raise AssertionError("slice16 ex39: the solution is not finite")
+    HtH, _, _ = lattice_gauge_system(EX39_SIZE)
+    HtH.sort_indices()                 # a CSR tensor's invariant
+    Ad = aij_from_scipy(HtH, dtype=np.complex128, device="cuda")
+    n = HtH.shape[0]
+    x = torch.from_numpy(rng.standard_normal(n)
+                         + 1j * rng.standard_normal(n)).cuda()
+    err = ell_check(f"ex39 {EX39_SIZE}^2 HᴴH complex128", HtH, Ad, rng, x)
+    entry = dict(name="ell_spmv", route="cuda",
+                 source="petsctpu_torch/csrc/ell_spmv.cu",
+                 replaces="petsctpu/mat/ell.py:53",
+                 operator=f"ksp ex39 HᴴH, {n} rows, K {Ad.cols.shape[1]}, "
+                          f"complex128",
+                 launches=launches, max_abs_err=err,
+                 **measure_ell(f"ex39 {EX39_SIZE}^2 HᴴH", HtH, Ad, x,
+                               triad_gbs))
+    return entry
+
+
+def same_printed(name, card, cpu, floor):
+    """The CLI's printed lines on the card against the CPU's (S16_CLIS);
+    returns the largest relative difference of the numbers compared."""
+    cl, hl = card.splitlines(), cpu.splitlines()
+    worst = 0.0
+    if len(cl) != len(hl) or not cl:
+        raise AssertionError(f"slice16 {name}: {len(cl)} lines on the card, "
+                             f"{len(hl)} on the CPU")
+    for a, b in zip(cl, hl):
+        if _NUMBER.sub("#", a) != _NUMBER.sub("#", b):
+            raise AssertionError(f"slice16 {name}: {a!r} vs {b!r}")
+        for u, v in zip(_NUMBER.findall(a), _NUMBER.findall(b)):
+            u, v = "".join(u), "".join(v)
+            if u.lstrip("+-").isdigit() or v.lstrip("+-").isdigit():
+                if u != v:
+                    raise AssertionError(f"slice16 {name}: {a!r} vs {b!r}")
+                continue
+            x, y = float(u), float(v)
+            if abs(x) <= floor and abs(y) <= floor:
+                continue
+            d = abs(x - y) / max(abs(x), abs(y))
+            worst = max(worst, d)
+            if d > 1e-5:
+                raise AssertionError(f"slice16 {name}: {a!r} vs {b!r}")
+    return worst
+
+
+def clis_card_against_cpu():
+    """Phase 60: every CLI once at its default size on the card, against
+    the same CLI on the port's CPU (S16_CLIS): equal words, iteration
+    counts and reasons; numbers within the stated bound."""
+    import importlib
+
+    worst = 0.0
+    for name, (argv, floor) in S16_CLIS.items():
+        mod = importlib.import_module(f"petsctpu_torch.examples.{name}")
+        texts, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(list(argv), device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t
+            texts[dev] = buf.getvalue()
+        w = same_printed(name, texts["cuda"], texts["cpu"], floor)
+        worst = max(worst, w)
+        last = texts["cuda"].strip().splitlines()[-1]
+        print(f"slice16 CLI {name}: card {secs['cuda']:.2f} s, cpu "
+              f"{secs['cpu']:.2f} s, numbers within {w:.1e}: {last}")
+        if "-ksp_monitor_draw" in argv:
+            print("\n".join("  " + ln for ln in texts["cuda"].splitlines()
+                            if "|" in ln or "its=" in ln))
+    return worst
+
+
+def entry_points_on_card():
+    """Phase 61: entry() on the card against the CPU (x within 1e-4 of
+    its largest entry, the residual norm within 1e-3: fp32 over 25 its),
+    and dryrun_multichip(4) over 4 rank threads on the card against
+    DRYRUN_4 (each solve converged and within its own bounds, which the
+    dryrun checks; fp32 Krylov its within 1, reasons, Newton its and TS
+    steps equal)."""
+    from petsctpu_torch.entry import dryrun_multichip, entry
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        fn, args = entry(device=dev)
+        x, rnorm = fn(*args)
+        got[dev] = (x.cpu().numpy(), float(rnorm))
+    (xc, rc), (xh, rh) = got["cuda"], got["cpu"]
+    dx = float(np.abs(xc - xh).max() / np.abs(xh).max())
+    print(f"slice16 entry(): rnorm {rc:.6e} on the card, {rh:.6e} on the "
+          f"CPU; x within {dx:.2e}")
+    if not dx <= 1e-4 or not abs(rc - rh) <= 1e-3 * rh:
+        raise AssertionError("slice16: entry() on the card differs from the "
+                             "CPU")
+    t = time.perf_counter()
+    card = dryrun_multichip(4, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    print(f"slice16 dryrun_multichip(4): card {card_s:.1f} s; {card}")
+    if set(card) != set(DRYRUN_4):
+        raise AssertionError(f"slice16 dryrun: solves {sorted(card)}")
+    for k, (its, reason) in card.items():
+        want, wreason = DRYRUN_4[k]
+        exact = k.startswith(("newton", "ts"))
+        if reason != wreason or (its != want if exact else
+                                 np.max(np.abs(np.subtract(its, want))) > 1):
+            raise AssertionError(f"slice16 dryrun {k}: card {its}/{reason}, "
+                                 f"expected {want}/{wreason}")
+    return card_s
+
+
+def slice16_phases(rng, kernels, triad_gbs):
+    """Slice 16: the scrambled 128³ file written and read (phase 56), its
+    grid recovered by -mat_type auto and K1 held on it (57), ksp ex10's
+    runs 1-3 on it (58), ksp ex39 at 1024² (59), every CLI card against
+    CPU (60), entry() and dryrun_multichip(4) on the card (61). Adds the
+    runs' launches (K1, sptrsv_lu, ELL) and errors to `kernels`; returns
+    the kernels-line entries of K1 on the recovered stencil and of the
+    ELL kernel on ex39's HᴴH."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "A.bin")
+        A_nat, _ = write_scrambled(path)
+        stamp("slice16 phase 56")
+        grid = recovered_grid(rng, path, A_nat)
+        del A_nat
+        stamp("slice16 phase 57")
+        runs, launched, lu_err = ex10_runs(rng, path)
+        stamp("slice16 phase 58")
+    ell_entry = ex39_phase(rng, triad_gbs)
+    stamp("slice16 phase 59")
+    worst = clis_card_against_cpu()
+    stamp("slice16 phase 60")
+    dry_s = entry_points_on_card()
+    stamp("slice16 phase 61")
+    k1_entry = dict(name="stencil_mult", route="cuda",
+                    source="petsctpu_torch/csrc/stencil_mult.cu",
+                    replaces="petsctpu/ops/stencil_pallas.py:50",
+                    operator=f"ex45 {S16_GRID}^3 recovered by griddetect "
+                             f"from a scrambled file, 7-point fp64",
+                    launches=launched["stencil_mult"],
+                    max_abs_err=grid["err"], **grid["times"])
+    for name in ("stencil_mult", "sptrsv_lu", "sptrsv", "ell_spmv"):
+        kernels[name]["launches"] += launched[name]
+    kernels["ell_spmv"]["launches"] += ell_entry["launches"]
+    kernels["stencil_mult"]["max_abs_err"] = max(
+        kernels["stencil_mult"]["max_abs_err"], grid["err"])
+    trsv, lu_err = lu_err
+    kernels[trsv]["max_abs_err"] = max(kernels[trsv]["max_abs_err"], lu_err)
+    kernels["ell_spmv"]["max_abs_err"] = max(
+        kernels["ell_spmv"]["max_abs_err"], ell_entry["max_abs_err"])
+    held, err32 = grid["fp32"]
+    kernels[held]["max_abs_err"] = max(kernels[held]["max_abs_err"], err32)
+    summary = {k: dict(its=v["its"], reason=v["reason"],
+                       true_rel=v["rel"], ms_per_it=v["ms"]) for k, v in
+               runs.items()}
+    print(f"slice 16 in {time.perf_counter() - t0:.1f} s (runs {summary}; "
+          f"CLIs card vs cpu within {worst:.1e}; dryrun {dry_s:.1f} s)")
+    return [k1_entry, ell_entry]
+
+
 T0 = time.perf_counter()
 # ex55's ne (slices 7 and 12, with slice 7's NC route and refresh) and
 # ex43's mx (slice 8) in the whole script: 131,072 and 196,608 dofs. At
@@ -6611,6 +7111,11 @@ FULL_SCRIPT_DIST_GRID = 64
 # `slice8`, a 64 s CPU solve): 49,152 dofs, which gives back slice 14's
 # time
 FULL_SCRIPT_SCHUR_MX = 127
+# phase 40's box in the whole script (1024 in `slice13`): 1,050,625 dofs,
+# and phase 48's grid (129³ in `slice15`): together they give back slice
+# 16's time (PERF.md §4)
+FULL_SCRIPT_EX12_N = 512
+FULL_SCRIPT_S15_MG_GRID = 65
 
 
 def stamp(label):
@@ -6624,6 +7129,18 @@ def main(argv=()):
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
+    if list(argv) == ["slice16"]:
+        kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
+                   for k in ("stencil_mult", "sptrsv", "sptrsv_lu",
+                             "sell_spmv", "ell_spmv")}
+        entries = slice16_phases(rng, kernels, stream_triad_gbs(1 << 28))
+        print(smi)
+        print(f"slice16 in {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"slice16": list(kernels.values()) + entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if list(argv) == ["slice15"]:
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
                    for k in ("stencil_mult", "sptrsv_lu", "sell_spmv",
@@ -6747,13 +7264,17 @@ def main(argv=()):
     # host) runs in `slice13` alone: with it the whole script would pass
     # its limit
     kernels.append(slice13_phases(rng, {k["name"]: k for k in kernels},
-                                  triad, ilu_against_cpu=False))
+                                  triad, ilu_against_cpu=False,
+                                  box=FULL_SCRIPT_EX12_N))
     stamp("slice 13")
     slice14_phases(rng, {k["name"]: k for k in kernels},
                    grid=FULL_SCRIPT_DIST_GRID)
     stamp("slice 14")
-    slice15_phases(rng, {k["name"]: k for k in kernels}, S15_WHOLE_SIZES)
+    slice15_phases(rng, {k["name"]: k for k in kernels}, S15_WHOLE_SIZES,
+                   FULL_SCRIPT_S15_MG_GRID)
     stamp("slice 15")
+    kernels += slice16_phases(rng, {k["name"]: k for k in kernels}, triad)
+    stamp("slice 16")
     kernels += probes_phase()
     print(smi)
     print(f"chip_smoke.py in {time.perf_counter() - T0:.1f} s")

@@ -1,11 +1,13 @@
 // Host graph code of the port: greedy distance-2 column coloring and
-// greedy root-based aggregation (the AMG setup), and the multilevel
-// k-way partition (MatPartitioning "kway", mat/partition.py).
+// greedy root-based aggregation (the AMG setup), the multilevel k-way
+// partition (MatPartitioning "kway", mat/partition.py) and the
+// locality RCM ordering ("rcm_fast", mat/order.py).
 //
 // The port's own copy of the plan-time C++ that petsctpu runs for the
 // same work (native/petsctpu_native.cpp: greedy_color, aggregate, the
-// kwaypart namespace and kway_partition), so the colorings, aggregates
-// and partitions of both packages are equal. Reference
+// kwaypart namespace, kway_partition and rcm), so the colorings,
+// aggregates, partitions and orderings of both packages are equal.
+// Reference
 // algorithms: MatColoring's greedy coloring (src/mat/color) and the
 // serial MIS aggregation of PCGAMGCoarsen_AGG (agg.c:977,
 // MatCoarsenApply_MIS mis.c:335).
@@ -360,6 +362,45 @@ int64_t kway_partition(int64_t n, const int64_t* indptr,
     }
     for (int64_t v = 0; v < n; ++v) part[v] = best[v];
     return cut_of(levels[0], best);
+}
+
+// Reverse Cuthill-McKee ordering (genrcm.c's shape with locality-only
+// tie-breaking): BFS from a minimum-degree root of each component,
+// neighbours queued by ascending degree, the visit order reversed.
+int64_t rcm(int64_t n, const int64_t* indptr, const int32_t* indices,
+            int32_t* perm) {
+    std::vector<int64_t> degree(n);
+    for (int64_t i = 0; i < n; ++i) degree[i] = indptr[i + 1] - indptr[i];
+    std::vector<char> visited(n, 0);
+    std::vector<int32_t> order;
+    order.reserve(n);
+    std::vector<int32_t> nbrs;
+    for (int64_t start = 0; start < n; ++start) {
+        if (visited[start]) continue;
+        // pseudo-peripheral: min-degree unvisited in this sweep
+        int64_t root = start;
+        for (int64_t i = start; i < n; ++i)
+            if (!visited[i] && degree[i] < degree[root]) root = i;
+        std::queue<int32_t> q;
+        q.push((int32_t)root);
+        visited[root] = 1;
+        while (!q.empty()) {
+            int32_t u = q.front(); q.pop();
+            order.push_back(u);
+            nbrs.clear();
+            for (int64_t p = indptr[u]; p < indptr[u + 1]; ++p) {
+                int32_t v = indices[p];
+                if (!visited[v]) { visited[v] = 1; nbrs.push_back(v); }
+            }
+            std::sort(nbrs.begin(), nbrs.end(),
+                      [&](int32_t a, int32_t b) {
+                          return degree[a] < degree[b];
+                      });
+            for (int32_t v : nbrs) q.push(v);
+        }
+    }
+    for (int64_t k = 0; k < n; ++k) perm[k] = order[n - 1 - k];
+    return 0;
 }
 
 }  // extern "C"

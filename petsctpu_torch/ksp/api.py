@@ -245,9 +245,6 @@ class KSP:
     def solve(self, b, x0=None) -> SolveResult:
         self.set_from_options()
         self.setup()
-        if self.opts.get_bool("ksp_monitor_draw", False):
-            raise NotImplementedError("-ksp_monitor_draw is not ported yet "
-                                      "(ROADMAP queue 1 item 15)")
         if x0 is None and self.guess is not None:
             x0 = self.guess.form(b)
             if self.cfg.ksp_type not in ("preonly",):
@@ -260,6 +257,10 @@ class KSP:
             print(self.view())
         if self.opts.get_bool("help", False):
             print(self.opts.help_text())
+        if self.opts.get_bool("ksp_monitor_draw", False):
+            from petsctpu_torch.core.draw import monitor_draw
+            monitor_draw(res,
+                         save=self.opts.get("ksp_monitor_draw_save"))
         return res
 
     def view(self) -> str:

@@ -1,6 +1,7 @@
 """ctypes bindings of the host graph code (csrc/host_graph.cpp): the
-AMG setup's aggregation, the probe refresh's column coloring and the
-multilevel k-way partition (mat/partition.py).
+AMG setup's aggregation, the probe refresh's column coloring, the
+multilevel k-way partition (mat/partition.py) and the locality RCM
+ordering (mat/order.py's "rcm_fast").
 
 The library is built by g++ into petsctpu_torch/_build/ at first use
 (ops/_build.py::load_host); a missing compiler or a failed build raises,
@@ -33,7 +34,19 @@ def _lib() -> ctypes.CDLL:
     lib.kway_partition.restype = i64
     lib.kway_partition.argtypes = [i64, p64, p32, ctypes.c_void_p, i64,
                                    ctypes.c_uint64, p32]
+    lib.rcm.restype = i64
+    lib.rcm.argtypes = [i64, p64, p32, p32]
     return lib
+
+
+def rcm(S: sp.csr_matrix) -> np.ndarray:
+    """Reverse Cuthill-McKee of the symmetric pattern S (diagonal
+    included in the degrees): int64 new -> old."""
+    S = sp.csr_matrix(S)
+    out = np.zeros(S.shape[0], np.int32)
+    _lib().rcm(S.shape[0], np.ascontiguousarray(S.indptr, np.int64),
+               np.ascontiguousarray(S.indices, np.int32), out)
+    return out.astype(np.int64)
 
 
 def aggregate(S: sp.csr_matrix) -> np.ndarray:

@@ -2,7 +2,7 @@
 
 Reference: src/mat/order (MatGetOrdering sorder.c:182; SPARSPAK genrcm,
 gennd, gen1wd, genqmd). Provided: natural, rcm (SPARSPAK genrcm,
-behavior-exact), rcm_fast (scipy csgraph: same bandwidth class,
+behavior-exact), rcm_fast (csrc/host_graph.cpp: same bandwidth class,
 different tie-breaking), nd (SPARSPAK gennd), ndrb (recursive RCM-band
 bisection), qmd (SPARSPAK genqmd, behavior-exact), md (greedy minimum
 degree) and 1wd (SPARSPAK gen1wd): the port's copies of petsctpu's, so
@@ -29,11 +29,11 @@ def get_ordering(A, kind: str = "natural") -> np.ndarray:
         S.sort_indices()
         return genrcm(S)
     if kind == "rcm_fast":
-        # locality-only RCM (scipy csgraph; same bandwidth class,
-        # different tie-breaking)
-        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        # locality-only RCM (csrc/host_graph.cpp, petsctpu's native rcm:
+        # same bandwidth class as genrcm, different tie-breaking)
+        from petsctpu_torch.mat.host_graph import rcm
         S = ((A + A.T) != 0).astype(np.int8).tocsr()
-        return np.asarray(reverse_cuthill_mckee(S), dtype=np.int64)
+        return rcm(S)
     S = ((A + A.T) != 0).astype(np.int8).tocsr()
     if kind == "nd":
         return gennd(S)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from petsctpu_torch.core import commaudit
+from petsctpu_torch.core import logging as plog
 from petsctpu_torch.core.layout import Layout
 from petsctpu_torch.device import np_dtype
 from petsctpu_torch.ksp.common import KSPConfig, SolveResult
@@ -106,7 +107,22 @@ def par_ksp_solve(world, A, b, x0=None, pc=None, cfg: KSPConfig = None,
         return fn(A.rank(comm), b_loc, x0_loc, rank_view(pc, comm), cfg,
                   comm)
 
-    return gather_result(world.run(body, list(zip(bs, x0s))))
+    if not plog.log_enabled():
+        return gather_result(world.run(body, list(zip(bs, x0s))))
+    # the -log_summary Mess ledger (core/logging.log_comm): the
+    # collectives rank 0 made in this solve, counted at run time
+    before = _totals(world.comms[0].counts)
+    res = gather_result(world.run(body, list(zip(bs, x0s))))
+    after = _totals(world.comms[0].counts)
+    plog.log_comm(f"KSPSolve_{cfg.ksp_type}", after[0] - before[0],
+                  after[1] - before[1])
+    return res
+
+
+def _totals(counts: dict) -> tuple:
+    """(calls, bytes) summed over a Comm's counts."""
+    return (sum(c[0] for c in counts.values()),
+            sum(c[1] for c in counts.values()))
 
 
 class ParKSP:

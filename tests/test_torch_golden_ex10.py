@@ -2,12 +2,13 @@
 port.
 
 Each of its 18 configs (15 on AIJ, one on SBAIJ, two on BAIJ with bs 3)
-reads its system with petsctpu's binary reader into scipy, builds the
-port's operator and PC on the CPU in fp64 and holds the solve to the
-reference oracle stream in tests/data/oracle_ex10/ with that test's
-bounds: the exact iteration count, the monitor stream within 2e-5
-relative, and the true residual within 2e-4 relative (stream-checked)
-or 2× (the transient-spike family).
+reads its system with the port's binary reader (petsctpu_torch/io,
+held byte-equal to petsctpu's in tests/test_torch_io.py) into scipy,
+builds the port's operator and PC on the CPU in fp64 and holds the
+solve to the reference oracle stream in tests/data/oracle_ex10/ with
+that test's bounds: the exact iteration count, the monitor stream within
+2e-5 relative, and the true residual within 2e-4 relative
+(stream-checked) or 2× (the transient-spike family).
 """
 
 import os
@@ -18,7 +19,7 @@ import torch
 
 from test_golden_ex10 import CASES, DATA, load_oracle
 
-from petsctpu.io.viewer import petsc_binary_read_system
+from petsctpu_torch.io.viewer import petsc_binary_read_system
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.ksp import ksp_solve
 from petsctpu_torch.mat import (aij_from_scipy, baij_from_scipy_bsr,

@@ -30,7 +30,7 @@ import torch
 from test_golden_r4 import (KSP_CASES, NONSYM_CASES, ORACLE, SNES_CASES,
                             TS_EX4, ksp_stream, snes_stream)
 
-from petsctpu.io.viewer import petsc_binary_read_system
+from petsctpu_torch.io.viewer import petsc_binary_read_system
 from petsctpu_torch.ksp import ksp_solve
 from petsctpu_torch.ksp.common import KSPConfig
 from petsctpu_torch.mat import aij_from_scipy

@@ -1,6 +1,7 @@
 """petsctpu_torch and chip_smoke.py stand alone: they import neither jax
-nor petsctpu, and the port's entry points build on CUDA unless the
-caller asks for the CPU."""
+nor petsctpu, and the port's entry points (the example CLIs' main and
+entry.py's entry among them) build on CUDA unless the caller asks for
+the CPU."""
 
 import ast
 import pathlib
@@ -20,6 +21,23 @@ torch.set_num_threads(1)
 
 PKG = pathlib.Path(petsctpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
+# the example CLIs (petsctpu's examples/*.py) and a small argv of each
+EXAMPLES = {
+    "ex10": ["-f", str(ROOT / "tests" / "data" / "ex10_poisson.bin"),
+             "-ksp_type", "cg", "-pc_type", "jacobi"],
+    "ex2": ["-m", "4", "-n", "4"],
+    "ex45": ["-da_grid", "5"],
+    "ex9": ["-t", "1"],
+    "ex11_complex": ["-n", "4", "-norandom"],
+    "ex39_lattice": ["-size", "3"],
+    "ex5": ["-da_grid_x", "5", "-da_grid_y", "5"],
+    "ex5_fas": ["-da_grid_x", "9", "-da_grid_y", "9", "-fas_levels", "2"],
+    "ex19": ["-da_grid", "5"],
+    "ex12_plex": ["-cells", "4"],
+    "ex22_imex": ["-da_grid_x", "8"],
+    "ex_elasticity": ["-mx", "4", "-my", "2"],
+    "ex_stokes": ["-m", "4"],
+}
 
 
 def _modules():
@@ -60,7 +78,9 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "core.commaudit", "parallel", "parallel.comm", "parallel.plan",
               "parallel.pmat", "parallel.pbaij", "parallel.pstencil",
               "parallel.api", "parallel.subcomm", "parallel.psnes",
-              "pc.parallel", "mat.partition", "dm.decomp"):
+              "pc.parallel", "mat.partition", "dm.decomp", "io",
+              "io.viewer", "mat.griddetect", "core.draw", "models.lattice",
+              "entry", "examples", *(f"examples.{n}" for n in EXAMPLES)):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
@@ -117,6 +137,7 @@ def _entry_points():
     from petsctpu_torch.dm.plex import (Plex, fem_assemble_poisson,
                                         p2_assemble_poisson)
     from petsctpu_torch.dm.shell import DMRedundant
+    from petsctpu_torch.entry import entry
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
     halves = [np.arange(800), np.arange(800, 1600)]
@@ -173,7 +194,26 @@ def _entry_points():
         "probes.__main__": lambda **kw: probes_main(
             ["probe_gather6_C", *(("--device", kw["device"]) if kw
                                   else ())])[0]["out"],
+        "entry": lambda **kw: entry(**kw)[1][0],
+        **{f"examples.{n}": _example(n) for n in EXAMPLES},
     }
+
+
+def _example(name):
+    """A build of CLI `name` on its small argv: a tensor of its result
+    (ex10's solve, ex9's last first system, ex22's state)."""
+    import importlib
+
+    def build(**kw):
+        mod = importlib.import_module(f"petsctpu_torch.examples.{name}")
+        out = mod.main(EXAMPLES[name], **kw)
+        if name == "ex10":
+            return out.res.x
+        if name == "ex9":
+            return out[0].x
+        return out.u if name == "ex22_imex" else out.x
+
+    return build
 
 
 @pytest.mark.parametrize("name", ["aij_from_scipy", "mat_from_options",
@@ -196,7 +236,8 @@ def _entry_points():
                                   "fem_assemble_poisson",
                                   "p2_assemble_poisson",
                                   "DMComposite.create_global_vector",
-                                  "DMRedundant.create_matrix"])
+                                  "DMRedundant.create_matrix", "entry",
+                                  *(f"examples.{n}" for n in EXAMPLES)])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

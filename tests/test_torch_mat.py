@@ -578,18 +578,15 @@ def test_mat_from_options_perm_matches_jax(ordering, mat_type):
 @pytest.mark.parametrize("mat_type", ["baij", "sbaij", "dense", "band",
                                       "dia", "auto"])
 def test_mat_types_not_ported_raise(mat_type):
-    """Only auto (its GPU policy, ROADMAP queue 1 item 6) still raises;
-    the other formats came with slice 12 (tests/test_torch_formats.py
-    holds them to petsctpu's)."""
+    """No -mat_type raises any more: the formats came with slice 12
+    (tests/test_torch_formats.py holds them to petsctpu's) and auto with
+    slice 16 (on the CPU it takes petsctpu's off-TPU choice, here the
+    natural band; tests/test_torch_griddetect.py)."""
     A, _, _ = ex2_system(4, 4)
-    if mat_type == "auto":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mat_from_options(A, mat_type=mat_type, device=CPU)
-        return
     M, _ = mat_from_options(A, mat_type=mat_type, device=CPU)
     assert type(M).__name__ == {"baij": "BAIJ", "sbaij": "SBAIJ",
                                 "dense": "Dense", "band": "BandMat",
-                                "dia": "DiaMat"}[mat_type]
+                                "dia": "DiaMat", "auto": "BandMat"}[mat_type]
 
 
 def test_rcm_fast_and_bandwidth_match_jax():

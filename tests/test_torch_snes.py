@@ -29,7 +29,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from petsctpu.io.viewer import petsc_binary_read_system
+from petsctpu_torch.io.viewer import petsc_binary_read_system
 from petsctpu.mat import coloring as jcol
 
 from petsctpu_torch.core.options import Options
