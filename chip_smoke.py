@@ -501,6 +501,31 @@ entry.py), after slice 15:
    prints, to which tests/test_torch_entry.py holds the port's CPU run).
 `python3 chip_smoke.py slice16` runs the build and phases 56-61 alone.
 
+Slice 17, the reference-exact MG stacks (pc/mg.py's make_full_mg_ref and
+friends) and their oracle models, after slice 16:
+62. ksp ex34 at EX34_M = 128³ (2,097,152 cells, 14,581,760 nonzeros,
+   fp64): the cell-centred Neumann Laplacian, -pc_type mg -pc_mg_type
+   full -ksp_type fgmres through make_full_mg_ref(nullspace=True, "svd"
+   est) over EX34_LEVELS = 5 rediscretized levels (128³ → 8³, Q0
+   transfers; with the golden's 3 the coarsest pinv would be 32,768 ×
+   32,768), rtol 1e-5, the counts reset just before the setup and read
+   just after the solve: its, reason, the true relative residual (≤ 1e-5)
+   and the error against the exact solution, the setup by part (log
+   events: the system, each level's host est and its bounds, the SSOR
+   plans, the pinv, the uploads), ms an iteration of a repeat and a
+   profiled repeat's idle share; the ELL kernel launched once an AIJ
+   product and SpTRSV twice an SSOR apply. Level 0's ELL product and both
+   SSOR triangles bit for bit against their plain versions, and timed
+   beside their bounds, CSR `mv` and torch.triangular_solve;
+63. ex34 at 32³ on 4 levels, card against CPU: equal level bounds, its
+   and reason, the history within 1e-10 (same_solve_to_noise);
+64. the other stacks at the goldens' sizes, card against CPU (S17_SMALL):
+   ksp ex28_1's ten solves, snes ex35_7, ksp ex45_2 serially, the ex29_1/2
+   oracles, ex50, ex54 (CG + Jacobi and GAMG-SA at ne = 109), ex49_1
+   (GMRES + ILU(0)) and ex49_2/3 (GCR/GMRES + ASM with LU subdomains):
+   equal its and reasons, histories within each case's bound.
+`python3 chip_smoke.py slice17` runs the build and phases 62-64 alone.
+
 The whole script runs ex55 (slices 7 and 12, the NC route and refresh
 of slice 7 too) and ex43 (slice 8) at FULL_SCRIPT_NE = 255, phase 27 at
 mx = FULL_SCRIPT_SCHUR_MX = 127, phase 40 on the box
@@ -511,8 +536,9 @@ otherwise it would pass the time it must end in. Each `sliceN` runs at
 full width (ex55 and ex43 at 1023, phase 27 at 255, ex12 at 1024, phase
 48 at 129³).
 
-The kernels line gains K1 on the recovered 128³ stencil and the ELL
-kernel on ex39's HᴴH (complex128).
+The kernels line gains K1 on the recovered 128³ stencil, the ELL
+kernel on ex39's HᴴH (complex128), and the ELL kernel and SpTRSV on ksp
+ex34's 128³ level 0.
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -540,7 +566,7 @@ from petsctpu_torch import probes
 from petsctpu_torch.convert import sell_from_arrays
 from petsctpu_torch.core.commaudit import comm_table
 from petsctpu_torch.core.layout import Layout
-from petsctpu_torch.core.logging import log_begin, log_events
+from petsctpu_torch.core.logging import log_begin, log_event, log_events
 from petsctpu_torch.core.options import Options
 from petsctpu_torch.dm import DA
 from petsctpu_torch.dm.gmsh import read_gmsh, write_gmsh
@@ -6720,14 +6746,13 @@ def counted_calls(cls, meth="mult"):
         setattr(cls, meth, real)
 
 
-def write_scrambled(path):
-    """Phase 56: ksp ex45's 7-point operator at S16_GRID³ with its rows
+def write_scrambled(path, g=S16_GRID):
+    """Phase 56: ksp ex45's 7-point operator at g³ with its rows
     and columns in one random permutation (seed S16_SEED), written by the
     port's writer and read back: every array byte-equal."""
     from petsctpu_torch.io import petsc_binary_read_mat, \
         petsc_binary_write_mat
 
-    g = S16_GRID
     A = ex45_system(g, g, g)[0].tocsr()
     p = np.random.default_rng(S16_SEED).permutation(A.shape[0])
     As = A[p][:, p].tocsr()
@@ -6753,7 +6778,7 @@ def write_scrambled(path):
     return A, As
 
 
-def recovered_grid(rng, path, A_nat):
+def recovered_grid(rng, path, A_nat, g=S16_GRID):
     """Phase 57: -mat_type auto's card tree on the file (fp64): the
     reader, griddetect, the stencil pack and its upload timed by part;
     the recovered order a true grid order (at most 7 distinct col − row
@@ -6802,8 +6827,8 @@ def recovered_grid(rng, path, A_nat):
     if not rel <= 1e-12:
         raise AssertionError(f"slice16: the stencil's product differs from "
                              f"CSR mv by {rel}")
-    err, xk = check_k1(f"recovered {S16_GRID}^3", M, rng, Ap)
-    times = measure_k1(f"recovered {S16_GRID}^3 7-point fp64", M, xk, Ap)
+    err, xk = check_k1(f"recovered {g}^3", M, rng, Ap)
+    times = measure_k1(f"recovered {g}^3 7-point fp64", M, xk, Ap)
     t = time.perf_counter()
     A32 = A_nat.astype(np.float32)
     M32, p32 = auto_format(A32, dtype=np.float32, accel=True, device="cuda")
@@ -6825,7 +6850,7 @@ def recovered_grid(rng, path, A_nat):
     return dict(err=err, times=times, fp32=(held, err32))
 
 
-def ex10_runs(rng, path):
+def ex10_runs(rng, path, g=S16_GRID):
     """Phase 58: the three ex10 runs of S16_RUNS on the file through
     petsctpu_torch.examples.ex10.main, each with the counts reset just
     before and read just after: its, reason, true relative residual, the
@@ -6900,7 +6925,7 @@ def ex10_runs(rng, path):
         raise AssertionError(f"slice16: runs 1 and 3 differ by {d} its")
     pc = out["run 2"]["ksp"].pc
     trsv = "sptrsv_lu" if pc.Lplans.fuses(pc.Uplans) else "sptrsv"
-    lu_err = check_lu_pair(f"ex10 run 2 bjacobi(8) ILU at {S16_GRID}^3 "
+    lu_err = check_lu_pair(f"ex10 run 2 bjacobi(8) ILU at {g}^3 "
                            f"({shape_of(pc.Lplans, pc.Uplans)} shape)",
                            pc.Lplans, pc.Uplans, rng)
     for v in out.values():
@@ -7045,7 +7070,7 @@ def entry_points_on_card():
     return card_s
 
 
-def slice16_phases(rng, kernels, triad_gbs):
+def slice16_phases(rng, kernels, triad_gbs, grid_n=S16_GRID):
     """Slice 16: the scrambled 128³ file written and read (phase 56), its
     grid recovered by -mat_type auto and K1 held on it (57), ksp ex10's
     runs 1-3 on it (58), ksp ex39 at 1024² (59), every CLI card against
@@ -7058,12 +7083,12 @@ def slice16_phases(rng, kernels, triad_gbs):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "A.bin")
-        A_nat, _ = write_scrambled(path)
+        A_nat, _ = write_scrambled(path, grid_n)
         stamp("slice16 phase 56")
-        grid = recovered_grid(rng, path, A_nat)
+        grid = recovered_grid(rng, path, A_nat, grid_n)
         del A_nat
         stamp("slice16 phase 57")
-        runs, launched, lu_err = ex10_runs(rng, path)
+        runs, launched, lu_err = ex10_runs(rng, path, grid_n)
         stamp("slice16 phase 58")
     ell_entry = ex39_phase(rng, triad_gbs)
     stamp("slice16 phase 59")
@@ -7074,7 +7099,7 @@ def slice16_phases(rng, kernels, triad_gbs):
     k1_entry = dict(name="stencil_mult", route="cuda",
                     source="petsctpu_torch/csrc/stencil_mult.cu",
                     replaces="petsctpu/ops/stencil_pallas.py:50",
-                    operator=f"ex45 {S16_GRID}^3 recovered by griddetect "
+                    operator=f"ex45 {grid_n}^3 recovered by griddetect "
                              f"from a scrambled file, 7-point fp64",
                     launches=launched["stencil_mult"],
                     max_abs_err=grid["err"], **grid["times"])
@@ -7097,6 +7122,413 @@ def slice16_phases(rng, kernels, triad_gbs):
     return [k1_entry, ell_entry]
 
 
+EX34_M = 128               # ksp ex34 at 128³: 2,097,152 cells
+EX34_LEVELS = 5            # 128³ → 8³: the coarsest pinv is 512 × 512
+EX34_SMALL_M = 32          # phase 63: ex34 at 32³ on 4 levels, card vs CPU
+EX34_SMALL_LEVELS = 4
+EX34_KSP = dict(ksp_type="fgmres", rtol=1e-5, atol=1e-50, maxits=200)
+EX34_TRUE_RTOL = 1e-5      # the true relative residual of phase 62
+EX34_ERR_MAX = 0.0208756   # ex34_1's max error at 12³ (a finer grid: less)
+EX34_SMALL_RTOL = 1e-10    # phase 63's history bound, card against CPU
+S17_ULP_SEEDS = 2          # CPU solves on b changed by 1e-15 (phase 63)
+EX28_SOLVES = 10           # ksp ex28_1: ten successive wave solves
+EX49_SPONGE = dict(c_str=3, E0=1, E1=1000, nu0=0.4, nu1=0.2, t=1, w=8)
+EX49_BRICK = dict(c_str=2, brick_E=[1, 10, 1000, 100],
+                  brick_nu=[0.4, 0.2, 0.3, 0.1], span=3)
+
+
+def ex34_hierarchy(m, nlev):
+    """ksp ex34 at m³ (A, b, u) and its rediscretized cell-centred Neumann
+    levels m³ → (m/2^(nlev-1))³ with DMDA_Q0 transfers."""
+    from petsctpu_torch.dm.da import q0_interp_scipy
+    from petsctpu_torch.models import cell_neumann_laplacian_3d, ex34_system
+
+    A, b, u = ex34_system(m)
+    As = [A] + [cell_neumann_laplacian_3d(m >> l) for l in range(1, nlev)]
+    Ps = [q0_interp_scipy((m >> l,) * 3, (m >> (l + 1),) * 3)
+          for l in range(nlev - 1)]
+    return As, Ps, b, u
+
+
+def ex34_solve(As, Ps, b, dev):
+    """-pc_type mg -pc_mg_type full -ksp_type fgmres on ksp ex34's
+    hierarchy: make_full_mg_ref(nullspace=True, "svd" est) and FGMRES to
+    rtol 1e-5 on dev: (result, pc, the level-0 AIJ)."""
+    from petsctpu_torch.pc.mg import make_full_mg_ref
+
+    pc = make_full_mg_ref(As, Ps, b, nullspace=True, est_convention="svd",
+                          device=dev)
+    with log_event("MatUpload"):
+        Ad = aij_from_scipy(As[0], device=dev)
+    res = ksp_solve(Ad, torch.from_numpy(b).to(dev), pc=pc, **EX34_KSP)
+    return res, pc, Ad
+
+
+def level_bounds(pc):
+    return [(lv.smoother.emin, lv.smoother.emax) for lv in pc.levels]
+
+
+def drive_ex34_path(rng, triad_gbs, m=EX34_M):
+    """Phase 62: ksp ex34 at m³ on the card through make_full_mg_ref and
+    ksp_solve (FGMRES, rtol 1e-5), the counts reset just before the setup
+    and read just after the solve: its, reason, the true relative residual
+    (≤ 1e-5) and the error against the exact solution, the setup by part
+    (log events: the system, each level's host est with its bounds, the
+    SSOR plans, the pinv, the uploads), ms an iteration of a repeat and a
+    profiled repeat's idle share; the ELL kernel launched once an AIJ
+    product and SpTRSV twice an SSOR apply. Then level 0's ELL product and
+    both of its SSOR triangles bit for bit against their plain versions,
+    and timed against their bounds and the library calls. Returns the
+    kernels-line entries of the ELL kernel and SpTRSV, and a summary of
+    the solve."""
+    from petsctpu_torch.mat.ell import AIJ
+    from petsctpu_torch.pc.sor import SORPC
+
+    log_begin()
+    with log_event("Ex34System"):
+        As, Ps, b, u = ex34_hierarchy(m, EX34_LEVELS)
+    print(f"slice17 ex34 {m}^3: n={As[0].shape[0]} nnz={As[0].nnz}, levels "
+          + " -> ".join(f"{A.shape[0]}" for A in As))
+    reset_counts()
+    with counted_calls(AIJ) as na, counted_calls(SORPC, "apply") as ns:
+        t = time.perf_counter()
+        res, pc, Ad = ex34_solve(As, Ps, b, "cuda")
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+    counts = {k: HAND_KERNELS[k].launches for k in ("ell_spmv", "sptrsv",
+                                                     "sptrsv_lu")}
+    ev = {k: v.time for k, v in log_events().items()}
+    its, reason = int(res.its), int(res.reason)
+    rel = true_residual(As[0], b, res)
+    err = res.x.cpu().numpy() - u
+    errs = (float(np.abs(err).max()), float(np.abs(err).sum() / err.size),
+            float(np.linalg.norm(err) / err.size))
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in ev.items()
+                      if k.startswith(("Ex34", "PCMG", "MatUpload")))
+    print(f"slice17 ex34 {m}^3 full MG ({len(pc.levels) + 1} levels): its="
+          f"{its} reason={reason} true relative residual {rel:.3e}; error "
+          f"max {errs[0]:.4e}, mean {errs[1]:.4e}, 2-norm/n {errs[2]:.4e}; "
+          f"history {[f'{h:.6g}' for h in res.history[:its + 1].tolist()]}")
+    print(f"slice17 ex34 setup and solve {total_s:.2f} s; setup by part (s): "
+          f"{parts}; KSPSolve {ev['KSPSolve[fgmres]']:.2f}")
+    print("slice17 ex34 level bounds (emin, emax) from the host est: "
+          + ", ".join(f"{l}: ({e0:.6g}, {e1:.6g})"
+                      for l, (e0, e1) in enumerate(level_bounds(pc))))
+    print(f"slice17 ex34 launches {counts}; AIJ.mult {na[0]}, SSOR applies "
+          f"{ns[0]}")
+    if reason <= 0 or not rel <= EX34_TRUE_RTOL \
+            or not errs[0] <= EX34_ERR_MAX:
+        raise AssertionError(f"slice17 ex34: reason {reason}, true relative "
+                             f"residual {rel}, max error {errs[0]}")
+    if counts["ell_spmv"] != na[0] or na[0] < its \
+            or counts["sptrsv"] != 2 * ns[0] or ns[0] < its:
+        raise AssertionError(f"slice17 ex34: {counts} launches for {na[0]} "
+                             f"AIJ products and {ns[0]} SSOR applies")
+    bt = torch.from_numpy(b).cuda()
+    solver = types.SimpleNamespace(
+        solve=lambda v: ksp_solve(Ad, v, pc=pc, **EX34_KSP))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r2 = solver.solve(bt)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / int(r2.its)
+    print(f"slice17 ex34 {m}^3: {ms:.3f} ms an iteration repeated "
+          f"({int(r2.its)} its)")
+    profile_solve(solver, bt, label=f"slice17 ex34 {m}^3", top=8,
+                  kernels=("SpTRSV", "ELL"))
+    lv0 = pc.levels[0]
+    ssor = lv0.smoother.pc
+    ell_err = ell_check(f"ex34 {m}^3 level 0", As[0], lv0.A, rng)
+    x = torch.from_numpy(rng.standard_normal(As[0].shape[0])).cuda()
+    ell_times = measure_ell(f"ex34 {m}^3 level 0", As[0], lv0.A, x,
+                            triad_gbs)
+    trsv_errs = [check_sptrsv(f"ex34 {m}^3 level 0 SSOR {k}", p, rng)[0]
+                 for k, p in (("forward", ssor.fwd_plan),
+                              ("backward", ssor.bwd_plan))]
+    level_us = chain_rounds(make_sptrsv_plan(
+        sp.diags([-np.ones(4095), 2 * np.ones(4096)], [-1, 0]).tocsr(), True,
+        False, np.float64, device="cuda"))
+    fwd = measure_sptrsv(f"ex34 {m}^3 level 0 SSOR forward", ssor.fwd_plan,
+                         False, triad_gbs, level_us, rng)
+    measure_sptrsv(f"ex34 {m}^3 level 0 SSOR backward", ssor.bwd_plan, True,
+                   triad_gbs, level_us, rng)
+    source = "petsctpu_torch/csrc/"
+    return (dict(name="ell_spmv", route="cuda", source=source + "ell_spmv.cu",
+                 replaces="petsctpu/mat/ell.py:53",
+                 operator=f"ksp ex34 {m}^3 cell-centred Neumann level 0, "
+                          f"K {lv0.A.cols.shape[1]}, fp64",
+                 launches=counts["ell_spmv"], max_abs_err=ell_err,
+                 **ell_times),
+            dict(name="sptrsv", route="cuda", source=source + "sptrsv.cu",
+                 replaces="petsctpu/mat/factor.py:368",
+                 operator=f"ksp ex34 {m}^3 level 0 SSOR forward triangle, "
+                          f"{ssor.fwd_plan.nlev} levels, fp64",
+                 launches=counts["sptrsv"], max_abs_err=max(trsv_errs),
+                 **fwd),
+            dict(its=its, reason=reason, true_rel=rel, ms_per_it=ms,
+                 setup_s=total_s - ev["KSPSolve[fgmres]"]))
+
+
+def check_ex34_small_against_cpu(devices=("cuda", "cpu"), m=EX34_SMALL_M):
+    """Phase 63: ksp ex34 at m³ on EX34_SMALL_LEVELS levels on the card
+    against the port's CPU: equal level bounds (the same host est), equal
+    its and reason, the history within EX34_SMALL_RTOL where S17_ULP_SEEDS
+    CPU solves on b changed by 1e-15 stay within a tenth of it, x within
+    30 times their change (same_solve_to_noise)."""
+    As, Ps, b, _ = ex34_hierarchy(m, EX34_SMALL_LEVELS)
+    (card, pc_card, _), (cpu, pc_cpu, _) = (ex34_solve(As, Ps, b, d)
+                                            for d in devices)
+    perturbed = [ex34_solve(As, Ps, b_changed(b, s), devices[1])[0]
+                 for s in range(1, S17_ULP_SEEDS + 1)]
+    bc, bh = level_bounds(pc_card), level_bounds(pc_cpu)
+    print(f"slice17 ex34 {m}^3 level bounds card {bc}, cpu {bh}")
+    if bc != bh:
+        raise AssertionError("slice17 ex34: the level bounds differ")
+    return same_solve_to_noise("ex34 full MG", card, cpu, perturbed,
+                               EX34_SMALL_RTOL, size=f"{m}^3")
+
+
+def s17_case_ex28(dev, perturb):
+    """ksp ex28_1: ten successive FGMRES solves, full MG with GMRES(1) +
+    ILU(0) smoothers on the periodic dof = 2 hierarchy 12 → 6 → 3."""
+    from petsctpu_torch.dm.da import interp_dof_scipy, q1_interp_scipy
+    from petsctpu_torch.models.wave1d import (ex28_initial, ex28_matrix,
+                                              ex28_rhs)
+    from petsctpu_torch.pc.mg import make_full_mg_gmres_ilu
+
+    As = [ex28_matrix(12), ex28_matrix(6), ex28_matrix(3)]
+    Ps = [interp_dof_scipy(q1_interp_scipy((12,), (6,), ("periodic",)), 2),
+          interp_dof_scipy(q1_interp_scipy((6,), (3,), ("periodic",)), 2)]
+    pc = make_full_mg_gmres_ilu(As, Ps, device=dev)
+    A = aij_from_scipy(As[0], device=dev)
+    x, out = ex28_initial(12), []
+    for _ in range(EX28_SOLVES):
+        b = ex28_rhs(12, x)
+        r = ksp_solve(A, torch.from_numpy(b_changed(b) if perturb else b)
+                      .to(dev), pc=pc, ksp_type="fgmres", rtol=1e-5,
+                      atol=1e-50, maxits=10000)
+        x = r.x.cpu().numpy()
+        out.append(r)
+    return out
+
+
+def s17_case_ex35_7(dev, perturb):
+    """snes ex35_7's linear solve: Richardson over MG with self-scaled
+    Richardson smoothers, 13² → 7² → 4²."""
+    from petsctpu_torch.dm.da import q1_interp_scipy
+    from petsctpu_torch.models.laplin import ex35_matrix, ex35_rhs
+    from petsctpu_torch.pc.mg import make_mg_selfscale_richardson
+
+    As = [ex35_matrix(13), ex35_matrix(7), ex35_matrix(4)]
+    Ps = [q1_interp_scipy((13, 13), (7, 7)), q1_interp_scipy((7, 7), (4, 4))]
+    pc = make_mg_selfscale_richardson(As, Ps, device=dev)
+    b = ex35_rhs(13)
+    return [ksp_solve(aij_from_scipy(As[0], device=dev), torch.from_numpy(
+        b_changed(b) if perturb else b).to(dev), pc=pc,
+        ksp_type="richardson", rtol=1e-12, atol=1e-50, maxits=10000)]
+
+
+def s17_case_ex45_2(dev, perturb):
+    """ksp ex45_2 run serially: Richardson + ILU(0) smoothers on the exact
+    ex45 discretization, 21³ → 11³ → 6³, GMRES."""
+    from petsctpu_torch.dm.da import q1_interp_scipy
+    from petsctpu_torch.models import ex45_true_system
+    from petsctpu_torch.pc.mg import make_mg_richardson_ilu
+
+    sizes = [21, 11, 6]
+    As = [ex45_true_system(m)[0] for m in sizes]
+    Ps = [q1_interp_scipy((sizes[l],) * 3, (sizes[l + 1],) * 3)
+          for l in range(2)]
+    b = ex45_true_system(21)[1]
+    pc = make_mg_richardson_ilu(As, Ps, device=dev)
+    return [ksp_solve(aij_from_scipy(As[0], device=dev), torch.from_numpy(
+        b_changed(b) if perturb else b).to(dev), pc=pc, ksp_type="gmres",
+        rtol=1e-5, atol=1e-50, maxits=50)]
+
+
+def s17_case_ex29(neumann):
+    def case(dev, perturb):
+        """ksp ex29_1 / ex29_2's oracle: full MG ("eigen" est) over the
+        rediscretized 129² → 3² hierarchy, FGMRES."""
+        from petsctpu_torch.dm.da import q1_interp_scipy
+        from petsctpu_torch.models import ex29_system
+        from petsctpu_torch.pc.mg import make_full_mg_ref
+
+        sizes = [129, 65, 33, 17, 9, 5, 3]
+        As = [ex29_system(m, neumann)[0] for m in sizes]
+        Ps = [q1_interp_scipy((sizes[l],) * 2, (sizes[l + 1],) * 2)
+              for l in range(len(sizes) - 1)]
+        b = ex29_system(129, neumann)[1]
+        b = b_changed(b) if perturb else b
+        pc = make_full_mg_ref(As, Ps, b, nullspace=neumann,
+                              est_convention="eigen", device=dev)
+        return [ksp_solve(aij_from_scipy(As[0], device=dev),
+                          torch.from_numpy(b).to(dev), pc=pc,
+                          ksp_type="fgmres", rtol=1e-5, atol=1e-50,
+                          maxits=50)]
+    return case
+
+
+def s17_case_ex50(dev, perturb):
+    """ksp ex50: the 2-D cell-weighted Neumann Poisson, full MG ("eigen")
+    on 21² → 11², FGMRES."""
+    from petsctpu_torch.dm.da import q1_interp_scipy
+    from petsctpu_torch.pc.mg import make_full_mg_ref
+
+    def ex50_A(m):
+        idx = np.arange(m * m)
+        i, j = idx % m, idx // m
+        rows, cols, vals = [], [], []
+        diag = np.zeros(m * m)
+        for di, dj in ((0, -1), (-1, 0), (1, 0), (0, 1)):
+            ii, jj = i + di, j + dj
+            ok = (ii >= 0) & (ii < m) & (jj >= 0) & (jj < m)
+            rows.append(idx[ok])
+            cols.append((ii + m * jj)[ok])
+            vals.append(np.full(ok.sum(), -1.0))
+            diag[ok] += 1.0
+        return sp.csr_matrix((np.concatenate(vals + [diag]),
+                              (np.concatenate(rows + [idx]),
+                               np.concatenate(cols + [idx]))),
+                             shape=(m * m, m * m))
+
+    H = 1.0 / 21
+    x = (np.arange(21) + 0.5) * H
+    b = (-np.cos(np.pi * x)[None, :] * np.cos(np.pi * x)[:, None]
+         * H * H).reshape(-1)
+    b = b - b.mean()
+    b = b_changed(b) if perturb else b
+    As = [ex50_A(21), ex50_A(11)]
+    pc = make_full_mg_ref(As, [q1_interp_scipy((21, 21), (11, 11))], b,
+                          nullspace=True, est_convention="eigen", device=dev)
+    return [ksp_solve(aij_from_scipy(As[0], device=dev),
+                      torch.from_numpy(b).to(dev), pc=pc, ksp_type="fgmres",
+                      rtol=1e-5, atol=1e-50, maxits=50)]
+
+
+def s17_case_ex54(gamg):
+    def case(dev, perturb):
+        """ksp ex54 at ne = 109: CG + Jacobi for 3 its (the model's oracle
+        stream) or CG + smoothed-aggregation GAMG (runex54_SA)."""
+        from petsctpu_torch.models import ex54_system
+
+        A, b, _ = ex54_system(109, 1e-3)
+        Ad = aij_from_scipy(A, device=dev)
+        bt = torch.from_numpy(b_changed(b) if perturb else b).to(dev)
+        if not gamg:
+            return [ksp_solve(Ad, bt, pc=make_pc("jacobi", A=Ad),
+                              ksp_type="cg", rtol=1e-30, maxits=3)]
+        pc = make_pc("gamg", A=Ad, A_host=A, options=Options(
+            {"pc_gamg_coarse_eq_limit": 80, "pc_gamg_agg_nsmooths": 1}))
+        return [ksp_solve(Ad, bt, pc=pc, ksp_type="cg", rtol=1e-5,
+                          atol=1e-50, maxits=100)]
+    return case
+
+
+def s17_case_ex49(which):
+    def case(dev, perturb):
+        """ksp ex49_1 (GMRES + ILU(0) on the reduced sponge system), ex49_2
+        (GCR + ASM(1) LU over the 4-rank emulation's blocks) and ex49_3
+        (GMRES + ASM(1) LU, the brick structure)."""
+        from petsctpu_torch.models.q1elasticity import (
+            ex49_parallel_reduced_system, ex49_reduced_system)
+        from petsctpu_torch.pc.asm import make_asm
+
+        if which == "ex49_1":
+            AA, ff, _, _ = ex49_reduced_system(20, 30, **EX49_SPONGE)
+        else:
+            AA, ff, blocks, _ = ex49_parallel_reduced_system(
+                20, 30, 4, **(EX49_SPONGE if which == "ex49_2"
+                              else EX49_BRICK))
+        Ad = aij_from_scipy(AA, device=dev)
+        bt = torch.from_numpy(b_changed(ff) if perturb else ff).to(dev)
+        if which == "ex49_1":
+            pc = make_pc("ilu", A=Ad, A_host=AA)
+        else:
+            pc = make_asm(AA, blocks=blocks, overlap=1, sub_pc="lu",
+                          device=dev)
+        kw = (dict(ksp_type="gcr") if which == "ex49_2" else
+              dict(ksp_type="gmres", cgs_refine="always"))
+        return [ksp_solve(Ad, bt, pc=pc, rtol=1e-5, atol=1e-50, **kw)]
+    return case
+
+
+# (case, history bound): each bound at least 30 times the CPU's own history
+# change under a 1e-15 change of b (check_slice17_small_against_cpu with
+# measure_noise=True on the CPU: ex28 2.7e-10, ex29_1 2.9e-9, ex29_2 4.5e-12,
+# ex50 6.4e-12, ex49_1 1.5e-11, ex49_2 1.1e-8, ex49_3 6.2e-10, the rest
+# under 1e-13)
+S17_SMALL = {
+    "ex28_1 (ten solves)": (s17_case_ex28, 3e-8),
+    "ex35_7": (s17_case_ex35_7, 1e-10),
+    "ex45_2 serial": (s17_case_ex45_2, 1e-10),
+    "ex29_1 oracle": (s17_case_ex29(False), 3e-7),
+    "ex29_2 oracle": (s17_case_ex29(True), 1e-9),
+    "ex50": (s17_case_ex50, 1e-9),
+    "ex54 CG + Jacobi": (s17_case_ex54(False), 1e-10),
+    "ex54 GAMG-SA": (s17_case_ex54(True), 1e-10),
+    "ex49_1": (s17_case_ex49("ex49_1"), 3e-9),
+    "ex49_2": (s17_case_ex49("ex49_2"), 1e-6),
+    "ex49_3": (s17_case_ex49("ex49_3"), 1e-7),
+}
+
+
+def check_slice17_small_against_cpu(devices=("cuda", "cpu"),
+                                    measure_noise=False):
+    """Phase 64: the other reference-exact stacks and their oracle models
+    at the goldens' sizes on the card against the port's CPU (S17_SMALL):
+    every solve's its and reason equal and its history within the case's
+    bound (history_diff). measure_noise also runs the CPU on b changed by
+    1e-15 and holds each bound to 30 times that change. Returns the
+    launches of the card's solves by kernel."""
+    worst, launched = 0.0, collections.Counter()
+    for label, (case, bound) in S17_SMALL.items():
+        before = launch_counts()
+        t = time.perf_counter()
+        card = case(devices[0], False)
+        secs = time.perf_counter() - t
+        launched.update({k: v - before[k]
+                         for k, v in launch_counts().items()})
+        cpu = case(devices[1], False)
+        diffs = [same_solve(f"{label} solve {k}", c, h, rtol=bound,
+                            size="slice17")
+                 for k, (c, h) in enumerate(zip(card, cpu))]
+        if measure_noise:
+            noise = max(history_diff(p, h, bound) for p, h in
+                        zip(case(devices[1], True), cpu))
+            check_bound_over_noise(label, bound, noise)
+        print(f"slice17 {label}: its {[int(r.its) for r in card]}, card "
+              f"{secs:.2f} s, worst history diff {max(diffs):.2e}")
+        worst = max(worst, max(diffs) / bound)
+    print(f"slice17 stacks card vs cpu: {len(S17_SMALL)} cases, worst "
+          f"difference {worst:.2e} of its bound; launches on the card "
+          f"{dict(launched)}")
+    return launched
+
+
+def slice17_phases(rng, kernels, triad_gbs, m=EX34_M):
+    """Slice 17: ksp ex34 at m³ through make_full_mg_ref (phase 62), ex34
+    at 32³ card against CPU (63), the other reference-exact stacks card
+    against CPU (64). Adds the path's launches and errors to `kernels`;
+    returns the kernels-line entries of the ELL kernel and SpTRSV on
+    ex34's level 0."""
+    t0 = time.perf_counter()
+    ell_entry, trsv_entry, path = drive_ex34_path(rng, triad_gbs, m)
+    stamp("slice17 phase 62")
+    diff = check_ex34_small_against_cpu()
+    stamp("slice17 phase 63")
+    launched = check_slice17_small_against_cpu()
+    stamp("slice17 phase 64")
+    for e in (ell_entry, trsv_entry):
+        kernels[e["name"]]["launches"] += e["launches"]
+        kernels[e["name"]]["max_abs_err"] = max(
+            kernels[e["name"]]["max_abs_err"], e["max_abs_err"])
+    print(f"slice 17 in {time.perf_counter() - t0:.1f} s (ex34 {m}^3 "
+          f"{path}; ex34 {EX34_SMALL_M}^3 card vs cpu {diff:.2e}; launches "
+          f"of phase 64 {dict(launched)})")
+    return [ell_entry, trsv_entry]
+
+
 T0 = time.perf_counter()
 # ex55's ne (slices 7 and 12, with slice 7's NC route and refresh) and
 # ex43's mx (slice 8) in the whole script: 131,072 and 196,608 dofs. At
@@ -7116,6 +7548,9 @@ FULL_SCRIPT_SCHUR_MX = 127
 # 16's time (PERF.md §4)
 FULL_SCRIPT_EX12_N = 512
 FULL_SCRIPT_S15_MG_GRID = 65
+# slice 16's file in the whole script (128³ in `slice16`): 262,144 rows,
+# which gives back slice 17's time (PERF.md §4)
+FULL_SCRIPT_S16_GRID = 64
 
 
 def stamp(label):
@@ -7129,6 +7564,17 @@ def main(argv=()):
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
+    if list(argv) == ["slice17"]:
+        kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
+                   for k in ("sptrsv", "ell_spmv")}
+        entries = slice17_phases(rng, kernels, stream_triad_gbs(1 << 28))
+        print(smi)
+        print(f"slice17 in {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"slice17": list(kernels.values()) + entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if list(argv) == ["slice16"]:
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
                    for k in ("stencil_mult", "sptrsv", "sptrsv_lu",
@@ -7273,8 +7719,11 @@ def main(argv=()):
     slice15_phases(rng, {k["name"]: k for k in kernels}, S15_WHOLE_SIZES,
                    FULL_SCRIPT_S15_MG_GRID)
     stamp("slice 15")
-    kernels += slice16_phases(rng, {k["name"]: k for k in kernels}, triad)
+    kernels += slice16_phases(rng, {k["name"]: k for k in kernels}, triad,
+                              FULL_SCRIPT_S16_GRID)
     stamp("slice 16")
+    kernels += slice17_phases(rng, {k["name"]: k for k in kernels}, triad)
+    stamp("slice 17")
     kernels += probes_phase()
     print(smi)
     print(f"chip_smoke.py in {time.perf_counter() - T0:.1f} s")

@@ -202,6 +202,64 @@ def mg_from_packed(fbuf, ibuf, metas, coarse_meta, sm_its: int = 2,
     return MGPC(tuple(levels), coarse, coarse_A, cycles, mg_type)
 
 
+def ref_mg_from_arrays(levels, coarse: dict, coarse_A, cycles: int = 1,
+                       mg_type: str = "full", device=None):
+    """An MGPC of the reference-exact stacks (petsctpu's make_full_mg_ref,
+    make_full_mg_gmres_ilu, make_mg_selfscale_richardson and
+    make_mg_richardson_ilu) from their state as numpy arrays, fine first.
+
+    levels: one dict a level with the operator `A` and the prolongation
+    `P`, each the ELL (cols, vals, shape, nnz) of an AIJ, and the
+    `smoother`, a dict of its kind: {"kind": "cheby", emin, emax, its,
+    denull, "sor": sor_from_arrays' keyword arguments}, {"kind": "gmres",
+    its, "ilu": {L, U}}, {"kind": "selfscale", its} or {"kind":
+    "richardson", scale, its, "ilu": {L, U}} (L and U plan dicts).
+    coarse: {"kind": "pinv", Ainv, denull} or {"kind": "lu", L, U,
+    perm_r, perm_c}; coarse_A the coarsest operator's ELL arrays. The
+    Chebyshev scalars are rounded in the dtype of the level's vals."""
+    from petsctpu_torch.pc.factor import ILUPC, LUPC
+    from petsctpu_torch.pc.mg import (MGLevel, MGPC, GmresSmoother,
+                                      PinvCoarsePC, RefChebySmoother,
+                                      RichardsonSmoother,
+                                      SelfScaleRichardsonSmoother)
+
+    dev = resolve_device(device)
+
+    def ilu(d):
+        return ILUPC(_plan(d["L"], dev), _plan(d["U"], dev))
+
+    def smoother(sm, dtype):
+        kind = sm["kind"]
+        if kind == "cheby":
+            return RefChebySmoother(sor_from_arrays(**sm["sor"], device=dev),
+                                    float(sm["emin"]), float(sm["emax"]),
+                                    int(sm["its"]), bool(sm["denull"]),
+                                    dtype)
+        if kind == "gmres":
+            return GmresSmoother(ilu(sm["ilu"]), int(sm["its"]))
+        if kind == "selfscale":
+            return SelfScaleRichardsonSmoother(None, int(sm["its"]))
+        if kind == "richardson":
+            return RichardsonSmoother(ilu(sm["ilu"]), float(sm["scale"]),
+                                      int(sm["its"]))
+        raise ValueError(f"unknown smoother kind {kind!r}")
+
+    mg_levels = [MGLevel(aij_from_arrays(*lv["A"], device=dev),
+                         aij_from_arrays(*lv["P"], device=dev),
+                         smoother(lv["smoother"],
+                                  np.asarray(lv["A"][1]).dtype))
+                 for lv in levels]
+    if coarse["kind"] == "pinv":
+        cpc = PinvCoarsePC(_tensor(coarse["Ainv"], dev),
+                           bool(coarse["denull"]))
+    else:
+        cpc = LUPC(_plan(coarse["L"], dev), _plan(coarse["U"], dev),
+                   _tensor(coarse["perm_r"], dev, torch.int64),
+                   _tensor(coarse["perm_c"], dev, torch.int64))
+    return MGPC(tuple(mg_levels), cpc, aij_from_arrays(*coarse_A, device=dev),
+                cycles, mg_type)
+
+
 def sptrsv_from_arrays(level_rows, cols, vals, dinv, n: int, nlev: int,
                        device=None):
     """A SpTRSVPlan from petsctpu's plan arrays (level_rows, cols int32;

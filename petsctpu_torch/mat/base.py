@@ -2,9 +2,10 @@
 
 Ported: `Shell` (MATSHELL, the Eisenstat system's operator),
 `Transpose` (MATTRANSPOSE, used by ksp_solve_transpose), `Normal`
-(MATNORMAL, CGNE's operator) and the host helper
+(MATNORMAL, CGNE's operator) and the host helpers
 `csr_submatrix_keep_zeros` (the bjacobi/ASM subdomain matrices and
-fieldsplit's blocks); the other wrappers are ROADMAP queue 1 item 3.
+fieldsplit's blocks) and `mat_zero_rows` (ksp ex49's Dirichlet rows);
+the other wrappers are ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -107,3 +108,32 @@ def csr_submatrix_keep_zeros(A, rows, cols) -> sp.csr_matrix:
     indptr[1:] = np.cumsum(np.bincount(out_row, minlength=rows.size))
     return sp.csr_matrix((A.data[src[order]], cj[order], indptr),
                          shape=(rows.size, cols.size))
+
+
+def mat_zero_rows(A, rows, diag=1.0) -> sp.csr_matrix:
+    """MatZeroRows_SeqAIJ (aij.c:1642) default semantics: each listed
+    row is compressed to its diagonal entry alone (value `diag`);
+    without MAT_KEEP_NONZERO_PATTERN the off-diagonal slots leave the
+    pattern, which changes a later ILU(0)/ICC's fill. The other rows are
+    copied whole. petsctpu/mat/base.py's row loop, vectorized; returns a
+    new scipy CSR."""
+    A = sp.csr_matrix(A)
+    rows = np.unique(np.asarray(rows, dtype=np.int64))
+    m = A.shape[0]
+    mask = np.zeros(m, bool)
+    mask[rows] = True
+    lens = np.diff(A.indptr)
+    row_of = np.repeat(np.arange(m), lens)
+    keep = ~mask[row_of]
+    counts = np.where(mask, 1, lens)
+    indptr = np.zeros(m + 1, np.int64)
+    indptr[1:] = np.cumsum(counts)
+    ind = np.empty(int(indptr[-1]), A.indices.dtype)
+    val = np.empty(int(indptr[-1]), A.dtype)
+    src = np.flatnonzero(keep)
+    dst = indptr[row_of[src]] + (src - A.indptr[row_of[src]])
+    ind[dst] = A.indices[src]
+    val[dst] = A.data[src]
+    ind[indptr[rows]] = rows
+    val[indptr[rows]] = diag
+    return sp.csr_matrix((val, ind, indptr), shape=A.shape)

@@ -26,6 +26,15 @@ With mg_levels_pc_type sor (the host setups) each level smooths with
 Chebyshev around an SSOR SORPC, its bounds from a host Arnoldi estimate,
 as the reference. The MXU band format (pc_gamg_mat_type band) is ROADMAP
 queue 1 item 9.
+
+The reference-exact stacks of the oracle examples, built from Python
+(no option routes them, as in petsctpu): make_full_mg_ref (Chebyshev +
+SSOR with cheby.c's ω/c recurrence, RefChebySmoother, and bounds from
+the est-GMRES replayed on the host; a pseudo-inverse coarse solve on
+singular Neumann levels: ksp ex34, ex29, ex50),
+make_full_mg_gmres_ilu (GMRES(1) + ILU(0): ksp ex28, the exotic PC's
+oracle), make_mg_selfscale_richardson (snes ex35_7) and
+make_mg_richardson_ilu (ksp ex45_2 run serially).
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ import torch
 
 from petsctpu_torch.core.logging import log_event
 from petsctpu_torch.core.options import Options
-from petsctpu_torch.device import np_dtype
+from petsctpu_torch.device import np_dtype, resolve_device
 from petsctpu_torch.pc.factor import LUPC, PermutedPC, make_lu
 
 
@@ -506,7 +515,6 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
     restricts through P.multT builds P's transpose plan (kernel K3's)
     under the log event PCMGTransposePlan."""
     from petsctpu_torch.convert import mg_from_packed, sell_from_arrays
-    from petsctpu_torch.device import resolve_device
     from petsctpu_torch.mat.dense import Dense
     from petsctpu_torch.mat.ell import aij_from_scipy
     from petsctpu_torch.mat.sell import sell_if_viable, sell_pack_cheapest
@@ -585,3 +593,367 @@ def make_algebraic_mg_from_hierarchy(As, Ps, dtype=None, sm_its: int = 2,
         coarse_A = aij_from_scipy(As[-1], dtype=dtype, device=dev)
     return permuted(MGPC(tuple(levels), coarse_pc, coarse_A, cycles,
                          mg_type))
+
+
+# ---------------------------------------------------------------------------
+# reference-exact level smoothers and the MG stacks of the oracle examples
+# ---------------------------------------------------------------------------
+class RefChebySmoother:
+    """KSPSolve_Chebyshev's ω/c recurrence verbatim (cheby.c: scale =
+    2/(emax+emin), the pre-loop p₁ = p₀ + scale·B⁻¹r, then `its` steps of
+    p⁺ = ω(p + scale·B⁻¹r) + (1−ω)p⁻); not ChebySmoother's θ/δ form,
+    which rounds otherwise. `denull` removes the constant null space
+    after every preconditioner application (KSP_PCApply →
+    MatNullSpaceRemove on a singular Neumann level, kspimpl.h:185), on
+    the device.
+
+    emin and emax are rounded in the solve's dtype (`dtype`); scale and
+    each step's ω and 1 − ω are computed once, here, in that dtype and
+    in petsctpu's order of operations, and held as Python numbers."""
+
+    def __init__(self, pc, emin: float, emax: float, its: int = 2,
+                 denull: bool = False, dtype=np.float64):
+        self.pc = pc
+        self.its = int(its)
+        self.denull = bool(denull)
+        dt = np.dtype(dtype).type
+        emin, emax = dt(emin), dt(emax)
+        self.emin, self.emax = float(emin), float(emax)
+        one, two = dt(1.0), dt(2.0)
+        scale = two / (emax + emin)
+        alpha = one - scale * emin
+        mu = one / alpha
+        omegaprod = two / alpha
+        ckm1, ck = one, mu
+        steps = []
+        for _ in range(self.its):
+            ckp1 = two * mu * ck - ckm1
+            omega = omegaprod * ck / ckp1
+            steps.append((float(omega), float(one - omega)))
+            ckm1, ck = ck, ckp1
+        self.scale = float(scale)
+        self.steps = tuple(steps)
+
+    def _prec(self, r):
+        z = self.pc.apply(r)
+        return z - z.mean() if self.denull else z
+
+    def smooth(self, A, b, x):
+        pkm1 = x
+        pk = pkm1 + self.scale * self._prec(b - A.mult(pkm1))
+        for omega, rest in self.steps:
+            z = self._prec(b - A.mult(pk))
+            pkm1, pk = pk, omega * (pk + self.scale * z) + rest * pkm1
+        return pk
+
+
+class PinvCoarsePC:
+    """Dense pseudo-inverse coarse solve with the constant null space
+    removed before and after: the reference's shifted LU +
+    MatNullSpaceRemove coarse stack on a singular Neumann coarse grid
+    (the component in range(A) is the same; the null component is
+    projected out either way). Ainv is taken on the host (np.linalg.pinv);
+    the apply is one dense product on the device."""
+
+    def __init__(self, Ainv: torch.Tensor, denull: bool = True):
+        self.Ainv = Ainv
+        self.denull = bool(denull)
+
+    def apply(self, r):
+        if self.denull:
+            r = r - r.mean()
+        y = torch.mv(self.Ainv, r)
+        return y - y.mean() if self.denull else y
+
+
+def _ssor_minv_host(Ah: sp.csr_matrix):
+    """Host SSOR(ω=1) preconditioner apply: (D+U)⁻¹ D (D+L)⁻¹ —
+    MatSOR SOR_LOCAL_SYMMETRIC_SWEEP, the mg.c default smoother PC."""
+    import scipy.sparse.linalg as spla
+
+    L = sp.tril(Ah, 0).tocsr()
+    U = sp.triu(Ah, 0).tocsr()
+    d = Ah.diagonal()
+
+    def m_inv(r):
+        y = spla.spsolve_triangular(L, r, lower=True)
+        return spla.spsolve_triangular(U, d * y, lower=False)
+
+    return m_inv
+
+
+def _est_hessenberg_host(Ah: sp.csr_matrix, m_inv, b: np.ndarray,
+                         iters: int = 10) -> np.ndarray:
+    """The Chebyshev smoother's est-GMRES Krylov process replayed on the
+    host (cheby.c's estimate on first application): `iters` classical
+    Gram-Schmidt Arnoldi steps of the left-SSOR-preconditioned operator
+    from M⁻¹b, without null-space removal (the est KSP shares the PC
+    object but not the operators, cheby.c:68, so KSP_RemoveNullSpace
+    never fires inside it). Returns the (k+1)×k Hessenberg."""
+    v = m_inv(np.asarray(b, np.float64))
+    beta = np.linalg.norm(v)
+    n = v.shape[0]
+    m = min(iters, n)
+    H = np.zeros((m + 1, m))
+    if beta == 0.0:
+        return H[:1, :0]
+    V = np.zeros((m + 1, n))
+    V[0] = v / beta
+    for j in range(m):
+        w = m_inv(Ah @ V[j])
+        h = V[:j + 1] @ w
+        w = w - V[:j + 1].T @ h
+        H[:j + 1, j] = h
+        H[j + 1, j] = np.linalg.norm(w)
+        if H[j + 1, j] == 0.0:
+            return H[:j + 2, :j + 1]
+        V[j + 1] = w / H[j + 1, j]
+    return H
+
+
+def _est_sigma_max_host(Ah: sp.csr_matrix, m_inv, b: np.ndarray,
+                        iters: int = 10,
+                        convention: str = "svd") -> float:
+    """The extreme estimate from the replayed est-GMRES Hessenberg, in
+    either of the reference's two conventions:
+
+    * "svd": σmax of H̄ (KSPComputeExtremeSingularValues_GMRES, gesvd of
+      the triangularized R, gmreig.c), the convention the checked-in
+      golden outputs were made with (ksp ex34_1's level bounds);
+    * "eigen": the largest real part of the Ritz values of the square H
+      (KSPComputeEigenvalues' geev path), what the tree's cheby.c:329
+      calls (ksp ex29 and ex50's oracle streams)."""
+    H = _est_hessenberg_host(Ah, m_inv, b, iters)
+    k = H.shape[1]
+    if k == 0:
+        return 1.0
+    if convention == "eigen":
+        return float(np.linalg.eigvals(H[:k, :k]).real.max())
+    return float(np.linalg.svd(H, compute_uv=False).max())
+
+
+def make_full_mg_ref(As, Ps, b, dtype=None, sm_its: int = 2,
+                     mg_type: str = "full", cycles: int = 1,
+                     nullspace: bool = False, est_its: int = 10,
+                     est_convention: str = "svd", device=None) -> MGPC:
+    """MG with the reference's default smoother configuration exactly:
+    Chebyshev + SSOR on every level, its bounds estimated at setup by
+    replaying cheby.c's estimate on first application on the host. Level
+    l's est input is the outer right-hand side restricted down the
+    F-cycle's chain (PCMGFCycle_Private restricts b through all levels
+    before any smoothing), with the bounds transform [0, 0.1; 0, 1.1].
+
+    nullspace=True: singular Neumann levels. The smoothers remove the
+    constant after each SSOR apply and the coarse solve is a
+    null-space-projected pseudo-inverse (ksp ex34's configuration).
+
+    The SSOR is pc/sor.py's SORPC (two SpTRSV launches an apply), the
+    operators and transfers ELL (mat/ell.py), the coarse solve make_lu's
+    or the pseudo-inverse. Setup by part under the log events
+    PCMGEst[l] (level l's host est), PCMGSOR (the SSOR plans), PCMGPinv
+    or PCMGCoarseLU, and PCMGUpload (the operators and transfers)."""
+    from petsctpu_torch.mat.ell import aij_from_scipy
+    from petsctpu_torch.pc.sor import make_sor
+
+    dev = resolve_device(device)
+    dtype = (np_dtype(dtype) or np.dtype(As[0].dtype)).type
+    # restrict the outer rhs down the chain (the est inputs a level)
+    bs = [np.asarray(b, np.float64)]
+    for P in Ps:
+        bs.append(P.T @ bs[-1])
+
+    levels = []
+    for l in range(len(Ps)):
+        Ah = sp.csr_matrix(As[l])
+        with log_event(f"PCMGEst[{l}]"):
+            smax = _est_sigma_max_host(Ah, _ssor_minv_host(Ah), bs[l],
+                                       est_its, est_convention)
+        with log_event("PCMGSOR"):
+            ssor = make_sor(Ah, omega=1.0, sweeps=1, symmetric=True,
+                            dtype=dtype, device=dev)
+        sm = RefChebySmoother(ssor, dtype(0.1 * smax), dtype(1.1 * smax),
+                              sm_its, nullspace, dtype)
+        with log_event("PCMGUpload"):
+            levels.append(MGLevel(aij_from_scipy(As[l], dtype=dtype,
+                                                 device=dev),
+                                  aij_from_scipy(Ps[l], dtype=dtype,
+                                                 device=dev), sm))
+    Ac = sp.csr_matrix(As[-1])
+    if nullspace:
+        with log_event("PCMGPinv"):
+            Ainv = np.linalg.pinv(Ac.toarray()).astype(dtype)
+            coarse_pc = PinvCoarsePC(torch.from_numpy(Ainv).to(dev))
+    else:
+        with log_event("PCMGCoarseLU"):
+            coarse_pc = make_lu(Ac, dtype=dtype, device=dev)
+    with log_event("PCMGUpload"):
+        coarse_A = aij_from_scipy(Ac, dtype=dtype, device=dev)
+    return MGPC(tuple(levels), coarse_pc, coarse_A, cycles, mg_type)
+
+
+class GmresSmoother:
+    """KSPGMRES as an MG level smoother: `its` Arnoldi steps of
+    left-preconditioned GMRES with classical Gram-Schmidt and Givens
+    least squares (KSPSolve_GMRES/KSPGMRESCycle gmres.c:118,213 with
+    max_it = its and a nonzero initial guess; ksp ex28's
+    -mg_levels_ksp_type gmres -mg_levels_ksp_max_it 1). Its rtol test
+    cannot fire before max_it at these counts, so the fixed-step loop is
+    iteration-exact. The guards (β > 0, ρ > 0, a nonzero pivot) are
+    torch.where on 0-d device tensors: a smooth reads nothing back to
+    the host."""
+
+    def __init__(self, pc, its: int = 1):
+        self.pc = pc
+        self.its = int(its)
+
+    def smooth(self, A, b, x):
+        z = self.pc.apply(b - A.mult(x))
+        beta = torch.linalg.vector_norm(z)
+        one, zero = torch.ones_like(beta), torch.zeros_like(beta)
+
+        def safe_inv(t):
+            ok = t > 0.0
+            return torch.where(ok, 1.0 / torch.where(ok, t, one), zero)
+
+        safe = beta > 0.0
+        V = [z * safe_inv(beta)]
+        g = [beta] + [zero] * self.its
+        cs, sn, Hcols = [], [], []
+        for j in range(self.its):
+            w = self.pc.apply(A.mult(V[j]))
+            col = [torch.vdot(V[i], w) for i in range(j + 1)]
+            for i in range(j + 1):
+                w = w - col[i] * V[i]
+            hj1 = torch.linalg.vector_norm(w)
+            V.append(w * safe_inv(hj1))
+            col = col + [hj1]
+            for i in range(j):
+                t = cs[i] * col[i] + sn[i] * col[i + 1]
+                col[i + 1] = -sn[i] * col[i] + cs[i] * col[i + 1]
+                col[i] = t
+            rho = torch.hypot(col[j], col[j + 1])
+            ok = rho > 0.0
+            rho_safe = torch.where(ok, rho, one)
+            c = torch.where(ok, col[j] / rho_safe, one)
+            s = torch.where(ok, col[j + 1] / rho_safe, zero)
+            cs.append(c)
+            sn.append(s)
+            col[j] = rho
+            g[j + 1] = -s * g[j]
+            g[j] = c * g[j]
+            Hcols.append(col[:j + 1])
+        # back substitution on the triangularized Hessenberg
+        y = [None] * self.its
+        for i in reversed(range(self.its)):
+            t = g[i]
+            for k in range(i + 1, self.its):
+                t = t - Hcols[k][i] * y[k]
+            di = Hcols[i][i]
+            ok = di != 0.0
+            y[i] = torch.where(ok, t / torch.where(ok, di, one), zero)
+        dx = x
+        for j in range(self.its):
+            dx = dx + y[j] * V[j]
+        return torch.where(safe, dx, x)
+
+
+class SelfScaleRichardsonSmoother:
+    """KSPRichardson with -ksp_richardson_self_scale as an MG level
+    smoother (rich.c:59-92, the self-scale branch): a step's damping
+    ss = zᵀ(Az)/(Az)ᵀ(Az) with z updated in place (snes ex35_7's
+    -mg_levels_ksp_type richardson -mg_levels_pc_type none
+    -mg_levels_ksp_richardson_self_scale). pc None is B = I; with a PC,
+    y = B·A·z. ss stays a 0-d device tensor: no host read."""
+
+    def __init__(self, pc=None, its: int = 2):
+        self.pc = pc
+        self.its = int(its)
+
+    def _prec(self, r):
+        return self.pc.apply(r) if self.pc is not None else r
+
+    def smooth(self, A, b, x):
+        r = b - A.mult(x)
+        z = self._prec(r)
+        for _ in range(self.its):
+            w = A.mult(z)
+            y = self._prec(w)
+            ss = torch.vdot(z, y) / torch.vdot(y, y)
+            x = x + ss * z
+            r = r - ss * w
+            z = z - ss * y
+        return x
+
+
+class RichardsonSmoother:
+    """KSPRichardson as an MG smoother (KSPSolve_Richardson with no norm
+    test: exactly `its` applications of x += scale·B⁻¹(b − Ax), rich.c)."""
+
+    def __init__(self, pc, scale: float = 1.0, its: int = 1):
+        self.pc = pc
+        self.scale = float(scale)
+        self.its = int(its)
+
+    def smooth(self, A, b, x):
+        for _ in range(self.its):
+            x = x + self.scale * self.pc.apply(b - A.mult(x))
+        return x
+
+
+def _mg_with_smoothers(As, Ps, make_smoother, dtype, cycles, mg_type,
+                       device) -> MGPC:
+    """An MGPC over a given hierarchy: ELL operators and transfers, the
+    smoother make_smoother(A_l host) on each level, exact LU coarse."""
+    from petsctpu_torch.mat.ell import aij_from_scipy
+
+    dev = resolve_device(device)
+    dtype = (np_dtype(dtype) or np.dtype(As[0].dtype)).type
+    levels = []
+    for l in range(len(Ps)):
+        sm = make_smoother(sp.csr_matrix(As[l]), dtype, dev)
+        levels.append(MGLevel(aij_from_scipy(As[l], dtype=dtype, device=dev),
+                              aij_from_scipy(Ps[l], dtype=dtype, device=dev),
+                              sm))
+    Ac = sp.csr_matrix(As[-1])
+    return MGPC(tuple(levels), make_lu(Ac, dtype=dtype, device=dev),
+                aij_from_scipy(Ac, dtype=dtype, device=dev), cycles, mg_type)
+
+
+def make_mg_selfscale_richardson(As, Ps, dtype=None, sm_its: int = 2,
+                                 mg_type: str = "multiplicative",
+                                 cycles: int = 1, device=None) -> MGPC:
+    """MG with self-scaled Richardson (pc none) level smoothers and an
+    exact LU coarse solve: snes ex35_7's preconditioner."""
+    return _mg_with_smoothers(
+        As, Ps, lambda Ah, dt, dev: SelfScaleRichardsonSmoother(None, sm_its),
+        dtype, cycles, mg_type, device)
+
+
+def make_full_mg_gmres_ilu(As, Ps, dtype=None, sm_its: int = 1,
+                           mg_type: str = "full", cycles: int = 1,
+                           device=None) -> MGPC:
+    """MG with GMRES(its) + ILU(0) level smoothers and an exact LU coarse
+    solve: ksp ex28's -pc_type mg -pc_mg_type full -mg_levels_ksp_type
+    gmres -mg_levels_ksp_max_it 1 -mg_levels_pc_type ilu, on the
+    caller's (rediscretized) As."""
+    from petsctpu_torch.pc.factor import make_ilu
+
+    return _mg_with_smoothers(
+        As, Ps, lambda Ah, dt, dev: GmresSmoother(
+            make_ilu(Ah, dtype=dt, device=dev), sm_its),
+        dtype, cycles, mg_type, device)
+
+
+def make_mg_richardson_ilu(As, Ps, dtype=None, sm_its: int = 1,
+                           mg_type: str = "multiplicative",
+                           cycles: int = 1, device=None) -> MGPC:
+    """MG with Richardson + ILU(0) level smoothers and an exact LU coarse
+    solve: ksp ex45's -mg_levels_ksp_type richardson
+    -mg_levels_ksp_max_it 1 -mg_levels_pc_type bjacobi run serially
+    (block Jacobi of one block = ILU(0) of the level operator)."""
+    from petsctpu_torch.pc.factor import make_ilu
+
+    return _mg_with_smoothers(
+        As, Ps, lambda Ah, dt, dev: RichardsonSmoother(
+            make_ilu(Ah, dtype=dt, device=dev), 1.0, sm_its),
+        dtype, cycles, mg_type, device)

@@ -80,7 +80,9 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "parallel.api", "parallel.subcomm", "parallel.psnes",
               "pc.parallel", "mat.partition", "dm.decomp", "io",
               "io.viewer", "mat.griddetect", "core.draw", "models.lattice",
-              "entry", "examples", *(f"examples.{n}" for n in EXAMPLES)):
+              "entry", "examples", "models.wave1d", "models.q1elasticity",
+              "models.poisson", "pc.mg", "convert",
+              *(f"examples.{n}" for n in EXAMPLES)):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
     code = (
