@@ -526,6 +526,38 @@ friends) and their oracle models, after slice 16:
    equal its and reasons, histories within each case's bound.
 `python3 chip_smoke.py slice17` runs the build and phases 62-64 alone.
 
+Slice 18, the last modules (mat/sbaijfact.py's blocked IC(k), the
+wrappers of mat/base.py, VecNest, PF, VTK, the debug checks, the sharded
+fmt="auto"), after slice 17:
+65. ksp ex55 at S18_NE = 1023 (2,097,152 dofs, bs 2, fp64), -mat_type aij
+   (the ELL kernel), CG + make_sbaij_cholesky(levels=0) for a fixed
+   S18_ITS = 300 its (CG's residual rises at this size while its energy
+   falls: sampled at 100, 200 and 300): the setup by part (log events
+   MatCholFctrSym, MatCholFctrNum, MatSBAIJExpand, MatSolveLevels,
+   MatSolvePlan, MatUpload), each triangle's levels and shape; the counts
+   reset just before the solve and read just after: two sptrsv launches
+   an ICC apply, one ELL launch an AIJ product; ms an iteration first and
+   repeated, a profiled repeat's idle share; SpTRSV on both triangles and
+   the ELL kernel on A bit for bit against their plain versions, timed
+   beside their bounds, torch.triangular_solve and CSR `mv`; phase 37's
+   scalar ICC(0) on the same system beside it;
+66. ex55 at ne = 63, CG + blocked IC at levels 0, 1 and full fill, tri
+   "level" and "band", card against CPU (same_solve_to_noise at 1e-8);
+   sharded_aij_from_scipy(fmt="auto") over 4 rank threads on ex45 at 32³
+   in fp32 (8,192-row blocks: SELL needs 2,048 a block, so not 16³): the
+   SELL route, and CG + Jacobi's its and history equal to fmt="sell"'s
+   to the bit;
+67. the wrappers on the card against the CPU: CG/GMRES on ShiftScale,
+   Composite (additive, multiplicative), LRC and BlockMat around ELL
+   operators; mat_axpy's three modes; ScatterMat.multT (two card calls
+   bit-equal); VecNest's ops, PF string and constant; a card field's VTK
+   file byte for byte; checked raising PetscTPUError on a NaN and on an
+   out-of-range gather, then a card solve; validate_system on every
+   format of the port.
+`python3 chip_smoke.py slice18` runs the build and phases 65-67 alone;
+the whole script runs phase 65 at FULL_SCRIPT_NE = 255 and phase 66's
+blocked IC cases at FULL_SCRIPT_S18_SMALL_NE = 31.
+
 The whole script runs ex55 (slices 7 and 12, the NC route and refresh
 of slice 7 too) and ex43 (slice 8) at FULL_SCRIPT_NE = 255, phase 27 at
 mx = FULL_SCRIPT_SCHUR_MX = 127, phase 40 on the box
@@ -537,8 +569,9 @@ full width (ex55 and ex43 at 1023, phase 27 at 255, ex12 at 1024, phase
 48 at 129³).
 
 The kernels line gains K1 on the recovered 128³ stencil, the ELL
-kernel on ex39's HᴴH (complex128), and the ELL kernel and SpTRSV on ksp
-ex34's 128³ level 0.
+kernel on ex39's HᴴH (complex128), the ELL kernel and SpTRSV on ksp
+ex34's 128³ level 0, and SpTRSV on ex55's blocked IC(0) triangles and
+the ELL kernel on ex55's fp64 AIJ.
 
 It ends with the nvidia-smi line, a JSON line of kernels and, last,
 {"ok": true, "device": {...}}.
@@ -7529,6 +7562,412 @@ def slice17_phases(rng, kernels, triad_gbs, m=EX34_M):
     return [ell_entry, trsv_entry]
 
 
+S18_NE = 1023              # ksp ex55 at ne = 1023: n = 2,097,152, bs 2
+S18_ITS = 300              # phase 65's fixed CG iteration count (as 37's)
+S18_STOPS = (100, 200)     # CG's energy sampled there and at S18_ITS
+S18_SMALL_NE = 63          # phase 66: ex55 at n = 8,192
+S18_SMALL_RTOL = 1e-8      # its history bound, card against CPU (38's)
+S18_SMALL = ((0, "level"), (1, "level"), (None, "level"), (0, "band"),
+             (1, "band"), (None, "band"))   # (levels, tri) of phase 66
+S18_AUTO_GRID = 32         # phase 66's fmt="auto": ex45 at 32³ over 4 ranks
+S18_AUTO_RANKS = 4         # (8,192-row blocks; SELL needs 2,048 a block)
+S18_WRAP_M = 24            # phase 67's ex2 at 24²: 576 unknowns
+S18_SETUP = ("MatCholFctrSym", "MatCholFctrNum", "MatSBAIJExpand",
+             "MatSolveLevels", "MatSolvePlan", "MatUpload",
+             "MatSolveSegments")
+
+
+def blocked_ic(A, levels, tri, dev):
+    """CG's operator (the fp64 AIJ: the ELL kernel) and the blocked
+    IC(levels) PC of ex55's A (bs 2), on `dev`."""
+    from petsctpu_torch.mat.sbaijfact import make_sbaij_cholesky
+
+    return (aij_from_scipy(A, dtype=np.float64, device=dev),
+            make_sbaij_cholesky(A, 2, levels=levels, tri=tri, device=dev))
+
+
+def drive_ex55_blocked_ic(rng, triad_gbs, ne=S18_NE):
+    """Phase 65: ksp ex55 at ne in fp64, -mat_type aij (the ELL kernel),
+    CG + blocked IC(0) (make_sbaij_cholesky, bs 2) for S18_ITS its. The
+    setup timed by part (log events: the block pattern, the C++ block
+    UᵀDU, the scalar expansion, the plans' levels and arrays, their upload)
+    with each triangle's levels and shape; the counts reset just before
+    the solve and read just after it: two sptrsv launches an ICC apply,
+    one ELL launch an AIJ product; ms an iteration first and repeated, a
+    profiled repeat's idle share, CG's energy falling at S18_STOPS and the
+    end. Then SpTRSV on both triangles and the ELL kernel on A bit for bit
+    against their plain versions, timed against their bounds and the
+    library calls, and phase 37's scalar ICC(0) on the same system beside
+    it. Returns the kernels-line entries of SpTRSV and the ELL kernel."""
+    from petsctpu_torch.mat.ell import AIJ
+    from petsctpu_torch.mat.sbaijfact import make_sbaij_cholesky
+    from petsctpu_torch.pc.factor import ICCPC
+
+    t = time.perf_counter()
+    A, b_np, _ = ex55_system(ne, 1e-3)
+    print(f"slice18 ex55 ne={ne}: n={A.shape[0]} nnz={A.nnz} "
+          f"({time.perf_counter() - t:.1f} s)")
+    label = f"slice18 ex55 ne={ne} blocked IC(0)"
+    log_begin()
+    t = time.perf_counter()
+    M, _ = mat_from_options(A, Options({"mat_type": "aij"}),
+                            dtype=torch.float64)
+    op_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pc = make_sbaij_cholesky(A, 2, levels=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    ev = {k: v.time for k, v in log_events().items()}
+    L, U = pc.Lplan, pc.Uplan
+    print(f"{label}: AIJ (ELL, K {M.cols.shape[1]}) {op_s:.2f} s; PC setup "
+          f"{setup_s:.2f} s by part (s): " + ", ".join(
+              f"{k} {ev.get(k, 0.0):.2f}" for k in S18_SETUP)
+          + f"; Uᵀ (L) {L.nlev} levels, rmax {L.rmax}, K "
+          f"{L.cols.shape[-1]}, {shape_of(L)} shape; U {U.nlev} levels, "
+          f"rmax {U.rmax}, K {U.cols.shape[-1]}, {shape_of(U)} shape")
+    b = torch.from_numpy(b_np).cuda()
+    solver = types.SimpleNamespace(solve=lambda v: ksp_solve(
+        M, v, pc=pc, ksp_type="cg", rtol=1e-30, maxits=S18_ITS))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with counted_calls(AIJ) as na, counted_calls(ICCPC, "apply") as ns:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = solver.solve(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    counts = {k: HAND_KERNELS[k].launches for k in ("sptrsv", "sptrsv_lu",
+                                                     "ell_spmv")}
+    its, reason = int(res.its), int(res.reason)
+    hist = res.history[:its + 1].numpy()
+    e = energy(A, b_np, res.x)
+    print(f"{label}: CG its={its} reason={reason} {secs:.3f} s = "
+          f"{1e3 * secs / its:.4f} ms/it; launches {counts} for {ns[0]} ICC "
+          f"applies and {na[0]} AIJ products; history {hist[0]:.6e} -> "
+          f"{hist[-1]:.6e}; energy {e:.9e}; true rel residual "
+          f"{true_residual(A, b_np, res):.3e}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (its == S18_ITS or reason > 0) or not np.isfinite(hist).all():
+        raise AssertionError(f"{label}: its {its} reason {reason}")
+    if counts["sptrsv"] != 2 * ns[0] or counts["sptrsv_lu"] \
+            or counts["ell_spmv"] != na[0] or min(ns[0], na[0]) < its:
+        raise AssertionError(f"{label}: {counts} launches for {ns[0]} ICC "
+                             f"applies and {na[0]} AIJ products")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r2 = solver.solve(b)
+    torch.cuda.synchronize()
+    print(f"{label}: ms per iteration {1e3 * secs / its:.4f} first, "
+          f"{1e3 * (time.perf_counter() - t) / int(r2.its):.4f} repeated")
+    profile_solve(solver, b, label=label, top=6, kernels=("SpTRSV", "ELL"))
+    energy_falls(f"{label} CG", M, A, pc, b, b_np,
+                 [k for k in S18_STOPS if k < its], e)
+    errs = [check_sptrsv(f"ex55 ne={ne} blocked IC(0) {name}", plan, rng)[0]
+            for name, plan in (("Uᵀ (L)", L), ("U", U))]
+    r = torch.from_numpy(rng.standard_normal(A.shape[0])).cuda()
+    z = pc.apply(r)
+    zp = sptrsv_plain(*U.order, (pc.dinv * sptrsv_plain(
+        *L.order, r[None])[0])[None])[0]
+    print(f"{label}: the apply against the plain triangles composed: max "
+          f"abs diff {float((z - zp).abs().max())}")
+    if not torch.equal(z, zp):
+        raise AssertionError(f"{label}: the apply differs from its plain "
+                             "triangles")
+    ell_err = ell_check(f"ex55 ne={ne} fp64 AIJ", A, M, rng)
+    level_us = chain_rounds(make_sptrsv_plan(
+        sp.diags([-np.ones(4095), 2 * np.ones(4096)], [-1, 0]).tocsr(), True,
+        False, np.float64, device="cuda"))
+    trsv = measure_sptrsv(f"ex55 ne={ne} blocked IC(0) Uᵀ (L)", L, False,
+                          triad_gbs, level_us, rng)
+    measure_sptrsv(f"ex55 ne={ne} blocked IC(0) U", U, True, triad_gbs,
+                   level_us, rng)
+    x = torch.from_numpy(rng.standard_normal(A.shape[0])).cuda()
+    ell = measure_ell(f"ex55 ne={ne} fp64 AIJ", A, M, x, triad_gbs)
+    ksp, rs, s_setup, s_solve = fixed_cg(M, A, "icc", b)
+    n37 = int(rs.its)
+    print(f"{label}: beside it phase 37's scalar ICC(0) on the same system "
+          f"(-pc_type icc): setup {s_setup:.2f} s, its={n37} reason="
+          f"{int(rs.reason)} {1e3 * s_solve / n37:.4f} ms/it, "
+          f"{ksp.pc.Lplan.nlev} levels a triangle, "
+          f"{1e6 * s_solve / n37 / (2 * ksp.pc.Lplan.nlev):.2f} us a level; "
+          f"the blocked IC(0): {1e3 * secs / its:.4f} ms/it, {L.nlev} levels "
+          f"a triangle, {1e6 * secs / its / (2 * L.nlev):.2f} us a level")
+    source = "petsctpu_torch/csrc/"
+    return [dict(name="sptrsv", route="cuda", source=source + "sptrsv.cu",
+                 replaces="petsctpu/mat/factor.py:368",
+                 operator=f"ksp ex55 ne={ne} blocked IC(0) (bs 2) Uᵀ "
+                          f"triangle, {L.nlev} levels, fp64",
+                 launches=counts["sptrsv"], max_abs_err=max(errs), **trsv),
+            dict(name="ell_spmv", route="cuda", source=source + "ell_spmv.cu",
+                 replaces="petsctpu/mat/ell.py:53",
+                 operator=f"ksp ex55 ne={ne} fp64 AIJ, K {M.cols.shape[1]}",
+                 launches=counts["ell_spmv"], max_abs_err=ell_err, **ell)]
+
+
+def check_blocked_ic_small_against_cpu(devices=("cuda", "cpu"),
+                                       ne=S18_SMALL_NE):
+    """Phase 66 (first part): ex55 at ne, CG + blocked IC(levels) for each
+    (levels, tri) of S18_SMALL, rtol 1e-5, card against CPU: equal its and
+    reason, the history within S18_SMALL_RTOL and x within 30 times a CPU
+    solve's change under a 1e-15 change of b (same_solve_to_noise).
+    Returns the largest history difference."""
+    A, b, _ = ex55_system(ne, 1e-3)
+    worst = 0.0
+    for levels, tri in S18_SMALL:
+        def run(dev, rhs):
+            M, pc = blocked_ic(A, levels, tri, dev)
+            return ksp_solve(M, torch.from_numpy(rhs).to(dev), pc=pc,
+                             ksp_type="cg", rtol=1e-5)
+        card, cpu = (run(dev, b) for dev in devices)
+        worst = max(worst, same_solve_to_noise(
+            f"ex55 CG + blocked IC({'full' if levels is None else levels}) "
+            f"tri={tri}", card, cpu, [run(devices[-1], b_changed(b, 1))],
+            S18_SMALL_RTOL, size=f"slice18 ne={ne}"))
+    return worst
+
+
+def check_auto_fmt_dist(dev="cuda", grid=S18_AUTO_GRID,
+                        nranks=S18_AUTO_RANKS):
+    """Phase 66 (second part): sharded_aij_from_scipy(fmt="auto") over
+    nranks rank threads on ex45 at grid³ in fp32 takes the SELL route (K2
+    on every rank's block), and CG + Jacobi on it takes fmt="sell"'s its
+    and history to the bit."""
+    A, b, _ = ex45_system(grid, grid, grid)
+    A = sp.csr_matrix(A)
+    b32 = np.asarray(b, np.float32)
+    out = {}
+    with World(nranks, dev, timeout=120.0) as w:
+        for fmt in ("auto", "sell"):
+            A_sh, part = sharded_aij_from_scipy(A, nranks, dtype=np.float32,
+                                                fmt=fmt, device=dev)
+            reset_dist(w)
+            res = par_ksp_solve(w, A_sh, b32,
+                                pc=make_par_pc("jacobi", A_sh, part),
+                                ksp_type="cg", rtol=1e-5)
+            out[fmt] = (A_sh.fmt, res, [c.launches.get("sell_spmv", 0)
+                                        for c in w.comms])
+    (fa, ra, ka), (_, rs, ks) = out["auto"], out["sell"]
+    ia = int(ra.its)
+    same = (ia, int(ra.reason)) == (int(rs.its), int(rs.reason)) and \
+        np.array_equal(ra.history[:ia + 1].numpy(),
+                       rs.history[:ia + 1].numpy())
+    print(f"slice18 fmt=auto ex45 {grid}^3 fp32 over {nranks} ranks: the "
+          f"{fa} route, K2 launches a rank {ka} ({ks} with fmt=sell); CG + "
+          f"jacobi its {ia}/{int(rs.its)} reason {int(ra.reason)}/"
+          f"{int(rs.reason)}; histories bit-equal: {same}")
+    if fa != "sell" or not same or min(ka) < ia or int(ra.reason) <= 0:
+        raise AssertionError("slice18 fmt=auto: not fmt=sell's route and "
+                             "stream")
+    return sum(ka)
+
+
+def s18_formats(dev):
+    """An operator of every format of the port (small), on `dev`."""
+    from petsctpu_torch.mat.maij import MAIJ
+    from petsctpu_torch.mat.nest import make_nest
+    from petsctpu_torch.mat.rectband import rectband_from_scipy
+
+    A2 = sp.csr_matrix(ex2_system(12, 12)[0])
+    A55 = ex55_system(31, 1e-3)[0]
+    ops = {k: mat_from_options(A2, Options({"mat_type": k}), device=dev)[0]
+           for k in ("aij", "band", "dia", "dense")}
+    for k in ("baij", "sbaij"):
+        ops[k] = mat_from_options(A55, Options(
+            {"mat_type": k, "mat_block_size": "2"}), device=dev)[0]
+    ops["sellbaij"] = baij_from_scipy_bsr(A55, bs=2, dtype=np.float32,
+                                          fmt="sell", device=dev)
+    ops["sell"] = sell_from_scipy(sp.csr_matrix(ex45_system(
+        16, 16, 16)[0]).astype(np.float32), device=dev)
+    ops["stencil"] = stencil_from_scipy(A2, (12, 12), device=dev)
+    a = aij_from_scipy(A2, device=dev)
+    ops["nest"] = make_nest([[a, None], [None, a]])
+    ops["maij"] = MAIJ(a, 2)
+    ops["is"] = matis_poisson_2d(8, 2, device=dev)
+    ops["rectband"] = rectband_from_scipy(sp.diags(
+        [np.ones(144), -np.ones(143)], [0, 1], shape=(144, 144)).tocsr(),
+        device=dev)
+    return ops
+
+
+def check_wrappers_against_cpu(rng, devices=("cuda", "cpu"),
+                               m=S18_WRAP_M):
+    """Phase 67: the slice's wrappers and periphery on the card against
+    the CPU. CG or GMRES on ShiftScale, Composite (additive and
+    multiplicative), LRC and BlockMat around ELL operators (equal its and
+    reason, histories within 1e-10 and x within 30 times a CPU solve's
+    change under a 1e-15 change of b: same_solve_to_noise);
+    mat_axpy's three modes (their AIJ products bit for bit);
+    ScatterMat.multT (two card calls and the CPU's bit-equal); VecNest's
+    ops, PF string and constant (1e-13);
+    vtk_write_structured of a card field (the CPU's file byte for byte);
+    checked raising PetscTPUError on a NaN and on an out-of-range gather,
+    then a card solve (the context survived); validate_system on every
+    format of the port. Returns the ELL launches of the card's solves."""
+    import tempfile
+
+    from petsctpu_torch.core.debug import checked, validate_system
+    from petsctpu_torch.core.errors import PetscTPUError
+    from petsctpu_torch.io.vtk import vtk_write_structured
+    from petsctpu_torch.mat import base as mbase
+    from petsctpu_torch.vec.nest import VecNest
+    from petsctpu_torch.vec.pf import make_pf
+
+    A, b, _ = ex2_system(m, m)
+    A = sp.csr_matrix(A)
+    n = A.shape[0]
+    # the solves' base operator: ex2's Laplacian shifted by 4·I, so that
+    # CG and GMRES(30) converge in a few tens of its, before a restart
+    # (GMRES on the unshifted product takes 130 its, where the card's and
+    # the CPU's dots part by 1e-9 of the history)
+    As = sp.csr_matrix(A + 4.0 * sp.eye(n))
+    Uk, Ck, Vk = (rng.standard_normal(s) for s in ((n, 3), (3, 3), (n, 3)))
+    d = 1.0 + rng.random(n)
+    Bc = sp.random(n, n, density=4.0 / n, random_state=2, format="csr")
+
+    def build(name, dev):
+        a = aij_from_scipy(As, dtype=np.float64, device=dev)
+        tens = lambda v: torch.from_numpy(v).to(dev)
+        return {"ShiftScale": (mbase.ShiftScale(a, 2.0, 0.5), "cg"),
+                "Composite additive": (mbase.Composite(
+                    (a, mbase.Diagonal(tens(d))), "additive"), "gmres"),
+                "Composite multiplicative": (mbase.Composite(
+                    (a, mbase.Diagonal(tens(d))), "multiplicative"),
+                    "gmres"),
+                "LRC": (mbase.LRC(a, tens(Uk), tens(0.01 * Ck), tens(Vk)),
+                        "gmres"),
+                "BlockMat": (mbase.block_mat(
+                    {(0, 0): a, (0, 1): aij_from_scipy(Bc, device=dev),
+                     (1, 1): a}, [n, n], [n, n]), "gmres")}[name]
+
+    launched = 0
+    rhs = {name: np.concatenate([b, b]) if name == "BlockMat" else b
+           for name in ("ShiftScale", "Composite additive",
+                        "Composite multiplicative", "LRC", "BlockMat")}
+    for name, r in rhs.items():
+        def run(dev, v):
+            op, ksp_type = build(name, dev)
+            return ksp_solve(op, torch.from_numpy(v).to(dev),
+                             ksp_type=ksp_type, rtol=1e-8)
+        before = ell_spmv.launches
+        card = run(devices[0], r)
+        launched += ell_spmv.launches - before
+        same_solve_to_noise(
+            f"{build(name, devices[-1])[1]} on {name}", card,
+            run(devices[-1], r), [run(devices[-1], b_changed(r, 1))], 1e-10,
+            size=f"slice18 ex2 {m}x{m} + 4I")
+        if int(card.reason) <= 0:
+            raise AssertionError(f"slice18 {name}: reason {card.reason}")
+    X = sp.csr_matrix(([1e-2, -3.0], ([0, 5], [n - 1, 5])), shape=(n, n))
+    x = rng.standard_normal(n)
+    for structure in ("same", "subset", "different"):
+        Y = mbase.mat_axpy(A, 0.5, X if structure != "different" else Bc,
+                           structure)
+        ys = [aij_from_scipy(Y, device=dev).mult(torch.from_numpy(x).to(dev))
+              for dev in devices]
+        if not torch.equal(ys[0].cpu(), ys[1].cpu()):
+            raise AssertionError(f"slice18 mat_axpy {structure}: the card's "
+                                 "product differs from the CPU's")
+    print(f"slice18 mat_axpy same/subset/different: nnz {A.nnz} -> "
+          f"{mbase.mat_axpy(A, 0.5, X, 'same').nnz} / "
+          f"{mbase.mat_axpy(A, 0.5, Bc, 'different').nnz}; card products "
+          f"bit-equal to the CPU's")
+    idx = rng.integers(0, 3000, 5000)
+    y = rng.standard_normal(5000)
+    S = [mbase.ScatterMat(idx, (5000, 3000), device=dev) for dev in devices]
+    z1, z2 = (S[0].multT(torch.from_numpy(y).cuda()) for _ in range(2))
+    zc = S[1].multT(torch.from_numpy(y))
+    if not (torch.equal(z1, z2) and torch.equal(z1.cpu(), zc)):
+        raise AssertionError("slice18 ScatterMat.multT: calls differ")
+    print(f"slice18 ScatterMat.multT (5000 -> 3000, fold of "
+          f"{S[0]._fold.ranks} ranks): two card calls and the CPU's "
+          "bit-equal")
+    blocks = [rng.standard_normal(k) for k in (7, 300, 41)]
+    other = [rng.standard_normal(k) for k in (7, 300, 41)]
+    res = []
+    for dev in devices:
+        v = VecNest(torch.from_numpy(a).to(dev) for a in blocks)
+        w = VecNest(torch.from_numpy(a).to(dev) for a in other)
+        xs = torch.from_numpy(np.linspace(-3, 3, 1001)).to(dev)
+        res.append([(v + w).flatten(), v.axpy(-0.5, w).flatten(),
+                    (2.0 * v - w).flatten(), v.dot(w), v.norm(),
+                    v.norm_inf(),
+                    make_pf("string", expr="sin(x) + exp(-abs(x)) + "
+                            "minimum(x, 0.5) * pi")(xs),
+                    make_pf("constant", value=3.25)(xs)])
+    worst = max(float((p.cpu() - q).abs().max()
+                      / max(float(q.abs().max()), 1e-300))
+                for p, q in zip(*res))
+    print(f"slice18 VecNest ops and PF string/constant: card against CPU "
+          f"max rel diff {worst:.2e}")
+    if not worst <= 1e-13:
+        raise AssertionError(f"slice18 VecNest/PF: card off by {worst}")
+    field = torch.from_numpy(rng.standard_normal((33, 65))).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [os.path.join(tmp, f"{k}.vtk") for k in ("card", "cpu")]
+        vtk_write_structured(files[0], {"u": field}, (33, 65))
+        vtk_write_structured(files[1], {"u": field.cpu()}, (33, 65))
+        same = open(files[0], "rb").read() == open(files[1], "rb").read()
+    print(f"slice18 vtk_write_structured of a card field: the CPU's file "
+          f"byte for byte: {same}")
+    if not same:
+        raise AssertionError("slice18 vtk: the card's file differs")
+    caught = []
+    for label, fn, args in (
+            ("NaN", lambda t: torch.log(t), (torch.tensor([-1.0, 2.0],
+                                                          device="cuda"),)),
+            ("out-of-range gather", lambda t, i: t[i],
+             (torch.arange(4.0, device="cuda"),
+              torch.tensor([0, 9], device="cuda")))):
+        try:
+            checked(fn)(*args)
+        except PetscTPUError as e:
+            caught.append(f"{label}: {e}")
+    a = aij_from_scipy(A, device="cuda")
+    after = ksp_solve(a, torch.from_numpy(b).cuda(), ksp_type="cg",
+                      rtol=1e-8)
+    torch.cuda.synchronize()
+    print("slice18 checked on the card raised PetscTPUError on "
+          + "; ".join(caught) + f"; a card solve after it: its "
+          f"{int(after.its)} reason {int(after.reason)}")
+    if len(caught) != 2 or int(after.reason) <= 0:
+        raise AssertionError("slice18 checked: a check did not raise, or "
+                             "the context did not survive")
+    ops = s18_formats("cuda")
+    for name, op in ops.items():
+        validate_system(op, torch.ones(op.shape[0], dtype=torch.float64,
+                                       device="cuda"))
+    print(f"slice18 validate_system on the card: {len(ops)} formats "
+          f"({', '.join(sorted(ops))}) valid")
+    return launched
+
+
+def slice18_phases(rng, kernels, triad_gbs, ne=S18_NE,
+                   small_ne=S18_SMALL_NE):
+    """Slice 18: ksp ex55 at ne with CG + blocked IC(0) (phase 65), the
+    blocked IC(k) at small_ne card against CPU and the sharded fmt="auto"
+    (66), the wrappers and periphery card against CPU (67). Adds the
+    paths' launches and errors to `kernels`; returns the kernels-line
+    entries of SpTRSV and the ELL kernel on ex55."""
+    t0 = time.perf_counter()
+    entries = drive_ex55_blocked_ic(rng, triad_gbs, ne)
+    stamp("slice18 phase 65")
+    diff = check_blocked_ic_small_against_cpu(ne=small_ne)
+    k2 = check_auto_fmt_dist()
+    stamp("slice18 phase 66")
+    ell = check_wrappers_against_cpu(rng)
+    stamp("slice18 phase 67")
+    for e in entries:
+        kernels[e["name"]]["launches"] += e["launches"]
+        kernels[e["name"]]["max_abs_err"] = max(
+            kernels[e["name"]]["max_abs_err"], e["max_abs_err"])
+    kernels["ell_spmv"]["launches"] += ell
+    kernels["sell_spmv"]["launches"] += k2
+    print(f"slice 18 in {time.perf_counter() - t0:.1f} s (ex55 ne={ne}; "
+          f"blocked IC small card vs cpu {diff:.2e}; fmt=auto K2 launches "
+          f"{k2}; wrappers' ELL launches {ell})")
+    return entries
+
+
 T0 = time.perf_counter()
 # ex55's ne (slices 7 and 12, with slice 7's NC route and refresh) and
 # ex43's mx (slice 8) in the whole script: 131,072 and 196,608 dofs. At
@@ -7551,6 +7990,9 @@ FULL_SCRIPT_S15_MG_GRID = 65
 # slice 16's file in the whole script (128³ in `slice16`): 262,144 rows,
 # which gives back slice 17's time (PERF.md §4)
 FULL_SCRIPT_S16_GRID = 64
+# phase 66's blocked IC(k) cases in the whole script (ne = 63 in
+# `slice18`, about a minute of the plain SpTRSV on the host): 2,048 dofs
+FULL_SCRIPT_S18_SMALL_NE = 31
 
 
 def stamp(label):
@@ -7564,6 +8006,17 @@ def main(argv=()):
     name, smi = device_info()
     build_kernels()
     rng = np.random.default_rng(0)
+    if list(argv) == ["slice18"]:
+        kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
+                   for k in ("sptrsv", "ell_spmv", "sell_spmv")}
+        entries = slice18_phases(rng, kernels, stream_triad_gbs(1 << 28))
+        print(smi)
+        print(f"slice18 in {time.perf_counter() - T0:.1f} s")
+        print(json.dumps({"slice18": list(kernels.values()) + entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return
     if list(argv) == ["slice17"]:
         kernels = {k: dict(name=k, launches=0, max_abs_err=0.0)
                    for k in ("sptrsv", "ell_spmv")}
@@ -7724,6 +8177,10 @@ def main(argv=()):
     stamp("slice 16")
     kernels += slice17_phases(rng, {k["name"]: k for k in kernels}, triad)
     stamp("slice 17")
+    kernels += slice18_phases(rng, {k["name"]: k for k in kernels}, triad,
+                              ne=FULL_SCRIPT_NE,
+                              small_ne=FULL_SCRIPT_S18_SMALL_NE)
+    stamp("slice 18")
     kernels += probes_phase()
     print(smi)
     print(f"chip_smoke.py in {time.perf_counter() - T0:.1f} s")

@@ -302,6 +302,19 @@ def icc_from_arrays(L: dict, U: dict, dinv, perm=None, device=None):
                                                           torch.int64))
 
 
+def sbaij_cholesky_from_arrays(Wstrict, d, dtype=None, tri: str = "level",
+                               device=None):
+    """The port's blocked IC(k) / Cholesky PC from petsctpu's scalar
+    expansion of its factor (`sbaij_cholesky_factor`'s (Wstrict, d)): the
+    ICCPC that make_sbaij_cholesky builds over the same arrays."""
+    import scipy.sparse as sp
+
+    from petsctpu_torch.mat.sbaijfact import iccpc_from_factor
+
+    return iccpc_from_factor(sp.csr_matrix(Wstrict), np.asarray(d), dtype,
+                             tri, device)
+
+
 def sor_from_arrays(fwd: dict, bwd: dict, U_ell: tuple, L_ell: tuple, diag,
                     omega: float, sweeps: int, symmetric: bool,
                     device=None):

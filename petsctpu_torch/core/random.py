@@ -6,14 +6,47 @@ default seed 0x12345678, set at PetscRandomSetType, randomc.c:376 and
 randreg.c:50). It reproduces VecSetRandom-driven goldens (snes ex35's
 random right-hand side): drand48 is the POSIX 48-bit LCG
 X' = (0x5DEECE66D·X + 0xB) mod 2^48, seeded X = (seed<<16)|0x330E.
-The stream is a host computation in Python integers. petsctpu's
-jax.random-based `Random` has no bit-compatible counterpart here
-(ROADMAP queue 1 item 3).
+The stream is a host computation in Python integers.
+
+`Random` is the counterpart of petsctpu's PetscRandom analog, which
+draws from jax.random: here a stream of an explicit torch.Generator
+(CPU, seeded once), so it is deterministic for a seed and the same on
+every device, but its bits are not jax.random's.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from petsctpu_torch.device import resolve_device
+
+
+class Random:
+    """PetscRandom: uniform values in [lo, hi) (drawn in fp32, as
+    petsctpu's), normal values, each call the stream's next draw; the
+    values are put on `device` (None: CUDA)."""
+
+    def __init__(self, seed: int = 0x12345678, lo=0.0, hi=1.0,
+                 device=None):
+        self._gen = torch.Generator().manual_seed(int(seed))
+        self.lo, self.hi = lo, hi
+        self.device = resolve_device(device)
+
+    def set_interval(self, lo, hi) -> "Random":
+        self.lo, self.hi = lo, hi
+        return self
+
+    def get_values(self, shape, dtype=torch.float64) -> torch.Tensor:
+        u = torch.rand(shape, generator=self._gen, dtype=torch.float32)
+        return (self.lo + (self.hi - self.lo) * u).to(self.device, dtype)
+
+    def get_value(self, dtype=torch.float64) -> torch.Tensor:
+        return self.get_values((), dtype)
+
+    def get_normal(self, shape, dtype=torch.float64) -> torch.Tensor:
+        return torch.randn(shape, generator=self._gen,
+                           dtype=torch.float32).to(self.device, dtype)
 
 
 _MUL, _ADD, _MASK = 0x5DEECE66D, 0xB, (1 << 48) - 1

@@ -1,16 +1,20 @@
 // Host factor numerics of the port: numeric ILU(0), triangular-solve
-// levels, the symbolic ILU(k) and IC(k) patterns, and numeric incomplete
-// Cholesky with the MatPivotCheck shift family.
+// levels, the symbolic ILU(k) and IC(k) patterns, numeric incomplete
+// Cholesky with the MatPivotCheck shift family, and the blocked UᵀDU of
+// SBAIJ's Cholesky/IC(k).
 //
 // The port's own copy of the plan-time C++ that petsctpu runs for the
 // same work (native/petsctpu_native.cpp: ilu0_csr, tri_levels,
-// iluk_pattern, icck_pattern, icc_numeric), so the factors and levels of
+// iluk_pattern, icck_pattern, icc_numeric, sbaij_block_udu), so the
+// factors and levels of
 // both packages are equal byte for byte. Reference algorithms:
 // MatLUFactorNumeric_SeqAIJ (src/mat/impls/aij/seq/aijfact.c:461), the
 // MatILUFactorSymbolic level rule (aijfact.c:122),
 // MatICCFactorSymbolic_SeqAIJ (aijfact.c:2405),
 // MatCholeskyFactorNumeric_SeqAIJ (aijfact.c:2076) and MatPivotCheck
-// (include/petsc-private/matimpl.h:511-585).
+// (include/petsc-private/matimpl.h:511-585), and
+// MatCholeskyFactorNumeric_SeqSBAIJ_N (src/mat/impls/sbaij/seq/
+// sbaijfact.c).
 //
 // Built by g++ (-O3 -fPIC -shared, no -march: no FMA contraction) into
 // petsctpu_torch/_build/libhost_factor.so at first use
@@ -18,6 +22,7 @@
 // petsctpu_torch/mat/host_factor.py. ABI: plain C functions over CSR
 // arrays (int64 indptr, int32 indices).
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
@@ -303,6 +308,132 @@ int64_t icc_numeric(int64_t n, const int64_t* ai, const int32_t* aj,
     for (int64_t p = 0; p < ui[n]; ++p) uv[p] = -uv[p];
     shift_out[0] = cur_shift;
     return nshift;
+}
+
+// Blocked UᵀDU over a strict-upper block pattern (ui, uj): nb block
+// rows of bs×bs blocks, A's upper blocks (diagonal included) in block
+// CSR (ai, aj, av: [nnzb, bs, bs] row-major). Row k accumulates
+//   acc_j = A_kj (+ shift·I at j = k) − Σ_{i<k, k∈pat(i)} U_ikᵀ D_i U_ij
+// over the pattern's slots, then D_k = acc_k and U_kj = D_k⁻¹ acc_j (a
+// Gauss-Jordan inverse with partial pivoting). Writes uv [nnzU, bs, bs]
+// and dv [nb, bs, bs]; returns 0, or k + 1 when block pivot k is
+// singular.
+int64_t sbaij_block_udu(int64_t nb, int64_t bs,
+                        const int64_t* ai, const int64_t* aj,
+                        const double* av,
+                        const int64_t* ui, const int64_t* uj,
+                        double* uv, double* dv, double shift) {
+    const int64_t b2 = bs * bs;
+    std::vector<double> w(b2), inv(b2);
+    auto invert = [&](const double* M, double* out) -> bool {
+        std::copy(M, M + b2, w.begin());
+        for (int64_t i = 0; i < bs; ++i)
+            for (int64_t j = 0; j < bs; ++j)
+                out[i * bs + j] = (i == j) ? 1.0 : 0.0;
+        for (int64_t c = 0; c < bs; ++c) {
+            int64_t p = c;
+            for (int64_t r = c + 1; r < bs; ++r)
+                if (std::fabs(w[r * bs + c]) > std::fabs(w[p * bs + c]))
+                    p = r;
+            if (w[p * bs + c] == 0.0) return false;
+            if (p != c) {
+                for (int64_t j = 0; j < bs; ++j) {
+                    std::swap(w[p * bs + j], w[c * bs + j]);
+                    std::swap(out[p * bs + j], out[c * bs + j]);
+                }
+            }
+            const double d = w[c * bs + c];
+            for (int64_t j = 0; j < bs; ++j) {
+                w[c * bs + j] /= d;
+                out[c * bs + j] /= d;
+            }
+            for (int64_t r = 0; r < bs; ++r) {
+                if (r == c) continue;
+                const double f = w[r * bs + c];
+                if (f == 0.0) continue;
+                for (int64_t j = 0; j < bs; ++j) {
+                    w[r * bs + j] -= f * w[c * bs + j];
+                    out[r * bs + j] -= f * out[c * bs + j];
+                }
+            }
+        }
+        return true;
+    };
+    // the current row's accumulator blocks, keyed by block column
+    std::vector<int64_t> accpos(nb, -1);
+    std::vector<double> accbuf;
+    std::vector<int64_t> acccols;
+    std::vector<double> D((size_t)nb * b2, 0.0);
+    std::vector<double> M(b2);
+    // bucket[k]: (row i < k, slot of (i, k) in the pattern)
+    std::vector<std::vector<std::pair<int64_t, int64_t>>> bucket(nb);
+    for (int64_t k = 0; k < nb; ++k) {
+        acccols.clear();
+        accbuf.clear();
+        auto acc_of = [&](int64_t j) -> double* {
+            if (accpos[j] < 0) {
+                accpos[j] = (int64_t)acccols.size();
+                acccols.push_back(j);
+                accbuf.resize(accbuf.size() + b2, 0.0);
+            }
+            return accbuf.data() + accpos[j] * b2;
+        };
+        {
+            double* d = acc_of(k);
+            for (int64_t t = 0; t < bs; ++t) d[t * bs + t] += shift;
+        }
+        for (int64_t t = ai[k]; t < ai[k + 1]; ++t) {
+            if (aj[t] < k) continue;
+            double* d = acc_of(aj[t]);
+            for (int64_t q = 0; q < b2; ++q) d[q] += av[t * b2 + q];
+        }
+        // the pattern's slots exist even where A has no block
+        for (int64_t t = ui[k]; t < ui[k + 1]; ++t) (void)acc_of(uj[t]);
+        for (auto& pr : bucket[k]) {
+            const int64_t i = pr.first, tik = pr.second;
+            const double* Uik = uv + tik * b2;
+            const double* Di = D.data() + i * b2;
+            for (int64_t r = 0; r < bs; ++r)             // M = U_ikᵀ D_i
+                for (int64_t c = 0; c < bs; ++c) {
+                    double s = 0.0;
+                    for (int64_t q = 0; q < bs; ++q)
+                        s += Uik[q * bs + r] * Di[q * bs + c];
+                    M[r * bs + c] = s;
+                }
+            for (int64_t t = ui[i]; t < ui[i + 1]; ++t) {
+                const int64_t j = uj[t];
+                if (j < k || accpos[j] < 0) continue;
+                const double* Uij = uv + t * b2;
+                double* d = accbuf.data() + accpos[j] * b2;
+                for (int64_t r = 0; r < bs; ++r)
+                    for (int64_t c = 0; c < bs; ++c) {
+                        double s = 0.0;
+                        for (int64_t q = 0; q < bs; ++q)
+                            s += M[r * bs + q] * Uij[q * bs + c];
+                        d[r * bs + c] -= s;
+                    }
+            }
+        }
+        std::copy(accbuf.data() + accpos[k] * b2,
+                  accbuf.data() + accpos[k] * b2 + b2,
+                  D.data() + k * b2);
+        if (!invert(D.data() + k * b2, inv.data())) return k + 1;
+        for (int64_t t = ui[k]; t < ui[k + 1]; ++t) {
+            const double* a = accbuf.data() + accpos[uj[t]] * b2;
+            double* u = uv + t * b2;
+            for (int64_t r = 0; r < bs; ++r)
+                for (int64_t c = 0; c < bs; ++c) {
+                    double s = 0.0;
+                    for (int64_t q = 0; q < bs; ++q)
+                        s += inv[r * bs + q] * a[q * bs + c];
+                    u[r * bs + c] = s;
+                }
+            bucket[uj[t]].push_back({k, t});
+        }
+        for (int64_t j : acccols) accpos[j] = -1;
+    }
+    std::copy(D.begin(), D.end(), dv);
+    return 0;
 }
 
 }  // extern "C"

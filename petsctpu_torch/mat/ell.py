@@ -142,6 +142,13 @@ def aij_from_scipy(A, dtype=None, min_width: int = 1, device=None) -> AIJ:
                shape, nnz)
 
 
+def aij_from_dense(M, tol: float = 0.0, dtype=None, device=None) -> AIJ:
+    """An AIJ of a dense host matrix, entries of |m| <= tol dropped."""
+    M = np.asarray(M)
+    M = np.where(np.abs(M) > tol, M, 0.0)
+    return aij_from_scipy(sp.csr_matrix(M), dtype=dtype, device=device)
+
+
 def aij_to_scipy(A: AIJ):
     """Back to scipy CSR (drops explicit padding zeros)."""
     cols = A.cols.cpu().numpy()

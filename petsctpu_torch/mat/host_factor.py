@@ -42,6 +42,9 @@ def _lib() -> ctypes.CDLL:
     lib.icc_numeric.argtypes = [i64, p64, p32, pf64, p64, p64, pf64, pf64,
                                 ctypes.c_int32, ctypes.c_double,
                                 ctypes.c_double, pf64]
+    lib.sbaij_block_udu.restype = i64
+    lib.sbaij_block_udu.argtypes = [i64, i64, p64, p64, pf64, p64, p64,
+                                    pf64, pf64, ctypes.c_double]
     return lib
 
 
@@ -113,3 +116,23 @@ def icc_numeric(ai, aj, aa, ui, uj, shift_type: str, zeropivot: float,
     if rc < 0:
         raise ZeroDivisionError(f"icc: zero pivot row {-rc - 1}")
     return uv, d, int(rc), float(shift_out[0])
+
+
+def sbaij_block_udu(ai, aj, av, ui, uj, bs: int, shift: float = 0.0):
+    """Blocked UᵀDU numerics over the strict-upper block pattern (ui,
+    uj): A's upper blocks (diagonal included) in block CSR (ai, aj, av
+    [nnzb, bs, bs]). Returns (uv [nnzU, bs, bs], dv [nb, bs, bs]);
+    raises ZeroDivisionError on a singular block pivot."""
+    ai = np.ascontiguousarray(ai, np.int64)
+    ui = np.ascontiguousarray(ui, np.int64)
+    nb = len(ai) - 1
+    uv = np.zeros((int(ui[-1]), bs, bs), np.float64)
+    dv = np.zeros((nb, bs, bs), np.float64)
+    rc = _lib().sbaij_block_udu(
+        nb, bs, ai, np.ascontiguousarray(aj, np.int64),
+        np.ascontiguousarray(av, np.float64).reshape(-1), ui,
+        np.ascontiguousarray(uj, np.int64), uv.reshape(-1), dv.reshape(-1),
+        float(shift))
+    if rc > 0:
+        raise ZeroDivisionError(f"sbaij UtDU: singular block pivot {rc - 1}")
+    return uv, dv

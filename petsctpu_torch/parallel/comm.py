@@ -41,7 +41,10 @@ shard_map: fn(comm, *args) runs on every rank concurrently, and an
 exception in any rank is re-raised by run (the others fail at the
 groups' timeout, and the world is then closed). `world.close()` (or
 leaving a `with World(...)` block) shuts every group down and drops it,
-so that its gloo threads and sockets end there and then. The
+and returns once every OS thread the world started (its rank threads,
+the helpers that build its groups, and gloo's threads) has ended:
+Python's `Thread.join` returns before its OS thread is gone, so close()
+waits on the threads' native ids in /proc/self/task. The
 multi-card route is `world_from_env()`: one process per card started
 by torchrun, the same Comm over an NCCL group.
 """
@@ -288,6 +291,26 @@ class Comm:
             self.pg.barrier().wait()
 
 
+def _live_tids() -> set:
+    """The native ids of this process's live OS threads (empty where
+    /proc is not mounted)."""
+    try:
+        return set(map(int, os.listdir("/proc/self/task")))
+    except OSError:
+        return set()
+
+
+def _wait_gone(tids: set, timeout: float) -> set:
+    """Wait up to `timeout` seconds until none of the OS threads `tids`
+    is alive; returns those still alive."""
+    end = time.perf_counter() + timeout
+    left = tids & _live_tids()
+    while left and time.perf_counter() < end:
+        time.sleep(1e-3)
+        left &= _live_tids()
+    return left
+
+
 def _gloo_group(store, rank: int, size: int, timeout: float):
     opts = dist.ProcessGroupGloo._Options()
     opts._devices = [dist.ProcessGroupGloo.create_device(interface="lo")]
@@ -318,6 +341,7 @@ class World:
         self.closed = False
         self._failure = None
         self._all: list = []          # every Comm made, splits' too
+        self.tids: set = set()        # native ids of the threads it started
         self.comms = self._groups("world", self.size, range(self.size))
         self.mesh = None
         if mesh is not None:
@@ -356,6 +380,7 @@ class World:
         meets all of its ranks."""
         ranks = list(ranks)
         store = dist.PrefixStore(prefix, self._store)
+        before = _live_tids()
         out, errs = [None] * len(ranks), []
 
         def make(i, r):
@@ -371,6 +396,9 @@ class World:
             t.start()
         for t in threads:
             t.join()
+        # gloo's threads, started by the groups' constructors, and the
+        # helpers that ran them
+        self.tids |= (_live_tids() - before) | {t.native_id for t in threads}
         if errs:
             raise errs[0]
         self._all += out
@@ -394,14 +422,17 @@ class World:
             c.reset_counts()
 
     def close(self) -> None:
-        """Shut down and drop every group of the world and its splits.
-        The world refuses runs after it; closing twice does nothing."""
+        """Shut down and drop every group of the world and its splits,
+        and wait (at most the world's timeout, and 10 s) until every OS
+        thread the world started has ended. The world refuses runs after
+        it; closing twice does nothing."""
         if self.closed:
             return
         self.closed = True
         for c in self._all:
             c.close()
         self._all = []
+        _wait_gone(self.tids, min(self.timeout, 10.0))
 
     def __enter__(self) -> "World":
         return self
@@ -438,6 +469,7 @@ class World:
                    for r in range(self.size)]
         for t in threads:
             t.start()
+        self.tids |= {t.native_id for t in threads}
         for t in threads:
             t.join()
         if errs:

@@ -14,8 +14,9 @@ The local diagonal-block product runs the port's kernels:
   * fmt="sell": K2 (ops/sell_spmv.py) on the block's SELL pack, fp32,
                 the packs of all ranks forced to common (passes, S, Lp)
                 as petsctpu's diag_sell stacks them, byte for byte;
-  * fmt="auto" raises: petsctpu gates it on the TPU backend, and the
-    port has no GPU policy for it yet (ROADMAP queue 1 item 6).
+  * fmt="auto": petsctpu's rule for its accelerator (pmat.py's TPU
+    branch), on every device: "sell" when the dtype is fp32 and every
+    rank's diag block is SELL-viable, else "ell".
 The off-diagonal ghost product and the halo's pack and unpack are
 PyTorch gathers (XLA code in petsctpu); the transposed product's
 scatter-adds fold through mat/fold.py in petsctpu's slot order.
@@ -211,6 +212,24 @@ class RankAIJ:
         return self.M.flops_per_mult() / self.M.nshards
 
 
+def _fp32_blocks(blocks) -> list:
+    blocks = [sp.csr_matrix(D).astype(np.float32) for D in blocks]
+    for D in blocks:
+        D.sum_duplicates()
+    return blocks
+
+
+def auto_fmt(blocks, dtype) -> str:
+    """fmt="auto"'s choice for these diag blocks: "sell" when dtype is
+    fp32 and every block is SELL-viable (all or nothing), else "ell"."""
+    from petsctpu_torch.mat.sell import sell_viable
+
+    if np.dtype(dtype) != np.float32:
+        return "ell"
+    return ("sell" if all(sell_viable(D) for D in _fp32_blocks(blocks))
+            else "ell")
+
+
 def diag_sell_packs(blocks) -> list:
     """SELL packs (sell_pack's (arrays, statics) pairs) of the fp32 diag
     blocks with common (passes, S, Lp) and the largest block's nnz, as
@@ -219,9 +238,7 @@ def diag_sell_packs(blocks) -> list:
     from petsctpu_torch.mat.sell import sell_pack, sell_plan_stats, \
         sell_viable
 
-    blocks = [sp.csr_matrix(D).astype(np.float32) for D in blocks]
-    for D in blocks:
-        D.sum_duplicates()
+    blocks = _fp32_blocks(blocks)
     if not all(sell_viable(D) for D in blocks):
         raise ValueError("fmt='sell': a diag block is not SELL-viable; "
                          "use fmt='ell'")
@@ -298,13 +315,8 @@ def sharded_aij_from_scipy(A, nshards: int, dtype=None,
     split (MatPartitioning -> distribution), or a partitioner name,
     "kway" or "rcm", computed here; vectors must then be permuted the
     same way (x_perm = x[part.perm])."""
-    if fmt == "auto":
-        raise ValueError(
-            "fmt='auto': petsctpu picks SELL on the TPU backend only; the "
-            "port has no GPU policy for it yet (ROADMAP queue 1 item 6): "
-            "pass fmt='sell' or fmt='ell'")
-    if fmt not in ("ell", "sell"):
-        raise ValueError(f"fmt {fmt!r}: 'ell' or 'sell'")
+    if fmt not in ("ell", "sell", "auto"):
+        raise ValueError(f"fmt {fmt!r}: 'ell', 'sell' or 'auto'")
     with log_event("MatPartitioning"):
         t0 = time.perf_counter()
         if isinstance(perm, str):
@@ -322,6 +334,8 @@ def sharded_aij_from_scipy(A, nshards: int, dtype=None,
     timings["partition"] = t_perm
     lay = part.layout
     dtype = np_dtype(dtype) or np.asarray(A.data[:1]).dtype
+    if fmt == "auto":
+        fmt = auto_fmt(part.diag_blocks, dtype)
     if fmt == "sell" and dtype != np.float32:
         raise ValueError("fmt='sell' needs dtype=float32 (K2's dtype)")
     t0 = time.perf_counter()

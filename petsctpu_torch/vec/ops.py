@@ -82,6 +82,16 @@ def waxpy(alpha, x, y):
     return alpha * x + y
 
 
+def pointwise_mult(x, y):
+    """w = x ⊙ y (VecPointwiseMult)."""
+    return x * y
+
+
+def pointwise_divide(x, y):
+    """w = x ⊘ y (VecPointwiseDivide)."""
+    return x / y
+
+
 def reduce_all(locals_: Sequence, axis=None):
     """Fuse several scalar reductions into one collective (comb.c
     analog): pass the LOCAL partial values, get the global ones. Serial:

@@ -81,7 +81,9 @@ def test_importing_every_module_pulls_in_no_jax_or_petsctpu():
               "pc.parallel", "mat.partition", "dm.decomp", "io",
               "io.viewer", "mat.griddetect", "core.draw", "models.lattice",
               "entry", "examples", "models.wave1d", "models.q1elasticity",
-              "models.poisson", "pc.mg", "convert",
+              "models.poisson", "pc.mg", "convert", "mat.sbaijfact",
+              "core.debug", "core.ams", "core.hostmem", "io.vtk",
+              "vec.nest", "vec.pf",
               *(f"examples.{n}" for n in EXAMPLES)):
         assert f"petsctpu_torch.{m}" in mods
     mods.append("chip_smoke")
@@ -140,6 +142,12 @@ def _entry_points():
                                         p2_assemble_poisson)
     from petsctpu_torch.dm.shell import DMRedundant
     from petsctpu_torch.entry import entry
+    from petsctpu_torch.convert import sbaij_cholesky_from_arrays
+    from petsctpu_torch.core.random import Random
+    from petsctpu_torch.mat.base import ScatterMat
+    from petsctpu_torch.mat.ell import aij_from_dense
+    from petsctpu_torch.mat.sbaijfact import (make_sbaij_cholesky,
+                                              sbaij_cholesky_factor)
 
     A, _, _ = ex2_system(40, 40)             # 1600 rows: one SELL tile
     halves = [np.arange(800), np.arange(800, 1600)]
@@ -197,6 +205,14 @@ def _entry_points():
             ["probe_gather6_C", *(("--device", kw["device"]) if kw
                                   else ())])[0]["out"],
         "entry": lambda **kw: entry(**kw)[1][0],
+        "make_sbaij_cholesky": lambda **kw: make_sbaij_cholesky(
+            A, 2, **kw).dinv,
+        "sbaij_cholesky_from_arrays": lambda **kw: sbaij_cholesky_from_arrays(
+            *sbaij_cholesky_factor(A, 2), **kw).dinv,
+        "ScatterMat": lambda **kw: ScatterMat([2, 0, 1], (3, 3), **kw).idx,
+        "Random": lambda **kw: Random(3, **kw).get_values((4,)),
+        "aij_from_dense": lambda **kw: aij_from_dense(
+            np.eye(4), **kw).vals,
         **{f"examples.{n}": _example(n) for n in EXAMPLES},
     }
 
@@ -239,6 +255,9 @@ def _example(name):
                                   "p2_assemble_poisson",
                                   "DMComposite.create_global_vector",
                                   "DMRedundant.create_matrix", "entry",
+                                  "make_sbaij_cholesky",
+                                  "sbaij_cholesky_from_arrays",
+                                  "ScatterMat", "Random", "aij_from_dense",
                                   *(f"examples.{n}" for n in EXAMPLES)])
 def test_entry_point_without_device_needs_cuda(name):
     if torch.cuda.is_available():

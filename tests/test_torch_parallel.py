@@ -190,15 +190,10 @@ def test_ell_packs_byte_equal(P):
                         getattr(T, f)[p].numpy(), ref[p], err_msg=f)
 
 
-@pytest.mark.parametrize("P", NPS)
-def test_sell_packs_byte_equal(P):
-    """fmt="sell": each rank's SELL pack (K2's operand) is row p of
-    petsctpu's stacked diag_sell, with the common (passes, S, Lp)."""
-    A = poisson3d(32 if P == 8 else 24).astype(np.float32)
-    R, _ = r_sharded(A, P, dtype=np.float32, fmt="sell")
-    T, _ = sharded_aij_from_scipy(A, P, dtype=np.float32, fmt="sell",
-                                  device="cpu")
+def assert_sell_ranks_equal(T, R, P):
+    """Each rank's SELL pack of T is row p of R's stacked diag_sell."""
     S = R.diag_sell
+    assert T.fmt == "sell"
     for p in range(P):
         M = T.diag_ops[p]
         for f in ("vals", "idx", "qs", "winstart", "diag"):
@@ -207,8 +202,46 @@ def test_sell_packs_byte_equal(P):
                                           err_msg=f)
         assert (M.G, M.S, M.Lp, M.nnz, M.mode) == \
             (S.G, S.S, S.Lp, S.nnz, S.mode)
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        sharded_aij_from_scipy(A, P, fmt="auto", device="cpu")
+
+
+@pytest.mark.parametrize("P", NPS)
+def test_sell_packs_byte_equal(P):
+    """fmt="sell": each rank's SELL pack (K2's operand) is row p of
+    petsctpu's stacked diag_sell, with the common (passes, S, Lp); fmt
+    "auto" takes the same packs on these fp32 SELL-viable blocks."""
+    A = poisson3d(32 if P == 8 else 24).astype(np.float32)
+    R, _ = r_sharded(A, P, dtype=np.float32, fmt="sell")
+    for fmt in ("sell", "auto"):
+        T, _ = sharded_aij_from_scipy(A, P, dtype=np.float32, fmt=fmt,
+                                      device="cpu")
+        assert_sell_ranks_equal(T, R, P)
+
+
+@pytest.mark.parametrize("P", NPS)
+def test_auto_fmt_follows_the_accelerator_rule(P, monkeypatch):
+    """fmt="auto" on the CPU takes petsctpu's accelerator rule
+    (pmat.py's TPU branch, run here with jax.default_backend patched to
+    "tpu"): SELL packs byte-equal to its diag_sell where every fp32 rank
+    block is SELL-viable; the ELL packs where one is not (blocks under
+    2,048 rows) or the dtype is fp64."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    big = poisson3d(32 if P == 8 else 24)
+    small = poisson3d(9)
+    for A, dtype, want in ((big, np.float32, "sell"),
+                           (small, np.float32, "ell"),
+                           (big, np.float64, "ell")):
+        R, _ = r_sharded(A, P, dtype=dtype, fmt="auto")
+        T, _ = sharded_aij_from_scipy(A, P, dtype=dtype, fmt="auto",
+                                      device="cpu")
+        assert T.fmt == want and (R.diag_sell is not None) == \
+            (want == "sell")
+        if want == "sell":
+            assert_sell_ranks_equal(T, R, P)
+        for f in ("diag_cols", "diag_vals", "off_cols", "off_vals"):
+            ref = np.asarray(getattr(R, f))
+            for p in range(P):
+                np.testing.assert_array_equal(getattr(T, f)[p].numpy(),
+                                              ref[p], err_msg=f)
 
 
 @pytest.mark.parametrize("P", NPS)
